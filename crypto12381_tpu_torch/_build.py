@@ -1,0 +1,133 @@
+"""Build, load and launch the port's CUDA kernels.
+
+Each source in csrc/ is compiled at first use by `nvcc` into its own shared
+library with a plain C interface, in a directory under the checkout's
+`build/` named by a hash of the sources and flags, and loaded with ctypes.
+All sources compile in parallel, one `nvcc` each.  Nothing here runs when
+the module is imported.
+
+Every C entry point takes its tensors' device pointers, the row count and a
+CUDA stream, launches on that stream, and returns `cudaGetLastError()`;
+`launch` raises if that is not 0 and otherwise adds one to the kernel's
+launch count in `LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+import torch
+
+_PKG = pathlib.Path(__file__).resolve().parent
+_CSRC = _PKG / "csrc"
+_BUILD_ROOT = _PKG.parent / "build" / "crypto12381_tpu_torch"
+
+#: library name -> (source file, {C function: number of tensor pointers})
+_LIBS_SPEC = {
+    "fp": ("fp.cu", {"fp_mont_mul": 3}),
+    "tower": ("tower.cu", {"fp2_mul": 3, "fp2_sqr": 2, "fp6_mul": 3}),
+}
+_HEADERS = ("fp381.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+#: launches per C function, counted by `launch`
+LAUNCHES = {fn: 0 for _, fns in _LIBS_SPEC.values() for fn in fns}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+#: library name -> nvcc's output (ptxas register and spill report)
+BUILD_LOG: dict[str, str] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME:
+        cand = pathlib.Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
+    return found
+
+
+def _build_dir() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted({s for s, _ in _LIBS_SPEC.values()} | set(_HEADERS)):
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    return _BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build() -> dict[str, pathlib.Path]:
+    """Compile every library that is not built yet, all in parallel, and
+    return name -> path.  Raises with nvcc's output if any compile fails."""
+    out_dir = _build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = {name: out_dir / f"lib{name}.so" for name in _LIBS_SPEC}
+    todo = [n for n, p in paths.items() if not p.exists()]
+    if not todo:
+        return paths
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        src = _CSRC / _LIBS_SPEC[name][0]
+        tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+        else:
+            tmp.replace(paths[name])
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def library(name: str) -> ctypes.CDLL:
+    lib = _loaded.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build()[name]))
+        for fn, n_ptr in _LIBS_SPEC[name][1].items():
+            f = getattr(lib, fn)
+            f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int64, ctypes.c_void_p]
+            f.restype = ctypes.c_int
+        _loaded[name] = lib
+    return lib
+
+
+def launch(lib_name: str, fn: str, tensors, n: int) -> None:
+    """Launch `fn` over n rows on the current stream of the tensors' card.
+    tensors: contiguous int32 CUDA tensors of one size (inputs, then the
+    output), n rows each."""
+    dev = tensors[0].device
+    size = tensors[-1].numel()
+    for t in tensors:
+        if (t.device != dev or dev.type != "cuda" or t.dtype != torch.int32
+                or not t.is_contiguous() or t.numel() != size or size % max(n, 1)):
+            raise ValueError(f"{fn}: needs contiguous int32 tensors of one size on one CUDA device")
+    f = getattr(library(lib_name), fn)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = f(*[t.data_ptr() for t in tensors], n, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
+    LAUNCHES[fn] += 1

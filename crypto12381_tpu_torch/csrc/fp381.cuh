@@ -1,0 +1,197 @@
+// Device arithmetic for the BLS12-381 base field on 32-bit limbs.
+//
+// An element is 12 little-endian uint32 limbs of its Montgomery form
+// x * 2^384 mod p, canonical (0 <= v < p) at every function boundary.  An
+// operand of mont_mul may also be the raw sum of two canonical values
+// (below 2p < 2^382): then a*b < 4p^2, and (a*b + m*p) / 2^384 < 2p, so one
+// conditional subtraction gives the canonical product.
+//
+// mont_mul is the CIOS (coarsely integrated operand scanning) Montgomery
+// product with 64-bit accumulators, a template over the limb count so the
+// scalar field (8 limbs) can share it.  Every loop is unrolled; the limbs
+// live in registers.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace fp381 {
+
+constexpr int NL = 12;
+
+__constant__ uint32_t FP_P[NL] = {
+    0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
+    0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
+
+// -p^-1 mod 2^32
+constexpr uint32_t FP_N0 = 0xfffcfffdu;
+
+// Modulus traits: the limb count selects the field.
+template <int N>
+struct Field;
+
+template <>
+struct Field<NL> {
+  static __device__ __forceinline__ uint32_t p(int j) { return FP_P[j]; }
+  static constexpr uint32_t n0 = FP_N0;
+};
+
+// r = t - p if t >= p (t given as N limbs plus a top word), else t.
+template <int N>
+__device__ __forceinline__ void cond_sub_p(uint32_t* r, const uint32_t* t, uint32_t top) {
+  uint32_t d[N];
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    uint64_t s = (uint64_t)t[j] - Field<N>::p(j) - borrow;
+    d[j] = (uint32_t)s;
+    borrow = (s >> 32) & 1u;
+  }
+  const bool keep = borrow && !top;  // t < p
+#pragma unroll
+  for (int j = 0; j < N; ++j) r[j] = keep ? t[j] : d[j];
+}
+
+// r = a * b * 2^(-32N) mod p, canonical.  a, b < 2p.  r may alias a or b.
+template <int N>
+__device__ __forceinline__ void mont_mul(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  uint32_t t[N + 2];
+#pragma unroll
+  for (int j = 0; j < N + 2; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const uint32_t bi = b[i];
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      c += (uint64_t)a[j] * bi + t[j];
+      t[j] = (uint32_t)c;
+      c >>= 32;
+    }
+    c += t[N];
+    t[N] = (uint32_t)c;
+    t[N + 1] = (uint32_t)(c >> 32);
+    const uint32_t m = t[0] * Field<N>::n0;
+    c = ((uint64_t)m * Field<N>::p(0) + t[0]) >> 32;
+#pragma unroll
+    for (int j = 1; j < N; ++j) {
+      c += (uint64_t)m * Field<N>::p(j) + t[j];
+      t[j - 1] = (uint32_t)c;
+      c >>= 32;
+    }
+    c += t[N];
+    t[N - 1] = (uint32_t)c;
+    t[N] = t[N + 1] + (uint32_t)(c >> 32);
+  }
+  cond_sub_p<N>(r, t, t[N]);
+}
+
+// r = a + b without reduction (a value below 2p for canonical a, b).
+template <int N>
+__device__ __forceinline__ void add_raw(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    c += (uint64_t)a[j] + b[j];
+    r[j] = (uint32_t)c;
+    c >>= 32;
+  }
+}
+
+// r = (a + b) mod p for canonical a, b.  r may alias a or b.
+template <int N>
+__device__ __forceinline__ void add_mod(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  uint32_t s[N];
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    c += (uint64_t)a[j] + b[j];
+    s[j] = (uint32_t)c;
+    c >>= 32;
+  }
+  cond_sub_p<N>(r, s, (uint32_t)c);
+}
+
+// r = (a - b) mod p for canonical a, b.  r may alias a or b.
+template <int N>
+__device__ __forceinline__ void sub_mod(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  uint32_t d[N];
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    uint64_t s = (uint64_t)a[j] - b[j] - borrow;
+    d[j] = (uint32_t)s;
+    borrow = (s >> 32) & 1u;
+  }
+  const uint32_t mask = borrow ? 0xffffffffu : 0u;  // add p back on borrow
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    c += (uint64_t)d[j] + (Field<N>::p(j) & mask);
+    r[j] = (uint32_t)c;
+    c >>= 32;
+  }
+}
+
+// ---------------------------------------------------------------- Fp2
+// An Fp2 value is x[0..N) (real) and x[N..2N) (imaginary).
+
+// r = a * b (Karatsuba: 3 products).  r must not alias a or b.
+__device__ __forceinline__ void fp2_mul(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  uint32_t t0[NL], t1[NL], sa[NL], sb[NL];
+  mont_mul<NL>(t0, a, b);
+  mont_mul<NL>(t1, a + NL, b + NL);
+  add_raw<NL>(sa, a, a + NL);
+  add_raw<NL>(sb, b, b + NL);
+  mont_mul<NL>(sa, sa, sb);            // (a0 + a1)(b0 + b1)
+  sub_mod<NL>(r, t0, t1);              // re = t0 - t1
+  sub_mod<NL>(sa, sa, t0);
+  sub_mod<NL>(r + NL, sa, t1);         // im = t2 - t0 - t1
+}
+
+// r = a^2: (a0 + a1)(a0 - a1), a0 * 2 a1.  r must not alias a.
+__device__ __forceinline__ void fp2_sqr(uint32_t* r, const uint32_t* a) {
+  uint32_t x[NL], y[NL];
+  add_raw<NL>(x, a, a + NL);
+  sub_mod<NL>(y, a, a + NL);
+  mont_mul<NL>(r, x, y);
+  add_raw<NL>(y, a + NL, a + NL);
+  mont_mul<NL>(r + NL, a, y);
+}
+
+__device__ __forceinline__ void fp2_add(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  add_mod<NL>(r, a, b);
+  add_mod<NL>(r + NL, a + NL, b + NL);
+}
+
+__device__ __forceinline__ void fp2_sub(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  sub_mod<NL>(r, a, b);
+  sub_mod<NL>(r + NL, a + NL, b + NL);
+}
+
+// r = xi * a = (re - im, re + im).  r must not alias a.
+__device__ __forceinline__ void fp2_mul_xi(uint32_t* r, const uint32_t* a) {
+  sub_mod<NL>(r, a, a + NL);
+  add_mod<NL>(r + NL, a, a + NL);
+}
+
+// ------------------------------------------------------- global memory
+
+template <int N>
+__device__ __forceinline__ void load(uint32_t* r, const uint32_t* g) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) r[j] = g[j];
+}
+
+template <int N>
+__device__ __forceinline__ void store(uint32_t* g, const uint32_t* r) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) g[j] = r[j];
+}
+
+constexpr int THREADS = 128;
+
+inline int64_t blocks_for(int64_t n) { return (n + THREADS - 1) / THREADS; }
+
+}  // namespace fp381

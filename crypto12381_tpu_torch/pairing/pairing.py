@@ -1,0 +1,217 @@
+"""Batched optimal-ate pairing with the reference's normalization.
+
+Counterpart of the JAX package's `pairing/pairing.py`: the n3/n digit
+Miller loop with M-type twist line functions, the final conjugation for
+the negative x, and the final exponentiation whose hard part is CUBED (the
+reference's reduced pairing is the textbook ate pairing cubed).  The digit
+schedule is a host constant, so the loop is a plain Python loop over static
+digits: no data-dependent control flow.
+
+Line values are sparse Fp12 elements with w-basis coefficients at
+positions (0, 3, 5).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..curves import g2 as G2
+from ..fields import fp as FP
+from ..fields import fused as FK
+from ..fields import tower as TW
+from ..host.curve import G1_GEN, G2_GEN
+from ..params import LIMBS, P, R, X_ABS
+
+
+@functools.lru_cache(maxsize=1)
+def _digits() -> list[int]:
+    """bt_i = bit(3n, i) - bit(n, i) for i = nb-2 .. 1, n = |x|."""
+    n = X_ABS
+    n3 = 3 * n
+    nb = n3.bit_length()
+    return [((n3 >> i) & 1) - ((n >> i) & 1) for i in range(nb - 2, 0, -1)]
+
+
+def _exponent_identity_check():
+    """The hard-part decomposition used below, checked exactly on import."""
+    x = -X_ABS
+    lhs = (x - 1) ** 2 * (x + P) * (x * x + P * P - 1) + 3
+    assert lhs == 3 * ((P**4 - P**2 + 1) // R), "hard-part identity"
+
+
+_exponent_identity_check()
+
+
+# ---------------------------------------------------------------------------
+# Line evaluation (M-type twist)
+# ---------------------------------------------------------------------------
+
+
+def _line_dbl_coeffs(A):
+    """Tangent line at A = (X, Y, Z): AA = -2YZ xi; BB = 12 xi Z^2 - Y^2;
+    CC = 3X^2."""
+    X, Y, Z = A
+    yz, x2, y2, z2 = TW.fp2_mul_many([(Y, Z), (X, X), (Y, Y), (Z, Z)])
+    aa = TW.fp2_mul_xi(TW.fp2_neg(TW.fp2_add(yz, yz)))
+    bb = TW.fp2_sub(TW.fp2_mul_xi(TW.fp2_mul_small(z2, 12)), y2)
+    cc = TW.fp2_mul_small(x2, 3)
+    return (aa, bb, cc)
+
+
+def _line_add_coeffs(A, Pxy):
+    """Chord through A = (X1, Y1, Z1) and affine (X2, Y2):
+    l1 = X1 - Z1 X2; l2 = Y1 - Z1 Y2; AA = xi l1; BB = l2 X2 - l1 Y2;
+    CC = -l2."""
+    X1, Y1, Z1 = A
+    X2, Y2 = Pxy
+    zx, zy = TW.fp2_mul_many([(Z1, X2), (Z1, Y2)])
+    l1 = TW.fp2_sub(X1, zx)
+    l2 = TW.fp2_sub(Y1, zy)
+    m1, m2 = TW.fp2_mul_many([(l2, X2), (l1, Y2)])
+    return (TW.fp2_mul_xi(l1), TW.fp2_sub(m1, m2), TW.fp2_neg(l2))
+
+
+def _eval_line(coeffs, qx, qy):
+    """(AA, BB, CC) -> sparse line value (AA qy, BB, CC qx) at the G1
+    point: both products in one K1 launch."""
+    aa, bb, cc = coeffs
+    t = FP.mont_mul(torch.stack([aa, cc]), torch.stack([qy, qx])[..., None, :])
+    return (t[0], bb, t[1])
+
+
+def _line_dbl(A, qx, qy):
+    return _eval_line(_line_dbl_coeffs(A), qx, qy)
+
+
+def _line_add(A, Pxy, qx, qy):
+    return _eval_line(_line_add_coeffs(A, Pxy), qx, qy)
+
+
+def _mul_sparse(f, line):
+    """f * line where line has w-coefficients only at positions 0, 3, 5:
+    15 Fp2 products in one K2 launch (fields/fused.sparse_mul_c)."""
+    out = FK.sparse_mul_c(f.reshape(-1, 2, 3, 2, LIMBS),
+                          *[c.reshape(-1, 2, LIMBS) for c in line])
+    return out.reshape(f.shape)
+
+
+# ---------------------------------------------------------------------------
+# Miller loop
+# ---------------------------------------------------------------------------
+
+
+def miller_loop(p_aff, q_aff):
+    """f over the reference's n3/n digit schedule.
+
+    p_aff: G1 affine (x, y), Fp tensors (..., 12)
+    q_aff: G2 affine (X, Y), Fp2 tensors (..., 2, 12)
+    Returns the Miller value after the negative-x conjugation."""
+    qx, qy = p_aff
+    Px, Py = q_aff
+    batch = qx.shape[:-1]
+    dev = qx.device
+    NPy = TW.fp2_neg(Py)
+    A = (Px, Py, TW.fp2_one(batch, dev))
+    f = TW.fp12_one(batch, dev)
+    for d in _digits():
+        f = TW.fp12_sqr(f)
+        f = _mul_sparse(f, _line_dbl(A, qx, qy))
+        A = G2.double(A)
+        if d:
+            pay = Py if d > 0 else NPy
+            f = _mul_sparse(f, _line_add(A, (Px, pay), qx, qy))
+            A = G2.madd(A, (Px, pay))
+    return TW.fp12_conj(f)
+
+
+# ---------------------------------------------------------------------------
+# Final exponentiation
+# ---------------------------------------------------------------------------
+
+
+def _pow_abs_x(g):
+    """g^|x| by cyclotomic squarings, with a multiply at each of the 5 set
+    bits of |x| after the leading one."""
+    acc = g
+    for bit in bin(X_ABS)[3:]:
+        acc = TW.fp12_usqr(acc)
+        if bit == "1":
+            acc = TW.fp12_mul(acc, g)
+    return acc
+
+
+def final_exp(f):
+    """f^((p^12-1)/r * 3): the easy part, then the cubed hard part
+    3(p^4-p^2+1)/r = (x-1)^2 (x+p) (x^2+p^2-1) + 3."""
+    m = TW.fp12_mul(TW.fp12_conj(f), TW.fp12_inv(f))
+    m = TW.fp12_mul(TW.fp12_frob(m, 2), m)
+    # m is in the cyclotomic subgroup: inverse == conjugate
+    a = TW.fp12_conj(TW.fp12_mul(_pow_abs_x(m), m))                # m^(x-1)
+    b = TW.fp12_conj(TW.fp12_mul(_pow_abs_x(a), a))                # a^(x-1)
+    d = TW.fp12_mul(TW.fp12_conj(_pow_abs_x(b)), TW.fp12_frob(b, 1))  # b^(x+p)
+    dx2 = _pow_abs_x(_pow_abs_x(d))
+    e = TW.fp12_mul(TW.fp12_mul(dx2, TW.fp12_frob(d, 2)), TW.fp12_conj(d))
+    return TW.fp12_mul(e, TW.fp12_mul(TW.fp12_sqr(m), m))           # e * m^3
+
+
+# ---------------------------------------------------------------------------
+# Public pairing API
+# ---------------------------------------------------------------------------
+
+
+def pairing_affine(p_aff, q_aff, p_inf=None, q_inf=None):
+    """Reduced pairing e(P, Q) from affine coordinates.  Optional boolean
+    infinity masks (batch shape) give e(O, .) = e(., O) = 1."""
+    f = final_exp(miller_loop(p_aff, q_aff))
+    if p_inf is not None or q_inf is not None:
+        batch = p_aff[0].shape[:-1]
+        inf = torch.zeros(batch, dtype=torch.bool, device=f.device)
+        for m in (p_inf, q_inf):
+            if m is not None:
+                inf = inf | torch.as_tensor(m, dtype=torch.bool, device=f.device)
+        f = torch.where(inf[..., None, None, None, None], TW.fp12_one(batch, f.device), f)
+    return f
+
+
+def _device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "pair_batch runs on a CUDA card by default and none is present; "
+                "pass device='cpu' to run the plain versions")
+        device = "cuda"
+    return torch.device(device)
+
+
+def pair_batch(g1_points, g2_points, p_inf=None, q_inf=None, device=None):
+    """Batched reduced pairing of host affine points.
+
+    g1_points: list of (x, y) ints, or None for the point at infinity.
+    g2_points: list of ((xr, xi), (yr, yi)), or None.
+    p_inf, q_inf: optional boolean masks; a masked row pairs to one.
+    device: defaults to the CUDA card, and raises if there is none.
+    Returns the GT values as a (B, 2, 3, 2, 12) tensor on the device
+    (tower.fp12_to_host and compat.codec.gt_serialize read them back)."""
+    dev = _device(device)
+    n = len(g1_points)
+    if len(g2_points) != n:
+        raise ValueError("g1_points and g2_points differ in length")
+    g1_inf = [pt is None for pt in g1_points]
+    g2_inf = [pt is None for pt in g2_points]
+    g1 = [G1_GEN if pt is None else pt for pt in g1_points]
+    g2 = [G2_GEN if pt is None else pt for pt in g2_points]
+    px = FP.from_int([pt[0] for pt in g1], dev)
+    py = FP.from_int([pt[1] for pt in g1], dev)
+    qx = torch.stack([FP.from_int([pt[0][0] for pt in g2], dev),
+                      FP.from_int([pt[0][1] for pt in g2], dev)], -2)
+    qy = torch.stack([FP.from_int([pt[1][0] for pt in g2], dev),
+                      FP.from_int([pt[1][1] for pt in g2], dev)], -2)
+    pm = torch.tensor(g1_inf, dtype=torch.bool)
+    qm = torch.tensor(g2_inf, dtype=torch.bool)
+    if p_inf is not None:
+        pm = pm | torch.as_tensor(p_inf, dtype=torch.bool).cpu()
+    if q_inf is not None:
+        qm = qm | torch.as_tensor(q_inf, dtype=torch.bool).cpu()
+    return pairing_affine((px, py), (qx, qy), pm.to(dev), qm.to(dev))

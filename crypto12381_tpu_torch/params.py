@@ -1,0 +1,77 @@
+"""BLS12-381 curve parameters and the port's Montgomery constants.
+
+The curve constants are the standard, publicly specified BLS12-381 values
+(IETF pairing-friendly-curves / RFC 9380), the same integers as the JAX
+package's `crypto12381_tpu/params.py`.
+
+Field elements in this package are 12 little-endian 32-bit limbs in
+Montgomery form with R = 2^384 (see fields/fp.py).  The plain PyTorch
+versions of the kernels work on 24 words of 16 bits with the same R, so
+both give the same canonical limbs.
+"""
+
+from __future__ import annotations
+
+# ---------------------------------------------------------------------------
+# Curve constants
+# ---------------------------------------------------------------------------
+
+#: Base field prime p (381 bits).
+P = 0x1A0111EA397FE69A4B1BA7B6434BACD764774B84F38512BF6730D2A0F6B0F6241EABFFFEB153FFFFB9FEFFFFFFFFAAAB
+
+#: Group order r (255 bits) = size of G1/G2/GT.
+R = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
+
+#: BLS parameter x is negative: x = -X_ABS.  |x| has Hamming weight 6.
+X_ABS = 0xD201000000010000
+X_SIGN = -1
+
+#: E/Fp: y^2 = x^3 + 4;  E'/Fp2: y^2 = x^3 + 4(1+i) (M-type sextic twist).
+B_G1 = 4
+B_G2 = (4, 4)  # 4*(1+i) as (real, imag)
+
+G1_GEN_X = 0x17F1D3A73197D7942695638C4FA9AC0FC3688C4F9774B905A14E3A3F171BAC586C55E83FF97A1AEFFB3AF00ADB22C6BB
+G1_GEN_Y = 0x08B3F481E3AAA0F1A09E30ED741D8AE4FCF5E095D5D00AF600DB18CB2C04B3EDD03CC744A2888AE40CAA232946C5E7E1
+
+# G2 generator, coordinates in Fp2 = Fp[i] as (real, imag)
+G2_GEN_X = (
+    0x024AA2B2F08F0A91260805272DC51051C6E47AD4FA403B02B4510B647AE3D1770BAC0326A805BBEFD48056C8C121BDB8,
+    0x13E02B6052719F607DACD3A088274F65596BD0D09920B61AB5DA61BBDC7F5049334CF11213945D57E5AC7D055D042B7E,
+)
+G2_GEN_Y = (
+    0x0CE5D527727D6E118CC9CDC6DA2E351AADFD9BAA8CBDD3A76D429A695160D12C923AC9CC3BACA289E193548608B82801,
+    0x0606C4A02EA734CC32ACD2B02BC28B99CB3E287E85A763AF267492AB572E99AB3F370D275CEC1DA1AAA9075FF05F79BE,
+)
+
+MODBYTES = 48          # one Fp element, big-endian
+GT_BYTES = 576         # 12 Fp coefficients
+
+#: xi = 1 + i: Fp6 = Fp2[v]/(v^3 - xi), Fp12 = Fp6[w]/(w^2 - v).
+XI = (1, 1)
+
+# ---------------------------------------------------------------------------
+# Montgomery constants for 32-bit limbs, R = 2^384
+# ---------------------------------------------------------------------------
+
+LIMBS = 12
+LIMB_BITS = 32
+LIMB_MASK = (1 << LIMB_BITS) - 1
+R_BITS = LIMBS * LIMB_BITS            # 384
+MONT_R = 1 << R_BITS
+
+#: p's limbs, little-endian.
+P_LIMBS = [(P >> (LIMB_BITS * i)) & LIMB_MASK for i in range(LIMBS)]
+#: n0' = -p^-1 mod 2^32 (CIOS word constant).
+N0 = (-pow(P, -1, 1 << 32)) % (1 << 32)
+#: R mod p (Montgomery one) and R^2 mod p (to-Montgomery factor).
+R_MOD = MONT_R % P
+R2_MOD = (MONT_R * MONT_R) % P
+#: R^-1 mod p (from-Montgomery factor on the host).
+R_INV = pow(MONT_R, -1, P)
+
+# The same R seen as 24 words of 16 bits (the plain versions' layout).
+WORDS16 = 24
+P_WORDS16 = [(P >> (16 * i)) & 0xFFFF for i in range(WORDS16)]
+N0_16 = (-pow(P, -1, 1 << 16)) % (1 << 16)
+
+assert 4 * P < MONT_R, "sums of two canonical values must fit 12 limbs"

@@ -1,0 +1,151 @@
+"""The CUDA kernels' arithmetic, run on the host.
+
+The device functions and kernel bodies of crypto12381_tpu_torch/csrc/
+are plain C++ once the CUDA keywords are defined away, so a host C++
+compiler can build them into a small program that runs each kernel body
+once per row. Its outputs must equal the plain PyTorch versions bit for
+bit, on canonical operands with the edge values 0, 1 and p-1, and for K1
+on pre-sums up to 2p-2, and the header's copies of p and n0' must equal
+params.py's. The launch code (the `<<<...>>>` wrappers) and
+the card itself are exercised only by chip_smoke.py.
+"""
+
+import pathlib
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+
+from crypto12381_tpu.params import P
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "crypto12381_tpu_torch" / "csrc"
+R_INV = pow(1 << 384, -1, P)        # the port's Montgomery R = 2^384
+
+torch = FP = FK = None              # bound by _port
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _port():
+    """Import torch and the port when this file's test runs, not when the
+    file is collected (every test worker collects every file)."""
+    global torch, FP, FK
+    import torch
+    from crypto12381_tpu_torch.fields import fp as FP
+    from crypto12381_tpu_torch.fields import fused as FK
+
+SHIM = """#pragma once
+#include <cstdint>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __constant__
+#define __launch_bounds__(x)
+#define __restrict__
+struct Dim3 { unsigned x; };
+static Dim3 blockIdx, threadIdx;
+typedef void* cudaStream_t;
+"""
+
+MAIN = r"""
+#include <cstdio>
+#include <vector>
+template <class K> void rows(K k, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    blockIdx.x = (unsigned)(i / THREADS); threadIdx.x = (unsigned)(i % THREADS); k();
+  }
+}
+int main(int argc, char** argv) {
+  FILE* f = fopen(argv[1], "rb");
+  int64_t n;
+  if (fread(&n, 8, 1, f) != 1) return 1;
+  std::vector<uint32_t> a(n * 72), b(n * 72);
+  if (fread(a.data(), 4, n * 72, f) != (size_t)(n * 72)) return 1;
+  if (fread(b.data(), 4, n * 72, f) != (size_t)(n * 72)) return 1;
+  fclose(f);
+  std::vector<uint32_t> o1(n * 12), o2(n * 24), o3(n * 24), o4(n * 72);
+  rows([&] { mont_mul_kernel<12>(a.data(), b.data(), o1.data(), n); }, n);
+  rows([&] { fp2_mul_kernel(a.data(), b.data(), o2.data(), n); }, n);
+  rows([&] { fp2_sqr_kernel(a.data(), o3.data(), n); }, n);
+  rows([&] { fp6_mul_kernel(a.data(), b.data(), o4.data(), n); }, n);
+  FILE* g = fopen(argv[2], "wb");
+  fwrite(o1.data(), 4, n * 12, g); fwrite(o2.data(), 4, n * 24, g);
+  fwrite(o3.data(), 4, n * 24, g); fwrite(o4.data(), 4, n * 72, g);
+  fclose(g);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("clang++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the kernel bodies with")
+    d = tmp_path_factory.mktemp("csrc_host")
+    (d / "inc").mkdir()
+    (d / "inc" / "cuda_runtime.h").write_text(SHIM)
+    bodies = []
+    for name in ("fp.cu", "tower.cu"):
+        text = (CSRC / name).read_text()
+        text = text[: text.index('extern "C"')]
+        bodies.append(text.replace('#include "fp381.cuh"', "").replace("using namespace fp381;", ""))
+    src = (f'#include "{CSRC / "fp381.cuh"}"\nusing namespace fp381;\n'
+           + "\n".join(bodies) + MAIN)
+    (d / "harness.cpp").write_text(src)
+    exe = d / "harness"
+    subprocess.run([cxx, "-std=c++17", "-O1", f"-I{d / 'inc'}", "-o", str(exe),
+                    str(d / "harness.cpp")], check=True, capture_output=True, timeout=300)
+    return d, exe
+
+
+def run(harness, av, bv):
+    d, exe = harness
+    n = len(av) // 6
+    a = np.stack([FP.limbs_of(v) for v in av])
+    b = np.stack([FP.limbs_of(v) for v in bv])
+    with open(d / "in.bin", "wb") as f:
+        f.write(np.int64(n).tobytes() + a.tobytes() + b.tobytes())
+    subprocess.run([str(exe), str(d / "in.bin"), str(d / "out.bin")], check=True, timeout=300)
+    o = torch.from_numpy(np.fromfile(d / "out.bin", np.int32))
+    outs = (o[: 12 * n].reshape(n, 12), o[12 * n: 36 * n].reshape(n, 2, 12),
+            o[36 * n: 60 * n].reshape(n, 2, 12), o[60 * n:].reshape(n, 3, 2, 12))
+    return torch.from_numpy(a), torch.from_numpy(b), n, outs
+
+
+def rand_ints(seed, k, bound):
+    rng = np.random.default_rng(seed)
+    return [int.from_bytes(rng.bytes(48), "little") % bound for _ in range(k)]
+
+
+def header_constants():
+    """p's limbs and n0' as written in fp381.cuh."""
+    text = (CSRC / "fp381.cuh").read_text()
+    body = re.search(r"FP_P\[NL\] = \{([^}]*)\}", text).group(1)
+    limbs = [int(w.strip().rstrip("u"), 16) for w in body.split(",")]
+    n0 = int(re.search(r"FP_N0 = (0x[0-9a-f]+)u", text).group(1), 16)
+    return limbs, n0
+
+
+def test_kernel_bodies_match_plain_versions(harness):
+    from crypto12381_tpu_torch import params
+
+    assert header_constants() == (params.P_LIMBS, params.N0)
+    assert params.N0 * P % (1 << 32) == (1 << 32) - 1       # n0' = -p^-1 mod 2^32
+    n = 40
+    for presum in (False, True):
+        edge = [0, 1, P - 1] + ([2 * P - 2, P] if presum else [])
+        bound = 2 * P - 1 if presum else P
+        av = edge + rand_ints(1, 6 * n - len(edge), bound)
+        bv = edge[::-1] + rand_ints(2, 6 * n - len(edge), bound)
+        a, b, n, (k1, k2, k3, k4) = run(harness, av, bv)
+        assert torch.equal(k1, FP.mont_mul_plain(a[:n], b[:n]))
+        assert [FP.int_of(r) for r in k1.numpy()] == [
+            x * y * R_INV % P for x, y in zip(av[:n], bv[:n])]
+        if not presum:           # K2-K4 take canonical operands only
+            assert torch.equal(k2, FK.fp2_mul_plain(a[: 2 * n].reshape(n, 2, 12),
+                                                    b[: 2 * n].reshape(n, 2, 12)))
+            assert torch.equal(k3, FK.fp2_sqr_plain(a[: 2 * n].reshape(n, 2, 12)))
+            assert torch.equal(k4, FK.fp6_mul_plain(a.reshape(n, 3, 2, 12),
+                                                    b.reshape(n, 3, 2, 12)))
