@@ -1,20 +1,36 @@
 #!/usr/bin/env python3
-"""Build the PyTorch/CUDA port's kernels and drive its batched pairing on
-one CUDA card.
+"""Build the PyTorch/CUDA port's kernels and drive its batched pairing,
+G1 scalar multiplication and G1 MSM on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the smoke run
+    python3 chip_smoke.py --trace    # and one profiled call of each path
 
 Phases, one line each; any failure raises and ends the run non-zero:
   device   card name and count, nvidia-smi's name and power limit
   build    nvcc seconds, registers and spills per kernel
-  kernels  K1-K4 at the row counts the pairing gives them at B = 2048,
-           each held bit for bit against its plain PyTorch version on the
-           card; device time of both (CUDA graph replays timed with CUDA
-           events) and the kernel's time when issued eagerly from Python
+  kernels  K1-K7 at the row counts their paths give them (K1-K4: the
+           pairing at B = 2048; K5: one MSM bucket step, 64 lanes x 33
+           windows; K6, K7: one GLV ladder step at B = 8192), each held bit
+           for bit against its plain PyTorch version on the card (K5-K7
+           with the identity, P = Q and P = -Q in their first rows); device
+           time of both (CUDA graph replays timed with CUDA events) and the
+           kernel's time when issued eagerly from Python
   pairing  `pair_batch` at B = 2048 (32 distinct pairs, tiled): GT bytes
            against tests/vectors/reference.json, bilinearity, infinity
            masks, 4 rows recomputed on the CPU, pairings/s, launches of
            each kernel in one batch, peak device memory
+  g1       `G1Vec.generator((8192,)) ** ZpVec`: 8 rows against the host
+           ladder, their bytes against the host codec, 4 rows recomputed on
+           the CPU, scalar multiplications/s, launches per call
+  msm      `G1Vec.msm` at n = 2^16 (the g1 phase's 8192 points, affine,
+           tiled; an identity row with a nonzero scalar, some zero scalars)
+           against the host integer oracle [sum a_i s_i mod r]G; points/s,
+           launches and torch ops per call, peak device memory
+
+Each path runs with the launch counts set to 0 just before it and read
+just after; every kernel of the path must have launched.  With --trace,
+each path's line also gives one call under torch.profiler: the summed
+device time of its kernels against the host clock, and its top kernels.
 
 Then a JSON line of per-kernel numbers, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.  Imports nothing of the JAX package.
@@ -27,12 +43,17 @@ import json
 import pathlib
 import re
 import subprocess
+import sys
 import time
 
 import numpy as np
 
 B = 2048
 DISTINCT = 32
+TRACE = "--trace" in sys.argv[1:]
+G1_B = 8192                    # GLV batch, and the MSM's distinct points
+MSM_N = 1 << 16
+MSM_LANES, MSM_WINDOWS = 64, 33     # G1Vec.msm's defaults at c = 8
 SEED = 20261016
 #: H100 SXM5: HBM3 at 3.35 TB/s; 132 SMs x 64 INT32 lanes x 1.98 GHz boost
 #: = 1.673e13 32-bit integer multiply-adds/s (NVIDIA H100 data sheet and
@@ -71,7 +92,8 @@ def _ptxas_report(log: str) -> dict:
             out.setdefault(cur, {})["regs"] = int(m.group(1))
     named = {}
     for mangled, v in out.items():
-        for k in ("mont_mul_kernel", "fp2_mul_kernel", "fp2_sqr_kernel", "fp6_mul_kernel"):
+        for k in ("mont_mul_kernel", "fp2_mul_kernel", "fp2_sqr_kernel", "fp6_mul_kernel",
+                  "g1_madd_kernel", "g1_add_kernel", "g1_dbl_kernel"):
             if k in mangled:
                 named[k] = v
     return named
@@ -93,6 +115,41 @@ def _edges(x, vals):
     for r, v in enumerate(vals):
         x[r, :, :] = FP.limbs_of(v)
     return x
+
+
+def _curve_inputs(rng, kind: str, rows: int, dev):
+    """Operands of K5 (projective, affine), K6 (projective, projective) or
+    K7 (projective): random canonical coordinates, with curve points in
+    the first 4 rows, and the host's affine results for those rows.
+    Rows: O + B, A + A (the two A with different Z), (-A) + A, O + O
+    (K5: O + B in the last row); K7 doubles the first operand."""
+    import torch
+    from crypto12381_tpu_torch.fields import fp as FP
+    from crypto12381_tpu_torch.host import curve as C
+    from crypto12381_tpu_torch.params import P
+
+    k_a, k_b = (int(k) for k in rng.integers(2, 1 << 62, size=2))
+    A, B = C.g1_mul(C.G1_GEN, k_a), C.g1_mul(C.G1_GEN, k_b)
+    z1, z2 = (int.from_bytes(rng.bytes(48), "big") % P for _ in range(2))
+    A2 = C.g1_mul(A, 2)
+
+    def proj(pt, z):
+        return [pt[0] * z % P, pt[1] * z % P, z]
+
+    neg_a = (A[0], P - A[1])
+    O = [0, 1, 0]
+    first = [O, proj(A, z1), proj(neg_a, z1), O]
+    p = torch.from_numpy(_rand_fp(rng, rows, 3))
+    p[:4] = FP.from_int(first)
+    if kind == "g1_dbl":
+        return (p.to(dev),), [None, A2, (A2[0], P - A2[1]), None]
+    if kind == "g1_madd":
+        q = torch.from_numpy(_rand_fp(rng, rows, 2))
+        q[:4] = FP.from_int([list(B), list(A), list(A), list(B)])
+        return (p.to(dev), q.to(dev)), [B, A2, None, B]
+    q = torch.from_numpy(_rand_fp(rng, rows, 3))
+    q[:4] = FP.from_int([proj(B, z2), proj(A, z2), proj(A, z2), O])
+    return (p.to(dev), q.to(dev)), [B, A2, None, None]
 
 
 def _eager_ms(fn, reps: int = 20) -> float:
@@ -139,6 +196,7 @@ def _device_ms(fn, reps: int = 20) -> float:
 
 def phase_kernels(dev):
     import torch
+    from crypto12381_tpu_torch.curves import g1 as G1C
     from crypto12381_tpu_torch.fields import fp as FP
     from crypto12381_tpu_torch.fields import fused as FK
     from crypto12381_tpu_torch.params import P
@@ -158,7 +216,7 @@ def phase_kernels(dev):
     b[q + 1] = 0
     specs.append(("K1 mont_mul", "fp_mont_mul", "crypto12381_tpu_torch/csrc/fp.cu",
                   "crypto12381_tpu/fields/fp32.py:354", FP.mont_mul, FP.mont_mul_plain,
-                  (a, b), n, 1, 3))
+                  (a, b), n, 1, None))
     # K2: 15 rows per pairing row (sparse multiply); K3: 9 (cyclotomic
     # square); K4: 3 (Fp12 product)
     for name, rows, shape, prod, n_in, kern, plain, line in (
@@ -173,20 +231,36 @@ def phase_kernels(dev):
             for i in range(n_in))
         specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/tower.cu",
                       f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, rows, prod,
-                      n_in + 1))
+                      None))
+    # K5: one MSM bucket step (lanes x windows rows); K6, K7: one GLV ladder
+    # step of the g1 phase's batch
+    for name, rows, prod, kern, plain, line in (
+        ("K5 g1_madd", MSM_LANES * MSM_WINDOWS, 11, FK.g1_madd, FK.g1_madd_plain, 660),
+        ("K6 g1_add", G1_B, 12, FK.g1_add, FK.g1_add_plain, 771),
+        ("K7 g1_dbl", G1_B, 8, FK.g1_dbl, FK.g1_dbl_plain, 734),
+    ):
+        ins, edge_want = _curve_inputs(rng, name.split()[1], rows, dev)
+        specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/g1.cu",
+                      f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, rows, prod,
+                      edge_want))
     results = []
-    for name, fn_c, src, repl, kern, plain, ins, rows, prod, n_arrays in specs:
+    for name, fn_c, src, repl, kern, plain, ins, rows, prod, edge_want in specs:
         got = kern(*ins)
         want = plain(*ins)
         torch.cuda.synchronize()
         if got.dtype != torch.int32 or not torch.equal(got, want):
             bad = (got != want).reshape(rows, -1).any(-1).nonzero()[:5].flatten().tolist()
             raise SystemExit(f"kernels: {name} disagrees with its plain version at rows {bad}")
+        if edge_want is not None:
+            edge_got = list(G1C.to_affine_ints(tuple(got[:4].unbind(-2))))
+            if edge_got != edge_want:
+                raise SystemExit(f"kernels: {name} gives wrong points at the identity, "
+                                 f"P = Q or P = -Q: {edge_got} != {edge_want}")
         err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
         eager_ms = _eager_ms(lambda: kern(*ins))
         ms = _device_ms(lambda: kern(*ins))
         plain_ms = _device_ms(lambda: plain(*ins))
-        nbytes = rows * (got[0].numel() * 4) * n_arrays
+        nbytes = 4 * (sum(t.numel() for t in ins) + got.numel())
         ops = rows * prod * MULADDS_PER_PRODUCT
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
         results.append({
@@ -203,9 +277,66 @@ def phase_kernels(dev):
     return results
 
 
-def phase_pairing(dev):
+def _path_launches(path: str, kernels) -> dict:
+    """The launch counts since the last reset; fails if a kernel of the
+    path never launched."""
+    import crypto12381_tpu_torch as T
+
+    launches = {k: T.LAUNCHES[k] for k in kernels}
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise SystemExit(f"{path}: kernels never launched on the path: {missing}")
+    return launches
+
+
+def _op_tally(fn) -> str:
+    """The torch ops one call of fn dispatches (all but the views launch a
+    kernel), as 'torch_ops_per_call=... non_view_ops_per_call=... top_ops=...'."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
+
+    class _Count(TorchDispatchMode):
+        ops = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, a=(), kw=None):
+            _Count.ops[func.__name__.split(".")[0]] += 1
+            return func(*a, **(kw or {}))
+
+    with _Count():
+        fn()
+    torch.cuda.synchronize()
+    ops = _Count.ops
+    views = sum(v for k, v in ops.items() if k in _VIEW_OPS)
+    return (f"torch_ops_per_call={sum(ops.values())} "
+            f"non_view_ops_per_call={sum(ops.values()) - views} top_ops={ops.most_common(6)}")
+
+
+def _trace(fn) -> str:
+    """One call of fn under torch.profiler: the device time of the kernels
+    it ran (summed; one stream, so they do not overlap) against the host
+    clock of the same call, and the kernels with the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_kernel = collections.Counter()
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            per_kernel[ev.name[:40]] += ev.time_range.elapsed_us()
+    busy = sum(per_kernel.values()) / 1e6
+    top = [(k, round(v / 1e3, 3)) for k, v in per_kernel.most_common(5)]
+    return (f"traced_wall_s={wall:.4f} device_busy_s={busy:.4f} "
+            f"device_busy_share={busy / wall:.4f} top_kernels_ms={top}")
+
+
+def phase_pairing(dev):
+    import torch
 
     import crypto12381_tpu_torch as T
     from crypto12381_tpu_torch.compat import codec
@@ -239,10 +370,7 @@ def phase_pairing(dev):
     f = T.pair_batch(*args)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = dict(T.LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise SystemExit(f"pairing: kernels never launched on the main path: {missing}")
+    launches = _path_launches("pairing", ("fp_mont_mul", "fp2_mul", "fp2_sqr", "fp6_mul"))
 
     fc = f.cpu()
     if tuple(fc.shape) != (B, 2, 3, 2, 12):
@@ -274,24 +402,118 @@ def phase_pairing(dev):
     rate = B * reps / sum(times)
     peak = torch.cuda.max_memory_allocated()
 
-    # torch ops one batch dispatches; all but the views launch a kernel
-    class _Count(TorchDispatchMode):
-        ops = collections.Counter()
-
-        def __torch_dispatch__(self, func, types, a=(), kw=None):
-            _Count.ops[func.__name__.split(".")[0]] += 1
-            return func(*a, **(kw or {}))
-
-    with _Count():
-        T.pair_batch(*args)
-    torch.cuda.synchronize()
-    ops = _Count.ops
-    views = sum(v for k, v in ops.items() if k in _VIEW_OPS)
+    ops = _op_tally(lambda: T.pair_batch(*args))
+    traced = _trace(lambda: T.pair_batch(*args)) if TRACE else ""
     print(f"pairing: B={B} distinct={DISTINCT} checks={checks} first_s={first_s:.3f} "
           f"batch_s={[round(t, 4) for t in times]} pairings_per_s={rate:.1f} "
-          f"launches_per_batch={launches} torch_ops_per_batch={sum(ops.values())} "
-          f"non_view_ops_per_batch={sum(ops.values()) - views} "
-          f"top_ops={ops.most_common(6)} max_memory_allocated={peak}", flush=True)
+          f"launches_per_batch={launches} {ops} max_memory_allocated={peak} {traced}",
+          flush=True)
+    return launches
+
+
+def phase_g1(dev):
+    """G1Vec ** ZpVec at G1_B: the GLV ladder (K1 for phi, K6, K7)."""
+    import torch
+
+    import crypto12381_tpu_torch as T
+    from crypto12381_tpu_torch.compat import codec
+    from crypto12381_tpu_torch.curves import g1 as G1C
+    from crypto12381_tpu_torch.host import curve as C
+    from crypto12381_tpu_torch.params import R
+
+    rng = np.random.default_rng(SEED + 2)
+    a = [int.from_bytes(rng.bytes(32), "big") % R for _ in range(G1_B)]
+    gen = T.G1Vec.generator((G1_B,))
+    e = T.ZpVec.from_ints(a)
+
+    T.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pts = gen ** e
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = _path_launches("g1", ("fp_mont_mul", "g1_add", "g1_dbl"))
+
+    rows = [0, 1, 2, 3, G1_B // 8, G1_B // 2 + 1, G1_B - 2, G1_B - 1]
+    sub = T.G1Vec(tuple(c[rows] for c in pts.p))
+    host = [C.g1_mul(C.G1_GEN, a[i]) for i in rows]
+    cpu = T.G1Vec.generator((4,), device="cpu") ** T.ZpVec.from_ints(a[:4], device="cpu")
+    checks = {
+        "host_rows": list(G1C.to_affine_ints(sub.p)) == host,
+        "bytes": sub.serialize() == [codec.g1_serialize(h) for h in host],
+        "cpu_rows": all(torch.equal(c.cpu(), g[:4].cpu()) for c, g in zip(cpu.p, pts.p)),
+    }
+    if not all(checks.values()):
+        raise SystemExit(f"g1: checks failed: {checks}")
+
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        gen ** e
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    rate = G1_B * len(times) / sum(times)
+    ops = _op_tally(lambda: gen ** e)
+    traced = _trace(lambda: gen ** e) if TRACE else ""
+    print(f"g1: B={G1_B} checks={checks} first_s={first_s:.3f} "
+          f"call_s={[round(t, 4) for t in times]} scalar_muls_per_s={rate:.1f} "
+          f"launches_per_call={launches} {ops} {traced}", flush=True)
+    return pts, a, launches
+
+
+def phase_msm(dev, pts, a):
+    """G1Vec.msm at MSM_N: the scan Pippenger (K1, K5, K6, K7) on the g1
+    phase's points, affine and tiled, against the host integer oracle."""
+    import torch
+
+    import crypto12381_tpu_torch as T
+    from crypto12381_tpu_torch.curves import g1 as G1C
+    from crypto12381_tpu_torch.fields import fp as FP
+    from crypto12381_tpu_torch.host import curve as C
+    from crypto12381_tpu_torch.params import R
+
+    rng = np.random.default_rng(SEED + 3)
+    m = len(a)
+    x, y, _ = pts.affine()
+    X, Y = x.repeat(MSM_N // m, 1), y.repeat(MSM_N // m, 1)
+    Z = FP.one((MSM_N,), dev).clone()
+    ident = MSM_N // 5                              # an identity row ...
+    X[ident], Z[ident] = 0, 0
+    s = [int.from_bytes(rng.bytes(32), "big") % R for _ in range(MSM_N)]
+    zero_rows = [7, m - 1, m, MSM_N // 2, MSM_N - 1]   # ... and zero scalars
+    for i in zero_rows:
+        s[i] = 0
+    assert s[ident] != 0
+    vec = T.G1Vec((X, Y, Z), z_is_one=True)
+    e = T.ZpVec.from_ints(s)
+    expect = C.g1_mul(C.G1_GEN, sum(a[i % m] * s[i] for i in range(MSM_N) if i != ident) % R)
+
+    T.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = vec.msm(e)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = _path_launches("msm", ("fp_mont_mul", "g1_madd", "g1_add", "g1_dbl"))
+    got = G1C.to_affine_ints(res.p)
+    if got != expect:
+        raise SystemExit(f"msm: result {got} != host oracle {expect}")
+
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        vec.msm(e)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    rate = MSM_N * len(times) / sum(times)
+    peak = torch.cuda.max_memory_allocated()
+    ops = _op_tally(lambda: vec.msm(e))
+    traced = _trace(lambda: vec.msm(e)) if TRACE else ""
+    print(f"msm: n={MSM_N} distinct={m} oracle=True first_s={first_s:.3f} "
+          f"call_s={[round(t, 4) for t in times]} points_per_s={rate:.1f} "
+          f"launches_per_call={launches} {ops} max_memory_allocated={peak} {traced}",
+          flush=True)
     return launches
 
 
@@ -318,9 +540,13 @@ def main() -> None:
     print(f"build: {build_s:.1f}s ptxas={regs}", flush=True)
 
     kernels = phase_kernels(dev)
-    launches = phase_pairing(dev)
+    by_path = {"pairing": phase_pairing(dev)}
+    pts, a, by_path["g1"] = phase_g1(dev)
+    by_path["msm"] = phase_msm(dev, pts, a)
     for k in kernels:
-        k["launches"] = launches[k.pop("c_function")]
+        fn = k.pop("c_function")
+        k["launches_by_path"] = {path: n[fn] for path, n in by_path.items() if fn in n}
+        k["launches"] = sum(k["launches_by_path"].values())
         k.pop("rows")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

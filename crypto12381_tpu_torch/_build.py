@@ -31,6 +31,7 @@ _BUILD_ROOT = _PKG.parent / "build" / "crypto12381_tpu_torch"
 _LIBS_SPEC = {
     "fp": ("fp.cu", {"fp_mont_mul": 3}),
     "tower": ("tower.cu", {"fp2_mul": 3, "fp2_sqr": 2, "fp6_mul": 3}),
+    "curve": ("g1.cu", {"g1_madd": 3, "g1_add": 3, "g1_dbl": 2}),
 }
 _HEADERS = ("fp381.cuh",)
 NVCC_FLAGS = (
@@ -116,14 +117,14 @@ def library(name: str) -> ctypes.CDLL:
 
 def launch(lib_name: str, fn: str, tensors, n: int) -> None:
     """Launch `fn` over n rows on the current stream of the tensors' card.
-    tensors: contiguous int32 CUDA tensors of one size (inputs, then the
-    output), n rows each."""
+    tensors: contiguous int32 CUDA tensors on one device (inputs, then the
+    output), n rows each; rows may differ in width between tensors (a mixed
+    add reads a projective and an affine point)."""
     dev = tensors[0].device
-    size = tensors[-1].numel()
     for t in tensors:
         if (t.device != dev or dev.type != "cuda" or t.dtype != torch.int32
-                or not t.is_contiguous() or t.numel() != size or size % max(n, 1)):
-            raise ValueError(f"{fn}: needs contiguous int32 tensors of one size on one CUDA device")
+                or not t.is_contiguous() or t.numel() % max(n, 1)):
+            raise ValueError(f"{fn}: needs contiguous int32 tensors of {n} rows on one CUDA device")
     f = getattr(library(lib_name), fn)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -1,0 +1,240 @@
+"""Batched G1 and scalar vectors: the paper notation over device tensors.
+
+Counterpart of the JAX package's `api/batch.py` for G1 and Zp: a vector of
+elements is ONE tensor (leading batch dims), and the operators lower to
+the batched curve code:
+
+  * ``G1Vec ** ZpVec``    -> the GLV ladder over the whole batch (K6, K7)
+  * ``G1Vec.msm(ZpVec)``  -> the scan Pippenger (K5, K6, K7), n < 2^17
+  * ``G1Vec * G1Vec``     -> the group operation (K6)
+
+Scalars keep the JAX package's layout: (..., 18) int32 standard-domain
+limbs of 16 bits.  Host constructors put their tensors on the CUDA card by
+default and raise without one; `device="cpu"` runs the plain versions.
+Host <-> device crossings happen at construction and at serialize, with
+the byte codecs of compat/codec.py.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Sequence
+
+import numpy as np
+import torch
+
+from ..curves import g1 as G1C
+from ..curves import weierstrass as W
+from ..fields import fp as FP
+from ..msm import pippenger as MSM
+from ..params import B_G1, MODBYTES, R
+
+__all__ = ["ZpVec", "G1Vec"]
+
+#: Fr scalars: 18 limbs of 16 bits (the JAX package's Fr layout)
+FR_LIMBS = 18
+#: from this size on, the JAX package's G1Vec.msm takes msm/rounds.py
+ROUNDS_MSM_MIN = 1 << 17
+
+
+def _device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "G1Vec and ZpVec are built on a CUDA card by default and none is "
+                "present; pass device='cpu' to run the plain versions")
+        device = "cuda"
+    return torch.device(device)
+
+
+class ZpVec:
+    """A batch of scalars mod r: (..., 18) int32 standard-domain limbs.
+
+    Construction and bytes only; arithmetic mod r waits for the Fr instance
+    of the Montgomery kernel."""
+
+    __slots__ = ("std",)
+
+    def __init__(self, std: torch.Tensor):
+        self.std = std
+
+    @classmethod
+    def from_ints(cls, values, device=None) -> "ZpVec":
+        vals = [int(v) % R for v in values]
+        raw = b"".join(v.to_bytes(2 * FR_LIMBS, "little") for v in vals)
+        limbs = np.frombuffer(raw, "<u2").reshape(len(vals), FR_LIMBS).astype(np.int32)
+        return cls(torch.from_numpy(limbs).to(_device(device)))
+
+    @classmethod
+    def parse(cls, blobs: Iterable[bytes], device=None) -> "ZpVec":
+        """48-byte big-endian scalars, each checked to be below r (the
+        reference's range check)."""
+        arr = np.frombuffer(b"".join(bytes(b) for b in blobs), np.uint8).reshape(-1, MODBYTES)
+        rb = np.frombuffer(R.to_bytes(MODBYTES, "big"), np.uint8)
+        ne = arr != rb
+        first = ne.argmax(axis=1)
+        in_range = ne.any(axis=1) & (arr[np.arange(arr.shape[0]), first] < rb[first])
+        if not bool(in_range.all()):
+            raise ValueError("Parse to Zp number over range.")
+        le = arr[:, ::-1].astype(np.int32)                  # least significant first
+        limbs = le[:, 0:2 * FR_LIMBS:2] + (le[:, 1:2 * FR_LIMBS:2] << 8)
+        return cls(torch.from_numpy(np.ascontiguousarray(limbs)).to(_device(device)))
+
+    def to_ints(self):
+        """Python ints: one int, or an object array over the batch shape."""
+        host = self.std.cpu().numpy().astype(np.int64)
+        flat = host.reshape(-1, host.shape[-1])
+        out = np.empty(flat.shape[0], object)
+        for i, row in enumerate(flat):
+            out[i] = sum(int(w) << (16 * k) for k, w in enumerate(row))
+        return out[0] if host.ndim == 1 else out.reshape(host.shape[:-1])
+
+    def serialize(self) -> list[bytes]:
+        host = self.std.cpu().numpy().astype(np.int64).reshape(-1, self.std.shape[-1])
+        out = np.zeros((host.shape[0], MODBYTES), np.uint8)
+        k = np.arange(host.shape[1])
+        out[:, MODBYTES - 1 - 2 * k] = host & 0xFF
+        out[:, MODBYTES - 2 - 2 * k] = (host >> 8) & 0xFF
+        return [bytes(r) for r in out]
+
+    def __eq__(self, other) -> torch.Tensor:  # type: ignore[override]
+        return torch.all(self.std == other.std, dim=-1)
+
+    def __hash__(self):
+        raise TypeError("ZpVec is not hashable")
+
+
+def _tree_product(ops, p, axis: int):
+    """Group-law reduction along `axis` in log2 steps of complete adds."""
+    p = tuple(c.movedim(axis, 0) for c in p)
+    n = p[0].shape[0]
+    while n > 1:
+        half = n // 2
+        merged = W.add(ops, tuple(c[:half] for c in p), tuple(c[half:2 * half] for c in p))
+        if n % 2:
+            merged = tuple(torch.cat([m, c[n - 1:n]], 0) for m, c in zip(merged, p))
+        p = merged
+        n = p[0].shape[0]
+    return tuple(c[0] for c in p)
+
+
+class _PointVec:
+    """Batched projective points (X, Y, Z) with the group operation written
+    multiplicatively, as the reference's point classes do."""
+
+    __slots__ = ("p", "z_is_one")
+    _mod = None  # the curve module
+
+    def __init__(self, p, z_is_one: bool = False):
+        self.p = tuple(p)
+        #: every Z is 0 or 1 (built from affine data): affine() then skips
+        #: the inversion chain
+        self.z_is_one = z_is_one
+
+    def __mul__(self, other):
+        return type(self)(self._mod.add(self.p, other.p))
+
+    def __truediv__(self, other):
+        return type(self)(self._mod.add(self.p, self._mod.neg(other.p)))
+
+    def __pow__(self, e):
+        e_std = e.std if isinstance(e, ZpVec) else e
+        return type(self)(self._mod.scalar_mul(self.p, e_std))
+
+    __xor__ = __pow__
+
+    def inverse(self):
+        return type(self)(self._mod.neg(self.p), z_is_one=self.z_is_one)
+
+    def __eq__(self, other) -> torch.Tensor:  # type: ignore[override]
+        return self._mod.eq(self.p, other.p)
+
+    def __hash__(self):
+        raise TypeError("point vectors are not hashable")
+
+    def product(self, axis: int = 0):
+        """The group operation over an axis (a tree of complete adds; use
+        msm for the product of powers)."""
+        return type(self)(_tree_product(self._mod.ops(), self.p, axis))
+
+    def affine(self):
+        """(x, y, inf_mask) in Montgomery form."""
+        if self.z_is_one:
+            return self.p[0], self.p[1], FP.is_zero(self.p[2])
+        return self._mod.to_affine(self.p)
+
+
+class G1Vec(_PointVec):
+    _mod = G1C
+
+    @classmethod
+    def generator(cls, batch=(), device=None) -> "G1Vec":
+        return cls(G1C.generator(batch, _device(device)), z_is_one=True)
+
+    @classmethod
+    def identity(cls, batch=(), device=None) -> "G1Vec":
+        return cls(G1C.identity(batch, _device(device)), z_is_one=True)
+
+    @classmethod
+    def from_affine(cls, pts: Sequence, device=None) -> "G1Vec":
+        """Host affine points: (x, y) int tuples, or None for infinity."""
+        dev = _device(device)
+        xs = [0 if p is None else int(p[0]) for p in pts]
+        ys = [1 if p is None else int(p[1]) for p in pts]
+        zs = [0 if p is None else 1 for p in pts]
+        return cls((FP.from_int(xs, dev), FP.from_int(ys, dev), FP.from_int(zs, dev)),
+                   z_is_one=True)
+
+    @classmethod
+    def parse(cls, blobs: Iterable[bytes], device=None) -> "G1Vec":
+        """49-byte compressed points, with the y of every point from ONE
+        batched square-root chain on the device (K1) and the parity select
+        of the prefix.  Raises on a bad prefix or an x off the curve, as
+        codec.g1_parse does."""
+        dev = _device(device)
+        arr = np.frombuffer(b"".join(bytes(b) for b in blobs), np.uint8).reshape(-1, 49)
+        prefix = arr[:, 0]
+        if not np.isin(prefix, (0x02, 0x03)).all():
+            raise ValueError("bad G1 prefix")
+        x = FP.from_int([int.from_bytes(r[1:].tobytes(), "big") for r in arr], dev)
+        rhs = FP.add(FP.mont_mul(FP.mont_mul(x, x), x), FP.from_int(B_G1, dev).expand_as(x))
+        y = FP.sqrt(rhs)
+        if not bool(FP.eq(FP.mont_mul(y, y), rhs).all()):
+            raise ValueError("x not on curve")
+        odd = FP.from_mont(y)[..., 0] & 1
+        want_odd = torch.from_numpy((prefix & 1).astype(np.int32)).to(dev)
+        y = torch.where((odd != want_odd)[..., None], FP.neg(y), y)
+        return cls((x, y, FP.one(x.shape[:-1], dev)), z_is_one=True)
+
+    def serialize_device(self):
+        """Canonical standard-domain affine limbs (..., 2, 12) and the
+        infinity mask, on the device."""
+        x, y, inf = self.affine()
+        return FP.from_mont(torch.stack([x, y], -2)), inf
+
+    @staticmethod
+    def pack_bytes(host, infh) -> list[bytes]:
+        """Host half of serialize: limbs from serialize_device, fetched to
+        numpy, into 49-byte compressed points."""
+        host = np.ascontiguousarray(np.asarray(host, np.int32).reshape(-1, 2, 12))
+        infh = np.asarray(infh).reshape(-1)
+        out = np.zeros((host.shape[0], 49), np.uint8)
+        out[:, 0] = np.where(infh, 0x02, 0x02 + (host[:, 1, 0] & 1))
+        xb = host[:, 0].astype("<u4").view(np.uint8)[:, ::-1]    # x big-endian
+        out[:, 1:] = np.where(infh[:, None], 0, xb)
+        return [bytes(r) for r in out]
+
+    def serialize(self) -> list[bytes]:
+        st, inf = self.serialize_device()
+        return self.pack_bytes(st.cpu().numpy(), inf.cpu().numpy())
+
+    def msm(self, scalars: ZpVec, c: int | None = None, lanes: int = 64) -> "G1Vec":
+        """prod_i self[i] ** scalars[i] over the leading axis, by the scan
+        Pippenger with the JAX package's defaults (c = 8, lanes = 64 clipped
+        to the batch).  Batch-free result."""
+        n = self.p[0].shape[0]
+        if n >= ROUNDS_MSM_MIN:
+            raise NotImplementedError(
+                f"G1Vec.msm at n = {n} >= 2^17: the JAX package takes msm/rounds.py "
+                "there, which is not ported yet")
+        lanes = min(lanes, 1 << max(0, (n - 1).bit_length() - 1)) or 1
+        return G1Vec(MSM.msm_g1(self.p, scalars.std, c=c or 8, lanes=lanes))

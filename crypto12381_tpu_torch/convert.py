@@ -1,5 +1,7 @@
 """Carry field values between the JAX package's arrays and the port's
-tensors, so that one set of inputs can feed both.
+tensors, so that one set of inputs can feed both: Fp values (any leading
+shape: Fp2, Fp12, batch), points as tuples of coordinates (projective or
+affine, G1 or G2), and Fr scalars.
 
 The JAX package's field arrays hold (..., 50) float32 signed 8-bit digits
 of a Montgomery form with R = 2^400, possibly loose (any representative of
@@ -47,3 +49,23 @@ def to_jax_fp(x: torch.Tensor) -> np.ndarray:
         v = FP.int_of(row) % P * _TO_JAX % P
         out[i] = [(v >> (8 * k)) & 0xFF for k in range(JAX_DIGITS)]
     return out.reshape(a.shape[:-1] + (JAX_DIGITS,))
+
+
+def from_jax_point(coords, device="cpu") -> tuple:
+    """A JAX point (tuple of coordinate digit arrays, projective or affine)
+    -> tuple of port tensors."""
+    return tuple(from_jax_fp(c, device) for c in coords)
+
+
+def to_jax_point(p) -> tuple:
+    return tuple(to_jax_fp(c) for c in p)
+
+
+def from_jax_fr(np_limbs, device="cpu") -> torch.Tensor:
+    """Fr scalars: both sides hold (..., 18) int32 standard-domain limbs of
+    16 bits, so only the container changes."""
+    return torch.from_numpy(np.asarray(np_limbs, np.int32).copy()).to(device)
+
+
+def to_jax_fr(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.int32)

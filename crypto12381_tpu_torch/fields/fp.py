@@ -277,3 +277,16 @@ def pow_fixed(x: torch.Tensor, e: int) -> torch.Tensor:
 def inv(x: torch.Tensor) -> torch.Tensor:
     """Fermat inversion x^(p-2); inv(0) = 0."""
     return pow_fixed(x, P - 2)
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """x^((p+1)/4): a square root of x when x is a square (p = 3 mod 4);
+    the caller checks sqrt(x)^2 == x."""
+    return pow_fixed(x, (P + 1) // 4)
+
+
+def from_mont(x: torch.Tensor) -> torch.Tensor:
+    """Montgomery form -> the canonical standard-domain limbs of the same
+    value, on the device: REDC(x * 1), one K1 launch."""
+    one_std = torch.from_numpy(limbs_of(1)).to(x.device)
+    return mont_mul(x, one_std.expand_as(x))

@@ -1,13 +1,16 @@
-"""Tower products as single kernels (K2, K3, K4), and the row-stacked Fp12
-composites built on them.
+"""Tower products and G1 curve operations as single kernels (K2-K7), and
+the row-stacked Fp12 composites built on the tower kernels.
 
-Counterpart of the JAX package's `fields/fp32k.py`.  The three kernels each
-compute one whole tower product per instance, Karatsuba pre-sums and
+Counterpart of the JAX package's `fields/fp32k.py`.  Each kernel computes
+one whole tower product or curve operation per instance, pre-sums and
 combines included, so no intermediate leaves the kernel:
 
   K2 `fp2_mul` (csrc/tower.cu)  (..., 2, 12) x (..., 2, 12): 3 Fp products
   K3 `fp2_sqr`                  (..., 2, 12):                 2 Fp products
   K4 `fp6_mul`                  (..., 3, 2, 12) x same:      18 Fp products
+  K5 `g1_madd` (csrc/g1.cu)     (..., 3, 12) + (..., 2, 12): 11 Fp products
+  K6 `g1_add`                   (..., 3, 12) + (..., 3, 12): 12 Fp products
+  K7 `g1_dbl`                   (..., 3, 12):                 8 Fp products
 
 Operands are canonical; the outputs are canonical.  A CUDA tensor
 launches the kernel, a CPU tensor runs the plain version beside it, which
@@ -219,3 +222,108 @@ def sparse_mul_c(f: torch.Tensor, c0: torch.Tensor, c3: torch.Tensor,
     out0 = FP.add(t0, mul_by_v(t1))
     out1 = FP.sub(m, FP.add(t0, t1))
     return torch.stack([out0, out1], 1)
+
+
+# ---------------------------------------------------------------------------
+# K5, K6, K7: complete G1 curve operations (RCB15, 3b = 12 folded into the
+# operands).  Points are (..., 3, 12) [X, Y, Z]; the mixed add's second
+# operand is affine (..., 2, 12) [x, y] with Z = 1 implied.  Each plain
+# version runs the kernel's two product rounds as two stacked K1 plain
+# products.
+# ---------------------------------------------------------------------------
+
+
+def _mul12(x: torch.Tensor) -> torch.Tensor:
+    """12 x mod p: three modular doublings and an add (8x + 4x)."""
+    x4 = FP.double(FP.double(x))
+    return FP.add(FP.double(x4), x4)
+
+
+def _rcb_round2(t1m, z3a, t3, t4, w, bt5) -> torch.Tensor:
+    """X3 = t1m t3 - bt5 t4, Y3 = t1m z3a + bt5 w, Z3 = z3a t4 + w t3."""
+    c = FP.mont_mul_plain(torch.stack([t1m, bt5, t1m, bt5, z3a, w], -2),
+                          torch.stack([t3, t4, z3a, w, t4, t3], -2)).unbind(-2)
+    return torch.stack([FP.sub(c[0], c[1]), FP.add(c[2], c[3]), FP.add(c[4], c[5])], -2)
+
+
+def _expand_mixed(p: torch.Tensor, q: torch.Tensor):
+    """Broadcast the batch dims of a projective and an affine point."""
+    batch = torch.broadcast_shapes(p.shape[:-2], q.shape[:-2])
+    return p.expand(batch + p.shape[-2:]), q.expand(batch + q.shape[-2:])
+
+
+def g1_madd_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    p, q = _expand_mixed(p, q)
+    X1, Y1, Z1 = p.unbind(-2)
+    x2, y2 = q.unbind(-2)
+    t0, t1, m3, zx, zy = FP.mont_mul_plain(
+        torch.stack([X1, Y1, FP.add_raw(X1, Y1), x2, y2], -2),
+        torch.stack([x2, y2, FP.add_raw(x2, y2), Z1, Z1], -2)).unbind(-2)
+    t3 = FP.sub(FP.sub(m3, t0), t1)
+    t4 = FP.add(zy, Y1)
+    bt5 = _mul12(FP.add(zx, X1))
+    w = FP.add(FP.double(t0), t0)
+    bt2 = _mul12(Z1)
+    return _rcb_round2(FP.sub(t1, bt2), FP.add(t1, bt2), t3, t4, w, bt5)
+
+
+def g1_add_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    p, q = torch.broadcast_tensors(p, q)
+    X1, Y1, Z1 = p.unbind(-2)
+    X2, Y2, Z2 = q.unbind(-2)
+    t0, t1, t2, m3, m4, m5 = FP.mont_mul_plain(
+        torch.stack([X1, Y1, Z1, FP.add_raw(X1, Y1), FP.add_raw(Y1, Z1), FP.add_raw(X1, Z1)], -2),
+        torch.stack([X2, Y2, Z2, FP.add_raw(X2, Y2), FP.add_raw(Y2, Z2), FP.add_raw(X2, Z2)], -2),
+    ).unbind(-2)
+    t3 = FP.sub(FP.sub(m3, t0), t1)
+    t4 = FP.sub(FP.sub(m4, t1), t2)
+    bt5 = _mul12(FP.sub(FP.sub(m5, t0), t2))
+    w = FP.add(FP.double(t0), t0)
+    bt2 = _mul12(t2)
+    return _rcb_round2(FP.sub(t1, bt2), FP.add(t1, bt2), t3, t4, w, bt5)
+
+
+def g1_dbl_plain(p: torch.Tensor) -> torch.Tensor:
+    X, Y, Z = p.unbind(-2)
+    t0, t1, xy, z2 = FP.mont_mul_plain(torch.stack([Y, Y, X, Z], -2),
+                                       torch.stack([Y, Z, Y, Z], -2)).unbind(-2)
+    t2 = _mul12(z2)
+    e8 = FP.double(FP.double(FP.double(t0)))                   # 8 Y^2
+    y3a = FP.add(t0, t2)                                       # Y^2 + 3b Z^2
+    t0m = FP.sub(t0, FP.add(FP.double(t2), t2))                # Y^2 - 9b Z^2
+    x3b, y3b, x3a, z3 = FP.mont_mul_plain(torch.stack([t0m, t0m, e8, e8], -2),
+                                          torch.stack([xy, y3a, t2, t1], -2)).unbind(-2)
+    return torch.stack([FP.double(x3b), FP.add(y3b, x3a), z3], -2)
+
+
+def _launch_rows(fn: str, out_shape, *ins: torch.Tensor) -> torch.Tensor:
+    """Flatten each operand to (rows, k, 12), launch `fn` of the curve
+    library over the rows, and shape the (rows, 3, 12) result."""
+    flat = [_flat(x, 2) for x in ins]
+    out = torch.empty((flat[0].shape[0], 3, flat[0].shape[-1]), dtype=torch.int32,
+                      device=flat[0].device)
+    if out.shape[0]:
+        _build.launch("curve", fn, (*flat, out), out.shape[0])
+    return out.reshape(out_shape)
+
+
+def g1_madd(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """P + (x2 : y2 : 1) for projective p (..., 3, 12) and affine q
+    (..., 2, 12), broadcast over the batch."""
+    p, q = _expand_mixed(p, q)
+    if p.device.type == "cpu":
+        return g1_madd_plain(p, q)
+    return _launch_rows("g1_madd", p.shape, p, q)
+
+
+def g1_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    p, q = torch.broadcast_tensors(p, q)
+    if p.device.type == "cpu":
+        return g1_add_plain(p, q)
+    return _launch_rows("g1_add", p.shape, p, q)
+
+
+def g1_dbl(p: torch.Tensor) -> torch.Tensor:
+    if p.device.type == "cpu":
+        return g1_dbl_plain(p)
+    return _launch_rows("g1_dbl", p.shape, p)

@@ -1,9 +1,9 @@
 """Exact BLS12-381 field arithmetic on Python ints (host side).
 
-The few integer operations the port needs outside its tensors: the Fp2
-arithmetic behind the G2 ladders of host/curve.py and the Frobenius
-constants of fields/tower.py, and the w-basis view of Fp12 used by the GT
-codec.
+The few integer operations the port needs outside its tensors: the Fp
+square root of the G1 codec, the Fp2 arithmetic behind the G2 ladders of
+host/curve.py and the Frobenius constants of fields/tower.py, and the
+w-basis view of Fp12 used by the GT codec.
 
 Representations:
   Fp   : int in [0, p)
@@ -18,6 +18,14 @@ from ..params import P
 
 FP2_ZERO = (0, 0)
 FP2_ONE = (1, 0)
+
+
+def fp_sqrt(a: int):
+    """A square root of a mod p, or None if a is not a square
+    (p = 3 mod 4: a^((p+1)/4))."""
+    a %= P
+    y = pow(a, (P + 1) // 4, P)
+    return y if y * y % P == a else None
 
 
 def fp2_add(x, y):

@@ -26,6 +26,9 @@ R = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
 X_ABS = 0xD201000000010000
 X_SIGN = -1
 
+#: Effective G1 cofactor for clearing: 1 + |x| (the reference's CURVE_Cof).
+H_EFF_G1 = X_ABS + 1
+
 #: E/Fp: y^2 = x^3 + 4;  E'/Fp2: y^2 = x^3 + 4(1+i) (M-type sextic twist).
 B_G1 = 4
 B_G2 = (4, 4)  # 4*(1+i) as (real, imag)

@@ -4,9 +4,10 @@ The device functions and kernel bodies of crypto12381_tpu_torch/csrc/
 are plain C++ once the CUDA keywords are defined away, so a host C++
 compiler can build them into a small program that runs each kernel body
 once per row. Its outputs must equal the plain PyTorch versions bit for
-bit, on canonical operands with the edge values 0, 1 and p-1, and for K1
-on pre-sums up to 2p-2, and the header's copies of p and n0' must equal
-params.py's. The launch code (the `<<<...>>>` wrappers) and
+bit, on canonical operands with the edge values 0, 1 and p-1, for K1 on
+pre-sums up to 2p-2, and for the curve kernels K5-K7 on curve points with
+the identity, P = Q and P = -Q among them; and the header's copies of p
+and n0' must equal params.py's. The launch code (the `<<<...>>>` wrappers) and
 the card itself are exercised only by chip_smoke.py.
 """
 
@@ -23,17 +24,18 @@ from crypto12381_tpu.params import P
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "crypto12381_tpu_torch" / "csrc"
 R_INV = pow(1 << 384, -1, P)        # the port's Montgomery R = 2^384
 
-torch = FP = FK = None              # bound by _port
+torch = FP = FK = C = None          # bound by _port
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _port():
     """Import torch and the port when this file's test runs, not when the
     file is collected (every test worker collects every file)."""
-    global torch, FP, FK
+    global torch, FP, FK, C
     import torch
     from crypto12381_tpu_torch.fields import fp as FP
     from crypto12381_tpu_torch.fields import fused as FK
+    from crypto12381_tpu_torch.host import curve as C
 
 SHIM = """#pragma once
 #include <cstdint>
@@ -65,13 +67,20 @@ int main(int argc, char** argv) {
   if (fread(b.data(), 4, n * 72, f) != (size_t)(n * 72)) return 1;
   fclose(f);
   std::vector<uint32_t> o1(n * 12), o2(n * 24), o3(n * 24), o4(n * 72);
+  std::vector<uint32_t> o5(n * 36), o6(n * 36), o7(n * 36);
   rows([&] { mont_mul_kernel<12>(a.data(), b.data(), o1.data(), n); }, n);
   rows([&] { fp2_mul_kernel(a.data(), b.data(), o2.data(), n); }, n);
   rows([&] { fp2_sqr_kernel(a.data(), o3.data(), n); }, n);
   rows([&] { fp6_mul_kernel(a.data(), b.data(), o4.data(), n); }, n);
+  // curve kernels: points a[0, 36n), b[0, 36n); affine points b[36n, 60n)
+  rows([&] { g1_madd_kernel(a.data(), b.data() + n * 36, o5.data(), n); }, n);
+  rows([&] { g1_add_kernel(a.data(), b.data(), o6.data(), n); }, n);
+  rows([&] { g1_dbl_kernel(a.data(), o7.data(), n); }, n);
   FILE* g = fopen(argv[2], "wb");
   fwrite(o1.data(), 4, n * 12, g); fwrite(o2.data(), 4, n * 24, g);
   fwrite(o3.data(), 4, n * 24, g); fwrite(o4.data(), 4, n * 72, g);
+  fwrite(o5.data(), 4, n * 36, g); fwrite(o6.data(), 4, n * 36, g);
+  fwrite(o7.data(), 4, n * 36, g);
   fclose(g);
   return 0;
 }
@@ -87,7 +96,7 @@ def harness(tmp_path_factory):
     (d / "inc").mkdir()
     (d / "inc" / "cuda_runtime.h").write_text(SHIM)
     bodies = []
-    for name in ("fp.cu", "tower.cu"):
+    for name in ("fp.cu", "tower.cu", "g1.cu"):
         text = (CSRC / name).read_text()
         text = text[: text.index('extern "C"')]
         bodies.append(text.replace('#include "fp381.cuh"', "").replace("using namespace fp381;", ""))
@@ -109,8 +118,9 @@ def run(harness, av, bv):
         f.write(np.int64(n).tobytes() + a.tobytes() + b.tobytes())
     subprocess.run([str(exe), str(d / "in.bin"), str(d / "out.bin")], check=True, timeout=300)
     o = torch.from_numpy(np.fromfile(d / "out.bin", np.int32))
-    outs = (o[: 12 * n].reshape(n, 12), o[12 * n: 36 * n].reshape(n, 2, 12),
-            o[36 * n: 60 * n].reshape(n, 2, 12), o[60 * n:].reshape(n, 3, 2, 12))
+    widths = ((12,), (2, 12), (2, 12), (3, 2, 12), (3, 12), (3, 12), (3, 12))
+    sizes = [n * int(np.prod(w)) for w in widths]
+    outs = tuple(part.reshape((n,) + w) for part, w in zip(o.split(sizes), widths))
     return torch.from_numpy(a), torch.from_numpy(b), n, outs
 
 
@@ -128,6 +138,39 @@ def header_constants():
     return limbs, n0
 
 
+def curve_inputs(n):
+    """Montgomery-form coordinate values of n projective points P, n
+    projective Q and n affine Q' (the harness's K5-K7 inputs): curve points
+    [k]G with random Z, the first rows the identity, P = Q (another Z) and
+    P = -Q, the last rows random field values off the curve."""
+    rng = np.random.default_rng(3)
+    R_MOD = (1 << 384) % P
+
+    def proj(k, z, negate=False):
+        x, y = C.g1_mul(C.G1_GEN, k)
+        y = P - y if negate else y
+        return [x * z % P * R_MOD % P, y * z % P * R_MOD % P, z * R_MOD % P]
+
+    def aff(k, negate=False):
+        return proj(k, 1, negate)[:2]
+
+    ks = [int(v) for v in rng.integers(2, 1 << 62, size=n)]
+    zs = [int.from_bytes(rng.bytes(48), "little") % P for _ in range(n)]
+    ident = [0, R_MOD, 0]
+    pv = ident + proj(ks[1], zs[1]) + proj(ks[2], zs[2]) + proj(ks[3], zs[3])
+    qv = proj(ks[0], zs[0]) + ident + proj(ks[2], zs[5]) + proj(ks[3], zs[6], True)
+    av = aff(ks[0]) + aff(ks[1]) + aff(ks[2]) + aff(ks[3], True)
+    for i in range(4, n - 2):
+        pv += proj(ks[i], zs[i])
+        qv += proj(ks[i] + 1, zs[i - 1])
+        av += aff(ks[i] * 3)
+    tail = rand_ints(4, 8 * 2, P)
+    pv += tail[:6]
+    qv += tail[6:12]
+    av += tail[12:16]
+    return pv, qv, av
+
+
 def test_kernel_bodies_match_plain_versions(harness):
     from crypto12381_tpu_torch import params
 
@@ -139,7 +182,7 @@ def test_kernel_bodies_match_plain_versions(harness):
         bound = 2 * P - 1 if presum else P
         av = edge + rand_ints(1, 6 * n - len(edge), bound)
         bv = edge[::-1] + rand_ints(2, 6 * n - len(edge), bound)
-        a, b, n, (k1, k2, k3, k4) = run(harness, av, bv)
+        a, b, n, (k1, k2, k3, k4, _, _, _) = run(harness, av, bv)
         assert torch.equal(k1, FP.mont_mul_plain(a[:n], b[:n]))
         assert [FP.int_of(r) for r in k1.numpy()] == [
             x * y * R_INV % P for x, y in zip(av[:n], bv[:n])]
@@ -149,3 +192,14 @@ def test_kernel_bodies_match_plain_versions(harness):
             assert torch.equal(k3, FK.fp2_sqr_plain(a[: 2 * n].reshape(n, 2, 12)))
             assert torch.equal(k4, FK.fp6_mul_plain(a.reshape(n, 3, 2, 12),
                                                     b.reshape(n, 3, 2, 12)))
+    # K5-K7 on points: the first rows are the identity, P = Q and P = -Q
+    pv, qv, affv = curve_inputs(n)
+    a, b, n, (_, _, _, _, k5, k6, k7) = run(harness, pv + [0] * (3 * n),
+                                             qv + affv + [0] * n)
+    p, q, qa = a[: 3 * n].reshape(n, 3, 12), b[: 3 * n].reshape(n, 3, 12), b[3 * n: 5 * n]
+    assert torch.equal(k5, FK.g1_madd_plain(p, qa.reshape(n, 2, 12)))
+    assert torch.equal(k6, FK.g1_add_plain(p, q))
+    assert torch.equal(k7, FK.g1_dbl_plain(p))
+    for k in (k5, k6):                  # identity + Q = Q; P + (-P) = O
+        assert FP.int_of(k[3, 2].numpy()) == 0 and FP.int_of(k[3, 0].numpy()) == 0
+    assert FP.int_of(k7[0, 2].numpy()) == 0                   # 2 O = O

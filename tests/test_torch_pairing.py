@@ -27,7 +27,7 @@ from crypto12381_tpu.params import R
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 VEC = json.loads((ROOT / "tests" / "vectors" / "reference.json").read_text())
 
-torch = T = convert = codec = G2 = FP = TW = C = PAIR = None     # bound by _port
+torch = T = convert = codec = G2 = W = FP = TW = C = PAIR = None     # bound by _port
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -36,12 +36,13 @@ def _port():
     the file is collected: every test worker collects every file, and the
     JAX suite's workers have no memory to spare.  Drops JAX's compiled
     functions after the file's tests."""
-    global torch, T, convert, codec, G2, FP, TW, C, PAIR
+    global torch, T, convert, codec, G2, W, FP, TW, C, PAIR
     import torch
     import crypto12381_tpu_torch as T
     from crypto12381_tpu_torch import convert
     from crypto12381_tpu_torch.compat import codec
     from crypto12381_tpu_torch.curves import g2 as G2
+    from crypto12381_tpu_torch.curves import weierstrass as W
     from crypto12381_tpu_torch.fields import fp as FP
     from crypto12381_tpu_torch.fields import tower as TW
     from crypto12381_tpu_torch.host import curve as C
@@ -92,6 +93,9 @@ def _check_g2_double_madd_generator_match_jax():
         assert torch.equal(g, port_of(w))
     Q = (rand_fp2(7, 2), rand_fp2(8, 2))
     for g, w in zip(G2.madd(A, Q), WJ.madd(G2J.ops(), AJ, tuple(J(c) for c in Q))):
+        assert torch.equal(g, port_of(w))
+    B = rand_point(4)                             # the generic complete add
+    for g, w in zip(W.add(G2.ops(), A, B), WJ.add(G2J.ops(), AJ, tuple(J(c) for c in B))):
         assert torch.equal(g, port_of(w))
     x, y, z = G2.generator((2,))
     assert list(FP.to_int(x[:, 0])) == [C.G2_GEN[0][0]] * 2
@@ -174,7 +178,10 @@ def _check_pair_batch_needs_a_card_by_default():
 def _check_port_imports_no_jax():
     code = (
         "import sys, crypto12381_tpu_torch, crypto12381_tpu_torch.convert, "
-        "crypto12381_tpu_torch.compat.codec, chip_smoke; "
+        "crypto12381_tpu_torch.compat.codec, crypto12381_tpu_torch.api.batch, "
+        "crypto12381_tpu_torch.curves.g1, crypto12381_tpu_torch.curves.endo, "
+        "crypto12381_tpu_torch.msm.pippenger, crypto12381_tpu_torch.ops.scalar_decomp, "
+        "chip_smoke; "
         "print('jax' in sys.modules, 'crypto12381_tpu' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
