@@ -4,21 +4,26 @@ G1 scalar multiplication and G1 MSM on one CUDA card.
 
     python3 chip_smoke.py            # the smoke run
     python3 chip_smoke.py --trace    # and one profiled call of each path
+    python3 chip_smoke.py --nvcc-define FP6_THREADS=6   # a kernel variant
 
 Phases, one line each; any failure raises and ends the run non-zero:
   device   card name and count, nvidia-smi's name and power limit
-  build    nvcc seconds, registers and spills per kernel
-  kernels  K1-K7 at the row counts their paths give them (K1-K4: the
-           pairing at B = 2048; K5: one MSM bucket step, 64 lanes x 33
-           windows; K6, K7: one GLV ladder step at B = 8192), each held bit
-           for bit against its plain PyTorch version on the card (K5-K7
-           with the identity, P = Q and P = -Q in their first rows); device
-           time of both (CUDA graph replays timed with CUDA events) and the
+  build    nvcc seconds; registers, spills and shared memory per kernel
+  kernels  K1-K7 at the row counts their paths give them (K1, K3: the
+           pairing at B = 2048; K2 at each row count the pairing launches
+           it at, B to 15B, K4 at 2B and 3B, and each also at a row count
+           that leaves its last block ragged; K5: one MSM bucket step, 64
+           lanes x 33 windows; K6, K7: one GLV ladder step at B = 8192),
+           each held bit for bit against its plain PyTorch version on the
+           card (K2, K4 with edge rows at both ends, K5-K7 with the
+           identity, P = Q and P = -Q in their first rows); device time of
+           both (CUDA graph replays timed with CUDA events) and the
            kernel's time when issued eagerly from Python
   pairing  `pair_batch` at B = 2048 (32 distinct pairs, tiled): GT bytes
            against tests/vectors/reference.json, bilinearity, infinity
            masks, 4 rows recomputed on the CPU, pairings/s, launches of
-           each kernel in one batch, peak device memory
+           each kernel in one batch (K2 and K4 also by row count), peak
+           device memory
   g1       `G1Vec.generator((8192,)) ** ZpVec`: 8 rows against the host
            ladder, their bytes against the host codec, 4 rows recomputed on
            the CPU, scalar multiplications/s, launches per call
@@ -32,25 +37,33 @@ just after; every kernel of the path must have launched.  With --trace,
 each path's line also gives one call under torch.profiler: the summed
 device time of its kernels against the host clock, and its top kernels.
 
-Then a JSON line of per-kernel numbers, nvidia-smi's line, and as the last
-line {"ok": true, "device": {...}}.  Imports nothing of the JAX package.
+Then a JSON line of per-kernel numbers (with each kernel's device ms at
+each timed row count, and per path the launch-weighted device ms and bound
+of one call), nvidia-smi's line, and as the last line
+{"ok": true, "device": {...}}.  --nvcc-define NAME=VALUE (repeatable)
+builds the kernels with -DNAME=VALUE, for a design variant (tower.cu's
+FP6_THREADS=6, fp381.cuh's FP381_PTX_PRODUCT=1).  Imports nothing of
+the JAX package.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import pathlib
 import re
 import subprocess
-import sys
 import time
 
 import numpy as np
 
 B = 2048
 DISTINCT = 32
-TRACE = "--trace" in sys.argv[1:]
+ARGS = argparse.ArgumentParser(description="Drive the port's kernels and paths on one card.")
+ARGS.add_argument("--trace", action="store_true", help="one torch.profiler call of each path")
+ARGS.add_argument("--nvcc-define", action="append", default=[], metavar="NAME=VALUE",
+                  help="build the kernels with -DNAME=VALUE")
 G1_B = 8192                    # GLV batch, and the MSM's distinct points
 MSM_N = 1 << 16
 MSM_LANES, MSM_WINDOWS = 64, 33     # G1Vec.msm's defaults at c = 8
@@ -63,6 +76,14 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: 32-bit multiply-adds of one 12-limb CIOS product: 288 wide products
 #: counted twice (low and high halves) plus 12 low products for m
 MULADDS_PER_PRODUCT = 2 * (144 + 144) + 12
+#: K2 and K4's row counts per pairing row: every count the pairing launches
+#: them at, and one more that leaves the kernel's last block ragged (K2
+#: blocks take 32 rows, K4 blocks 16); the first is the headline
+K2_ROWS_PER_PAIR = (15, 1, 2, 3, 4, 5, 6)
+K4_ROWS_PER_PAIR = (3, 2)
+RAGGED = 7
+#: kernel -> launches per path and row count, read right after each path
+ROWS_BY_PATH: dict[str, dict[str, dict[int, int]]] = {}
 #: aten ops that only make a view (no kernel launch)
 _VIEW_OPS = {"select", "slice", "unsqueeze", "view", "expand", "unbind", "alias",
              "as_strided", "_unsafe_view", "t", "transpose", "permute", "squeeze",
@@ -90,6 +111,9 @@ def _ptxas_report(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and cur:
             out.setdefault(cur, {})["regs"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and cur:
+            out.setdefault(cur, {})["smem"] = int(m.group(1))
     named = {}
     for mangled, v in out.items():
         for k in ("mont_mul_kernel", "fp2_mul_kernel", "fp2_sqr_kernel", "fp6_mul_kernel",
@@ -108,12 +132,15 @@ def _rand_fp(rng, n, k):
     return w.astype(np.uint32).view(np.int32)
 
 
-def _edges(x, vals):
-    """Put the edge values into the first rows (every component)."""
+def _edges(x, vals, last=False):
+    """Put the edge values into the first rows (every component), and with
+    last=True into the last rows too (row -1 the first value)."""
     from crypto12381_tpu_torch.fields import fp as FP
 
     for r, v in enumerate(vals):
         x[r, :, :] = FP.limbs_of(v)
+        if last:
+            x[-1 - r, :, :] = FP.limbs_of(v)
     return x
 
 
@@ -216,22 +243,30 @@ def phase_kernels(dev):
     b[q + 1] = 0
     specs.append(("K1 mont_mul", "fp_mont_mul", "crypto12381_tpu_torch/csrc/fp.cu",
                   "crypto12381_tpu/fields/fp32.py:354", FP.mont_mul, FP.mont_mul_plain,
-                  (a, b), n, 1, None))
-    # K2: 15 rows per pairing row (sparse multiply); K3: 9 (cyclotomic
-    # square); K4: 3 (Fp12 product)
-    for name, rows, shape, prod, n_in, kern, plain, line in (
-        ("K2 fp2_mul", 15 * B, (2,), 3, 2, FK.fp2_mul, FK.fp2_mul_plain, 379),
-        ("K3 fp2_sqr", 9 * B, (2,), 2, 1, FK.fp2_sqr, FK.fp2_sqr_plain, 790),
-        ("K4 fp6_mul", 3 * B, (3, 2), 18, 2, FK.fp6_mul, FK.fp6_mul_plain, 387),
+                  {n: (a, b)}, n, 1, None))
+    # K2: 15 rows per pairing row in the sparse multiply, B to 6B in the
+    # line coefficients and G2 steps; K3: 9 (cyclotomic square); K4: 3
+    # (Fp12 product) and 2 (Fp12 square).  K2 and K4 carry edge rows at both
+    # ends, all p-1 against all p-1 among them (the largest pre-sums).
+    tower_edge = ([0, 1, P - 1, P - 1], [P - 1, 1, 0, P - 1])
+    for name, per_pair, both_ends, shape, prod, n_in, kern, plain, line in (
+        ("K2 fp2_mul", K2_ROWS_PER_PAIR, True, (2,), 3, 2, FK.fp2_mul, FK.fp2_mul_plain, 379),
+        ("K3 fp2_sqr", (9,), False, (2,), 2, 1, FK.fp2_sqr, FK.fp2_sqr_plain, 790),
+        ("K4 fp6_mul", K4_ROWS_PER_PAIR, True, (3, 2), 18, 2, FK.fp6_mul, FK.fp6_mul_plain,
+         387),
     ):
         k = int(np.prod(shape))
-        ins = tuple(
-            torch.from_numpy(_edges(_rand_fp(rng, rows, k), edge if i == 0 else edge[::-1])
-                             .reshape((rows,) + shape + (12,))).to(dev)
-            for i in range(n_in))
+        counts = [m * B for m in per_pair] + ([per_pair[0] * B + RAGGED] if both_ends else [])
+        edges = tower_edge if both_ends else (edge, edge[::-1])
+        ins = {}
+        for rows in counts:
+            ins[rows] = tuple(
+                torch.from_numpy(_edges(_rand_fp(rng, rows, k), edges[i], last=both_ends)
+                                 .reshape((rows,) + shape + (12,))).to(dev)
+                for i in range(n_in))
         specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/tower.cu",
-                      f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, rows, prod,
-                      None))
+                      f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, counts[0],
+                      prod, None))
     # K5: one MSM bucket step (lanes x windows rows); K6, K7: one GLV ladder
     # step of the g1 phase's batch
     for name, rows, prod, kern, plain, line in (
@@ -241,51 +276,87 @@ def phase_kernels(dev):
     ):
         ins, edge_want = _curve_inputs(rng, name.split()[1], rows, dev)
         specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/g1.cu",
-                      f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, rows, prod,
-                      edge_want))
+                      f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, {rows: ins}, rows,
+                      prod, edge_want))
     results = []
-    for name, fn_c, src, repl, kern, plain, ins, rows, prod, edge_want in specs:
-        got = kern(*ins)
-        want = plain(*ins)
-        torch.cuda.synchronize()
-        if got.dtype != torch.int32 or not torch.equal(got, want):
-            bad = (got != want).reshape(rows, -1).any(-1).nonzero()[:5].flatten().tolist()
-            raise SystemExit(f"kernels: {name} disagrees with its plain version at rows {bad}")
+    for name, fn_c, src, repl, kern, plain, ins_by_rows, rows, prod, edge_want in specs:
+        ms_by_rows, outs, err = {}, {}, 0.0
+        for r, ins in sorted(ins_by_rows.items()):
+            got = outs[r] = kern(*ins)
+            want = plain(*ins)
+            torch.cuda.synchronize()
+            if got.dtype != torch.int32 or not torch.equal(got, want):
+                bad = (got != want).reshape(r, -1).any(-1).nonzero()[:5].flatten().tolist()
+                raise SystemExit(f"kernels: {name} disagrees with its plain version at "
+                                 f"{r} rows, rows {bad}")
+            err = max(err, float((got.to(torch.int64) - want.to(torch.int64)).abs().max().item()))
+            ms_by_rows[r] = _device_ms(lambda: kern(*ins))
+        ins, got = ins_by_rows[rows], outs[rows]
         if edge_want is not None:
             edge_got = list(G1C.to_affine_ints(tuple(got[:4].unbind(-2))))
             if edge_got != edge_want:
                 raise SystemExit(f"kernels: {name} gives wrong points at the identity, "
                                  f"P = Q or P = -Q: {edge_got} != {edge_want}")
-        err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
         eager_ms = _eager_ms(lambda: kern(*ins))
-        ms = _device_ms(lambda: kern(*ins))
         plain_ms = _device_ms(lambda: plain(*ins))
-        nbytes = 4 * (sum(t.numel() for t in ins) + got.numel())
-        ops = rows * prod * MULADDS_PER_PRODUCT
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+        bytes_per_row = 4 * (sum(t.numel() for t in ins) + got.numel()) // rows
+        ops_per_row = prod * MULADDS_PER_PRODUCT
+        bound_ms, bound_by = _bound(bytes_per_row, ops_per_row, rows)
         results.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "c_function": fn_c, "rows": rows, "max_abs_err": err, "ms": ms,
-            "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+            "c_function": fn_c, "rows": rows, "max_abs_err": err, "ms": ms_by_rows[rows],
+            "ms_by_rows": ms_by_rows, "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "bytes_per_row": bytes_per_row, "ops_per_row": ops_per_row,
         })
     line = "; ".join(
         f"{r['name']} rows={r['rows']} equal=True ms={r['ms']:.6f} eager_ms={r['eager_ms']:.6f} "
-        f"plain_ms={r['plain_ms']:.6f} "
-        f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']})" for r in results)
+        f"plain_ms={r['plain_ms']:.6f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']})"
+        + (f" ms_by_rows={ {k: round(v, 6) for k, v in r['ms_by_rows'].items()} }"
+           if len(r["ms_by_rows"]) > 1 else "")
+        for r in results)
     print(f"kernels: {line}", flush=True)
     return results
 
 
+def _bound(bytes_per_row: int, ops_per_row: int, rows: int):
+    """The least time of a launch over `rows` rows: the larger of its bytes
+    over the memory rate and its 32-bit multiply-adds over the integer
+    rate, in ms, and which of the two it is."""
+    t_bytes = rows * bytes_per_row / HBM_BYTES_PER_S
+    t_ops = rows * ops_per_row / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _weighted(k: dict) -> None:
+    """Per path: the kernel's launch-weighted device ms and bound of one
+    call, each launch at its own row count.  A launch at a row count that
+    was not timed takes the ms of the nearest timed one; `exact` says
+    whether every launch's row count was timed."""
+    ms = k["ms_by_rows"]
+    out = {}
+    for path, rows in k.pop("launch_rows_by_path").items():
+        near = {r: min(ms, key=lambda t: abs(t - r)) for r in rows}
+        out[path] = {
+            "launch_rows": rows,
+            "ms": sum(c * ms[near[r]] for r, c in rows.items()),
+            "bound_ms": sum(c * _bound(k["bytes_per_row"], k["ops_per_row"], r)[0]
+                            for r, c in rows.items()),
+            "exact": all(near[r] == r for r in rows),
+        }
+    k["weighted_by_path"] = out
+
+
 def _path_launches(path: str, kernels) -> dict:
-    """The launch counts since the last reset; fails if a kernel of the
-    path never launched."""
+    """The launch counts since the last reset (and, in ROWS_BY_PATH, per
+    row count); fails if a kernel of the path never launched."""
     import crypto12381_tpu_torch as T
 
     launches = {k: T.LAUNCHES[k] for k in kernels}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise SystemExit(f"{path}: kernels never launched on the path: {missing}")
+    ROWS_BY_PATH[path] = {k: dict(sorted(T.LAUNCH_ROWS[k].items())) for k in kernels}
     return launches
 
 
@@ -335,7 +406,7 @@ def _trace(fn) -> str:
             f"device_busy_share={busy / wall:.4f} top_kernels_ms={top}")
 
 
-def phase_pairing(dev):
+def phase_pairing(dev, trace: bool):
     import torch
 
     import crypto12381_tpu_torch as T
@@ -403,15 +474,17 @@ def phase_pairing(dev):
     peak = torch.cuda.max_memory_allocated()
 
     ops = _op_tally(lambda: T.pair_batch(*args))
-    traced = _trace(lambda: T.pair_batch(*args)) if TRACE else ""
+    traced = _trace(lambda: T.pair_batch(*args)) if trace else ""
     print(f"pairing: B={B} distinct={DISTINCT} checks={checks} first_s={first_s:.3f} "
           f"batch_s={[round(t, 4) for t in times]} pairings_per_s={rate:.1f} "
-          f"launches_per_batch={launches} {ops} max_memory_allocated={peak} {traced}",
+          f"launches_per_batch={launches} launch_rows="
+          f"{ {k: ROWS_BY_PATH['pairing'][k] for k in ('fp2_mul', 'fp6_mul')} } "
+          f"{ops} max_memory_allocated={peak} {traced}",
           flush=True)
     return launches
 
 
-def phase_g1(dev):
+def phase_g1(dev, trace: bool):
     """G1Vec ** ZpVec at G1_B: the GLV ladder (K1 for phi, K6, K7)."""
     import torch
 
@@ -454,14 +527,14 @@ def phase_g1(dev):
         times.append(time.perf_counter() - t0)
     rate = G1_B * len(times) / sum(times)
     ops = _op_tally(lambda: gen ** e)
-    traced = _trace(lambda: gen ** e) if TRACE else ""
+    traced = _trace(lambda: gen ** e) if trace else ""
     print(f"g1: B={G1_B} checks={checks} first_s={first_s:.3f} "
           f"call_s={[round(t, 4) for t in times]} scalar_muls_per_s={rate:.1f} "
           f"launches_per_call={launches} {ops} {traced}", flush=True)
     return pts, a, launches
 
 
-def phase_msm(dev, pts, a):
+def phase_msm(dev, pts, a, trace: bool):
     """G1Vec.msm at MSM_N: the scan Pippenger (K1, K5, K6, K7) on the g1
     phase's points, affine and tiled, against the host integer oracle."""
     import torch
@@ -509,7 +582,7 @@ def phase_msm(dev, pts, a):
     rate = MSM_N * len(times) / sum(times)
     peak = torch.cuda.max_memory_allocated()
     ops = _op_tally(lambda: vec.msm(e))
-    traced = _trace(lambda: vec.msm(e)) if TRACE else ""
+    traced = _trace(lambda: vec.msm(e)) if trace else ""
     print(f"msm: n={MSM_N} distinct={m} oracle=True first_s={first_s:.3f} "
           f"call_s={[round(t, 4) for t in times]} points_per_s={rate:.1f} "
           f"launches_per_call={launches} {ops} max_memory_allocated={peak} {traced}",
@@ -520,9 +593,12 @@ def phase_msm(dev, pts, a):
 def main() -> None:
     import torch
 
+    args = ARGS.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     from crypto12381_tpu_torch import _build
+
+    _build.NVCC_FLAGS += tuple(f"-D{d}" for d in args.nvcc_define)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -537,17 +613,21 @@ def main() -> None:
     regs = {}
     for log in _build.BUILD_LOG.values():
         regs.update(_ptxas_report(log))
-    print(f"build: {build_s:.1f}s ptxas={regs}", flush=True)
+    print(f"build: {build_s:.1f}s defines={args.nvcc_define} ptxas={regs}", flush=True)
 
     kernels = phase_kernels(dev)
-    by_path = {"pairing": phase_pairing(dev)}
-    pts, a, by_path["g1"] = phase_g1(dev)
-    by_path["msm"] = phase_msm(dev, pts, a)
+    by_path = {"pairing": phase_pairing(dev, args.trace)}
+    pts, a, by_path["g1"] = phase_g1(dev, args.trace)
+    by_path["msm"] = phase_msm(dev, pts, a, args.trace)
     for k in kernels:
         fn = k.pop("c_function")
         k["launches_by_path"] = {path: n[fn] for path, n in by_path.items() if fn in n}
         k["launches"] = sum(k["launches_by_path"].values())
-        k.pop("rows")
+        k["launch_rows_by_path"] = {path: rows[fn] for path, rows in ROWS_BY_PATH.items()
+                                    if fn in rows}
+        _weighted(k)
+        for key in ("rows", "bytes_per_row", "ops_per_row"):
+            k.pop(key)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

@@ -9,11 +9,13 @@ the module is imported.
 Every C entry point takes its tensors' device pointers, the row count and a
 CUDA stream, launches on that stream, and returns `cudaGetLastError()`;
 `launch` raises if that is not 0 and otherwise adds one to the kernel's
-launch count in `LAUNCHES`.
+launch count in `LAUNCHES`, and to its count at that row count in
+`LAUNCH_ROWS`.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -41,6 +43,8 @@ NVCC_FLAGS = (
 
 #: launches per C function, counted by `launch`
 LAUNCHES = {fn: 0 for _, fns in _LIBS_SPEC.values() for fn in fns}
+#: launches per C function and row count, counted by `launch`
+LAUNCH_ROWS = {fn: collections.Counter() for fn in LAUNCHES}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 #: library name -> nvcc's output (ptxas register and spill report)
@@ -50,6 +54,7 @@ BUILD_LOG: dict[str, str] = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LAUNCH_ROWS[k].clear()
 
 
 def _nvcc() -> str:
@@ -117,14 +122,15 @@ def library(name: str) -> ctypes.CDLL:
 
 def launch(lib_name: str, fn: str, tensors, n: int) -> None:
     """Launch `fn` over n rows on the current stream of the tensors' card.
-    tensors: contiguous int32 CUDA tensors on one device (inputs, then the
-    output), n rows each; rows may differ in width between tensors (a mixed
-    add reads a projective and an affine point)."""
+    tensors: contiguous, 16-byte aligned int32 CUDA tensors on one device
+    (inputs, then the output), n rows each; rows may differ in width between
+    tensors (a mixed add reads a projective and an affine point)."""
     dev = tensors[0].device
     for t in tensors:
         if (t.device != dev or dev.type != "cuda" or t.dtype != torch.int32
-                or not t.is_contiguous() or t.numel() % max(n, 1)):
-            raise ValueError(f"{fn}: needs contiguous int32 tensors of {n} rows on one CUDA device")
+                or not t.is_contiguous() or t.numel() % max(n, 1) or t.data_ptr() % 16):
+            raise ValueError(f"{fn}: needs contiguous, 16-byte aligned int32 tensors of "
+                             f"{n} rows on one CUDA device")
     f = getattr(library(lib_name), fn)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -132,3 +138,4 @@ def launch(lib_name: str, fn: str, tensors, n: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
     LAUNCHES[fn] += 1
+    LAUNCH_ROWS[fn][n] += 1

@@ -1,26 +1,57 @@
-// K2, K3, K4: whole tower products per thread, one instance per thread.
+// K2, K3, K4: the Fp2 product, the Fp2 square and the Fp6 product.
 //
 // Replace the TPU programs of crypto12381_tpu/fields/fp32k.py run through
 // `_fused_pallas`: `prog_fp2_mul` (K2), `prog_fp2_sqr` (K3) and
 // `prog_fp6_mul` (K4).  On the TPU a program normalized its signed digits,
 // ran every product's lane-shifted FMAs, reduced all products together in
-// two stacked bf16 matrix products and combined them in registers.  Here
-// each thread does the same work for one instance on 32-bit limbs with the
-// CIOS product of fp381.cuh: Karatsuba pre-sums, products, combines and the
-// final reduction to [0, p) stay in registers, and only the canonical
-// operands and results touch device memory.
+// two stacked bf16 matrix products and combined them in registers.
 //
-// Bound on the card: per instance K2 reads 192 bytes and writes 96 for 3
-// products, K3 96 and 96 for 2, K4 576 and 288 for 18 (588 32-bit
-// multiply-adds per product).  At the pairing's row counts the integer
-// multiply rate bounds K4 and memory bounds K2 and K3, both far below the
-// launch time; what costs is the register pressure of K4's 18 products,
-// which the design limits by reading each Fp2 operand from device memory
-// right before its product and folding each product into three running
-// sums at once, so that at most six Fp2 values are live.
+// Bound on the card.  Per instance K2 reads 192 bytes and writes 96 for 3
+// Fp products, K3 96 and 96 for 2, K4 576 and 288 for 18, at 588 32-bit
+// multiply-adds per product: the integer multiply rate bounds all three.
+// At the pairing's row counts (K2 2,048 to 30,720 rows, K4 4,096 and
+// 6,144) one thread per instance is far from that bound: a launch is a
+// partial wave of a few warps per SM, each stalled on a dependent chain of
+// multiply-adds with carry, and K4's 18 products in one thread need 255
+// registers and spill.
 //
-// Layouts (int32 limbs, row-major, contiguous): Fp2 (n, 2, 12),
-// Fp6 (n, 3, 2, 12).  Operands are canonical; outputs are canonical.
+// K2 and K4 therefore give each Fp product its own thread: 3 threads per
+// K2 instance (Karatsuba: a0 b0, a1 b1, (a0 + a1)(b0 + b1)), and 18 per
+// K4 instance (the 3 of each of its 6 Fp2 Karatsuba products; built with
+// -DFP6_THREADS=6 a thread runs one whole Fp2 product instead).  A thread
+// holds two operands and the accumulator (K2 53 registers, K4 60, no
+// spills), so three 288-thread K4 blocks share an SM and hide each other's
+// latency, and the launch has 3x (K2) or 18x (K4) the threads.  A block takes 32 (K2) or 16 (K4) consecutive instances and
+// runs in phases with a barrier between each two:
+//   stage    the block's span of each operand into shared memory, 16 bytes
+//            per thread, consecutive threads on consecutive bytes;
+//   product  each thread forms its operands from shared memory (pre-sums
+//            included), runs fp_mul (fp381.cuh: the CIOS product of K1)
+//            and writes the product back to shared memory;
+//   combine  the Karatsuba combines, one output Fp coefficient per thread:
+//            K2 re = t0 - t1, im = t2 - t0 - t1; K4 first forms its 6 Fp2
+//            products that way (12 coefficients), then the Fp6 combine
+//            (6 coefficients);
+//   store    the outputs from shared memory, 16 bytes per thread.
+// Shared memory per block: K2 11,776 bytes, K4 23,552 (operands, then the
+// products; each combine writes over what is dead by then).  A shared row
+// is padded (Fp2 96 -> 112 bytes, Fp6 288 -> 304) so that the 16-byte
+// accesses of 8 consecutive threads fall in 32 distinct banks.  The last
+// block of a ragged launch masks its copies, products and combines; every
+// thread reaches every barrier.
+//
+// Bound proof of the product operands.  The pre-sum of two Fp2
+// coefficients of an Fp6 is reduced mod p (add_mod), and the third product
+// of an Fp2 Karatsuba takes the raw sum of two canonical values: every
+// operand is canonical or below 2p, which fp_mul takes.  The combines
+// are add_mod and sub_mod of canonical values, so every output is
+// canonical.
+//
+// K3 keeps one instance per thread.
+//
+// Layouts (int32 limbs, row-major, contiguous, 16-byte aligned): Fp2
+// (n, 2, 12), Fp6 (n, 3, 2, 12).  Operands are canonical; outputs are
+// canonical.
 
 #include "fp381.cuh"
 
@@ -29,17 +60,161 @@ using namespace fp381;
 constexpr int F2 = 2 * NL;   // limbs of one Fp2 value
 constexpr int F6 = 3 * F2;   // limbs of one Fp6 value
 
-__global__ void __launch_bounds__(THREADS)
+// ------------------------------------------------------ shared memory
+
+// 16 bytes from s to d, both 16-byte aligned.
+__device__ __forceinline__ void copy16(uint32_t* d, const uint32_t* s) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
+#else
+  for (int k = 0; k < 4; ++k) d[k] = s[k];
+#endif
+}
+
+// One Fp value from shared memory s into registers r, 16 bytes at a time.
+__device__ __forceinline__ void ld_fp(uint32_t* r, const uint32_t* s) {
+#pragma unroll
+  for (int k = 0; k < NL; k += 4) {
+#ifdef __CUDA_ARCH__
+    const uint4 v = *reinterpret_cast<const uint4*>(s + k);
+    r[k] = v.x;
+    r[k + 1] = v.y;
+    r[k + 2] = v.z;
+    r[k + 3] = v.w;
+#else
+    for (int j = 0; j < 4; ++j) r[k + j] = s[k + j];
+#endif
+  }
+}
+
+// One Fp value from registers r into shared memory s.
+__device__ __forceinline__ void st_fp(uint32_t* s, const uint32_t* r) {
+#pragma unroll
+  for (int k = 0; k < NL; k += 4) {
+#ifdef __CUDA_ARCH__
+    *reinterpret_cast<uint4*>(s + k) = make_uint4(r[k], r[k + 1], r[k + 2], r[k + 3]);
+#else
+    for (int j = 0; j < 4; ++j) s[k + j] = r[k + j];
+#endif
+  }
+}
+
+// r = r + s mod p, r = r - s mod p, for s in shared memory.
+__device__ __forceinline__ void add_sh(uint32_t* r, const uint32_t* s) {
+  uint32_t y[NL];
+  ld_fp(y, s);
+  add_mod<NL>(r, r, y);
+}
+
+__device__ __forceinline__ void sub_sh(uint32_t* r, const uint32_t* s) {
+  uint32_t y[NL];
+  ld_fp(y, s);
+  sub_mod<NL>(r, r, y);
+}
+
+// Copy `rows` rows of W limbs from device memory g into shared memory s as
+// rows of S limbs, each of BLOCK threads moving 16 bytes per step.
+template <int W, int S, int BLOCK>
+__device__ __forceinline__ void stage_in(uint32_t* s, const uint32_t* g, int rows, int tid) {
+  for (int v = tid; v < rows * (W / 4); v += BLOCK) {
+    const int r = v / (W / 4), c = 4 * (v % (W / 4));
+    copy16(s + r * S + c, g + (int64_t)r * W + c);
+  }
+}
+
+// The reverse: shared rows of S limbs to device rows of W limbs.
+template <int W, int S, int BLOCK>
+__device__ __forceinline__ void stage_out(uint32_t* g, const uint32_t* s, int rows, int tid) {
+  for (int v = tid; v < rows * (W / 4); v += BLOCK) {
+    const int r = v / (W / 4), c = 4 * (v % (W / 4));
+    copy16(g + (int64_t)r * W + c, s + r * S + c);
+  }
+}
+
+// Rows of the block `blk` of `per` instances each: min(per, n - blk per).
+__device__ __forceinline__ int block_rows(int64_t n, int64_t blk, int per) {
+  const int64_t left = n - blk * per;
+  return left < per ? (int)left : per;
+}
+
+// ------------------------------------------------- Karatsuba pieces
+
+// Operand k of an Fp2 Karatsuba product, from the Fp2 value x in shared
+// memory: x0 (k = 0), x1 (k = 1) or the raw sum x0 + x1 (k = 2, < 2p).
+__device__ __forceinline__ void fp2_operand(uint32_t* r, const uint32_t* x, int k) {
+  ld_fp(r, x + (k == 1 ? NL : 0));
+  if (k == 2) {
+    uint32_t s[NL];
+    ld_fp(s, x + NL);
+    add_raw<NL>(r, r, s);
+  }
+}
+
+// Coefficient f (0 real, 1 imaginary) of an Fp2 Karatsuba product from its
+// Fp products t0 = t[0], t1 = t[d], t2 = t[2 d] in shared memory:
+// re = t0 - t1, im = t2 - t0 - t1.
+__device__ __forceinline__ void fp2_coeff(uint32_t* r, const uint32_t* t, int d, int f) {
+  if (f == 0) {
+    ld_fp(r, t);
+  } else {
+    ld_fp(r, t + 2 * d);
+    sub_sh(r, t);
+  }
+  sub_sh(r, t + d);
+}
+
+// ------------------------------------------------------------- K2
+
+constexpr int K2_ROWS = 32;              // instances per block
+constexpr int K2_BLOCK = 3 * K2_ROWS;    // one thread per Fp product
+constexpr int S2 = F2 + 4;               // a padded shared Fp2 row
+// shared layout (limbs): operands A, B; products T[k][i]; outputs over A
+constexpr int K2_A = 0, K2_B = K2_ROWS * S2, K2_T = 2 * K2_ROWS * S2;
+constexpr int K2_SMEM = K2_T + 3 * K2_ROWS * NL;
+constexpr int K2_PHASES = 4;
+
+// Phase `ph` of K2 for thread `tid` of block `blk`.
+__device__ __forceinline__ void fp2_mul_phase(int ph, uint32_t* sm, const uint32_t* a,
+                                              const uint32_t* b, uint32_t* out, int64_t n,
+                                              int64_t blk, int tid) {
+  const int64_t row0 = blk * K2_ROWS;
+  const int rows = block_rows(n, blk, K2_ROWS);
+  if (ph == 0) {                            // stage
+    stage_in<F2, S2, K2_BLOCK>(sm + K2_A, a + row0 * F2, rows, tid);
+    stage_in<F2, S2, K2_BLOCK>(sm + K2_B, b + row0 * F2, rows, tid);
+  } else if (ph == 1) {                     // product k of instance i
+    const int k = tid / K2_ROWS, i = tid % K2_ROWS;
+    if (i < rows) {
+      uint32_t x[NL], y[NL];
+      fp2_operand(x, sm + K2_A + i * S2, k);
+      fp2_operand(y, sm + K2_B + i * S2, k);
+      fp_mul(x, x, y);
+      st_fp(sm + K2_T + tid * NL, x);
+    }
+  } else if (ph == 2) {                     // coefficient f of instance i
+    const int f = tid / K2_ROWS, i = tid % K2_ROWS;
+    if (f < 2 && i < rows) {
+      uint32_t r[NL];
+      fp2_coeff(r, sm + K2_T + i * NL, K2_ROWS * NL, f);
+      st_fp(sm + K2_A + i * S2 + f * NL, r);
+    }
+  } else {                                  // store
+    stage_out<F2, S2, K2_BLOCK>(out + row0 * F2, sm + K2_A, rows, tid);
+  }
+}
+
+__global__ void __launch_bounds__(K2_BLOCK)
 fp2_mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                uint32_t* __restrict__ out, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  uint32_t x[F2], y[F2], r[F2];
-  load<F2>(x, a + i * F2);
-  load<F2>(y, b + i * F2);
-  fp381::fp2_mul(r, x, y);
-  store<F2>(out + i * F2, r);
+  __shared__ __align__(16) uint32_t sm[K2_SMEM];
+#pragma unroll
+  for (int ph = 0; ph < K2_PHASES; ++ph) {
+    fp2_mul_phase(ph, sm, a, b, out, n, blockIdx.x, threadIdx.x);
+    if (ph + 1 < K2_PHASES) __syncthreads();
+  }
 }
+
+// ------------------------------------------------------------- K3
 
 __global__ void __launch_bounds__(THREADS)
 fp2_sqr_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out, int64_t n) {
@@ -51,79 +226,146 @@ fp2_sqr_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out, int64
   store<F2>(out + i * F2, r);
 }
 
-// The Fp2 operand of one Karatsuba product: coefficient j, or the sum of
-// coefficients j and k (k < 0: none), read from an Fp6 in device memory.
-__device__ __forceinline__ void fp6_operand(uint32_t* r, const uint32_t* g, int j, int k) {
-  load<F2>(r, g + j * F2);
-  if (k >= 0) {
-    uint32_t s[F2];
-    load<F2>(s, g + k * F2);
-    fp2_add(r, r, s);
-  }
-}
-
-// t = (a_j [+ a_k]) * (b_j [+ b_k])
-__device__ __forceinline__ void fp6_product(uint32_t* t, const uint32_t* a, const uint32_t* b,
-                                            int j, int k) {
-  uint32_t x[F2], y[F2];
-  fp6_operand(x, a, j, k);
-  fp6_operand(y, b, j, k);
-  fp381::fp2_mul(t, x, y);
-}
-
+// ------------------------------------------------------------- K4
+//
 // Fp6 product c = a * b with v^3 = xi, Karatsuba over the coefficients:
 //   c0 = t0 + xi (m12 - t1 - t2)
 //   c1 = m01 - t0 - t1 + xi t2
 //   c2 = m02 - t0 - t2 + t1
-// with t_j = a_j b_j and m_jk = (a_j + a_k)(b_j + b_k).
-__global__ void __launch_bounds__(THREADS)
+// with t_j = a_j b_j, m_jl = (a_j + a_l)(b_j + b_l) and
+// xi (x0 + x1 i) = (x0 - x1) + (x0 + x1) i.  The 6 Fp2 products are pairs
+// p = 0..5: t0, t1, t2, m01, m12, m02; Fp product q = 3 p + k is product
+// k of pair p's Fp2 Karatsuba.
+
+#ifndef FP6_THREADS
+#define FP6_THREADS 18
+#endif
+static_assert(FP6_THREADS == 18 || FP6_THREADS == 6, "FP6_THREADS is 18 or 6");
+
+constexpr int K4_ROWS = 16;                      // instances per block
+constexpr int K4_PER = 18 / FP6_THREADS;         // Fp products per thread
+constexpr int K4_BLOCK = FP6_THREADS * K4_ROWS;
+constexpr int S6 = F6 + 4;                       // a padded shared Fp6 row
+// shared layout (limbs): operands A, B; products T[q][i]; then the Fp2
+// products V[2 p + f][i] over A and B, and the outputs over T
+constexpr int K4_A = 0, K4_B = K4_ROWS * S6, K4_T = 2 * K4_ROWS * S6;
+constexpr int K4_V = 0, K4_O = K4_T;
+constexpr int K4_SMEM = K4_T + 18 * K4_ROWS * NL;
+constexpr int K4_PHASES = 5;
+static_assert(12 * K4_ROWS * NL <= K4_T, "V fits over the operands");
+static_assert(K4_ROWS * S6 <= 18 * K4_ROWS * NL, "the outputs fit over T");
+
+// Component f of coefficient j of pair p of the Fp6 value x in shared
+// memory: x_p (p < 3), or x_j + x_l mod p for pairs (0, 1), (1, 2), (0, 2).
+__device__ __forceinline__ void fp6_presum(uint32_t* r, const uint32_t* x, int p, int f) {
+  const int j = p < 3 ? p : (p == 4 ? 1 : 0);
+  ld_fp(r, x + j * F2 + f * NL);
+  if (p >= 3) add_sh(r, x + (p == 3 ? 1 : 2) * F2 + f * NL);
+}
+
+// The operand of Fp product q = 3 p + k from the Fp6 value x: operand k of
+// pair p's Fp2 pre-sum (fp2_operand).
+__device__ __forceinline__ void fp6_operand(uint32_t* r, const uint32_t* x, int q) {
+  const int p = q / 3, k = q % 3;
+  fp6_presum(r, x, p, k == 1);
+  if (k == 2) {
+    uint32_t s[NL];
+    fp6_presum(s, x, p, 1);
+    add_raw<NL>(r, r, s);
+  }
+}
+
+// Coefficient f of output c from the Fp2 products in shared memory, where
+// v(p, g) = v + (2 p + g) d is component g of pair p.
+__device__ __forceinline__ void fp6_coeff(uint32_t* r, const uint32_t* v, int d, int c, int f) {
+  auto at = [=](int p, int g) { return v + (2 * p + g) * d; };
+  uint32_t x[NL];
+  if (c == 0) {            // t0 + xi u, u = m12 - t1 - t2
+    uint32_t u[NL];
+    ld_fp(x, at(4, 0));
+    sub_sh(x, at(1, 0));
+    sub_sh(x, at(2, 0));
+    ld_fp(u, at(4, 1));
+    sub_sh(u, at(1, 1));
+    sub_sh(u, at(2, 1));
+    if (f == 0) sub_mod<NL>(r, x, u); else add_mod<NL>(r, x, u);
+    add_sh(r, at(0, f));
+  } else if (c == 1) {     // m01 - t0 - t1 + xi t2
+    ld_fp(x, at(2, 1));
+    ld_fp(r, at(2, 0));
+    if (f == 0) sub_mod<NL>(r, r, x); else add_mod<NL>(r, r, x);
+    add_sh(r, at(3, f));
+    sub_sh(r, at(0, f));
+    sub_sh(r, at(1, f));
+  } else {                 // m02 - t0 - t2 + t1
+    ld_fp(r, at(5, f));
+    sub_sh(r, at(0, f));
+    sub_sh(r, at(2, f));
+    add_sh(r, at(1, f));
+  }
+}
+
+// Phase `ph` of K4 for thread `tid` of block `blk`.
+__device__ __forceinline__ void fp6_mul_phase(int ph, uint32_t* sm, const uint32_t* a,
+                                              const uint32_t* b, uint32_t* out, int64_t n,
+                                              int64_t blk, int tid) {
+  const int64_t row0 = blk * K4_ROWS;
+  const int rows = block_rows(n, blk, K4_ROWS);
+  if (ph == 0) {                            // stage
+    stage_in<F6, S6, K4_BLOCK>(sm + K4_A, a + row0 * F6, rows, tid);
+    stage_in<F6, S6, K4_BLOCK>(sm + K4_B, b + row0 * F6, rows, tid);
+  } else if (ph == 1) {                     // products g K4_PER + e of instance i
+    const int g = tid / K4_ROWS, i = tid % K4_ROWS;
+    if (i < rows) {
+#pragma unroll 1
+      for (int e = 0; e < K4_PER; ++e) {
+        const int q = g * K4_PER + e;
+        uint32_t x[NL], y[NL];
+        fp6_operand(x, sm + K4_A + i * S6, q);
+        fp6_operand(y, sm + K4_B + i * S6, q);
+        fp_mul(x, x, y);
+        st_fp(sm + K4_T + (q * K4_ROWS + i) * NL, x);
+      }
+    }
+  } else if (ph == 2) {                     // Fp2 coefficient w / K4_ROWS of instance i
+    for (int w = tid; w < 12 * K4_ROWS; w += K4_BLOCK) {
+      const int v = w / K4_ROWS, i = w % K4_ROWS;
+      if (i < rows) {
+        uint32_t r[NL];
+        fp2_coeff(r, sm + K4_T + (3 * (v / 2) * K4_ROWS + i) * NL, K4_ROWS * NL, v % 2);
+        st_fp(sm + K4_V + w * NL, r);
+      }
+    }
+  } else if (ph == 3) {                     // output coefficient o of instance i
+    for (int w = tid; w < 6 * K4_ROWS; w += K4_BLOCK) {
+      const int o = w / K4_ROWS, i = w % K4_ROWS;
+      if (i < rows) {
+        uint32_t r[NL];
+        fp6_coeff(r, sm + K4_V + i * NL, K4_ROWS * NL, o / 2, o % 2);
+        st_fp(sm + K4_O + i * S6 + o * NL, r);
+      }
+    }
+  } else {                                  // store
+    stage_out<F6, S6, K4_BLOCK>(out + row0 * F6, sm + K4_O, rows, tid);
+  }
+}
+
+__global__ void __launch_bounds__(K4_BLOCK)
 fp6_mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                uint32_t* __restrict__ out, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t* A = a + i * F6;
-  const uint32_t* B = b + i * F6;
-  uint32_t c0[F2], c1[F2], c2[F2], t[F2], u[F2];
-
-  fp6_product(t, A, B, 0, -1);               // t0
-  load<F2>(c0, t);
+  __shared__ __align__(16) uint32_t sm[K4_SMEM];
 #pragma unroll
-  for (int j = 0; j < F2; ++j) c1[j] = 0;
-  fp2_sub(c1, c1, t);                        // c1 = -t0
-  load<F2>(c2, c1);                          // c2 = -t0
-
-  fp6_product(t, A, B, 1, -1);               // t1
-  fp2_mul_xi(u, t);
-  fp2_sub(c0, c0, u);
-  fp2_sub(c1, c1, t);
-  fp2_add(c2, c2, t);
-
-  fp6_product(t, A, B, 2, -1);               // t2
-  fp2_mul_xi(u, t);
-  fp2_sub(c0, c0, u);
-  fp2_add(c1, c1, u);
-  fp2_sub(c2, c2, t);
-
-  fp6_product(t, A, B, 0, 1);                // m01
-  fp2_add(c1, c1, t);
-
-  fp6_product(t, A, B, 1, 2);                // m12
-  fp2_mul_xi(u, t);
-  fp2_add(c0, c0, u);
-
-  fp6_product(t, A, B, 0, 2);                // m02
-  fp2_add(c2, c2, t);
-
-  uint32_t* o = out + i * F6;
-  store<F2>(o, c0);
-  store<F2>(o + F2, c1);
-  store<F2>(o + 2 * F2, c2);
+  for (int ph = 0; ph < K4_PHASES; ++ph) {
+    fp6_mul_phase(ph, sm, a, b, out, n, blockIdx.x, threadIdx.x);
+    if (ph + 1 < K4_PHASES) __syncthreads();
+  }
 }
 
 extern "C" int fp2_mul(const void* a, const void* b, void* out, int64_t n, void* stream) {
   if (n > 0) {
-    fp2_mul_kernel<<<(unsigned)blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);
+    fp2_mul_kernel<<<(unsigned)((n + K2_ROWS - 1) / K2_ROWS), K2_BLOCK, 0,
+                     (cudaStream_t)stream>>>((const uint32_t*)a, (const uint32_t*)b,
+                                             (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();
 }
@@ -138,8 +380,9 @@ extern "C" int fp2_sqr(const void* a, void* out, int64_t n, void* stream) {
 
 extern "C" int fp6_mul(const void* a, const void* b, void* out, int64_t n, void* stream) {
   if (n > 0) {
-    fp6_mul_kernel<<<(unsigned)blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);
+    fp6_mul_kernel<<<(unsigned)((n + K4_ROWS - 1) / K4_ROWS), K4_BLOCK, 0,
+                     (cudaStream_t)stream>>>((const uint32_t*)a, (const uint32_t*)b,
+                                             (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();
 }

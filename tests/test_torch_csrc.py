@@ -2,13 +2,24 @@
 
 The device functions and kernel bodies of crypto12381_tpu_torch/csrc/
 are plain C++ once the CUDA keywords are defined away, so a host C++
-compiler can build them into a small program that runs each kernel body
-once per row. Its outputs must equal the plain PyTorch versions bit for
-bit, on canonical operands with the edge values 0, 1 and p-1, for K1 on
-pre-sums up to 2p-2, and for the curve kernels K5-K7 on curve points with
-the identity, P = Q and P = -Q among them; and the header's copies of p
-and n0' must equal params.py's. The launch code (the `<<<...>>>` wrappers) and
-the card itself are exercised only by chip_smoke.py.
+compiler can build them into a small program. It runs each one-thread-
+per-instance kernel body (K1, K3, K5-K7) once per row. K2 and K4 are
+block-cooperative: their threads share operands and products through
+shared memory, with barriers between phases. The program runs each of
+their blocks phase by phase, every thread of a phase before the next,
+with the block's shared memory a fresh array of junk; it runs every block
+a second time with the threads of each phase in reverse order, and fails
+if the outputs differ (threads that race within a phase) or if a write
+lands past the last row. The outputs must equal the plain PyTorch versions
+bit for bit: on canonical operands with the edge values 0, 1 and p-1; for
+K1 on pre-sums up to 2p-2; for K2 and K4 at row counts below, at and
+between multiples of a block's instances, with rows of all-(p-1)
+operands, whose pre-sums are the largest; and for the curve kernels K5-K7
+on curve points with the identity, P = Q and P = -Q among them. The
+header's copies of p and n0' must equal params.py's. The opt-in PTX
+product of fp381.cuh (FP381_PTX_PRODUCT, under __CUDA_ARCH__), the launch
+code (the `<<<...>>>` wrappers) and the card itself are exercised only by
+chip_smoke.py.
 """
 
 import pathlib
@@ -45,18 +56,52 @@ SHIM = """#pragma once
 #define __constant__
 #define __launch_bounds__(x)
 #define __restrict__
+#define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
+inline void __syncthreads() {}
 struct Dim3 { unsigned x; };
 static Dim3 blockIdx, threadIdx;
 typedef void* cudaStream_t;
 """
 
 MAIN = r"""
+#include <algorithm>
 #include <cstdio>
 #include <vector>
 template <class K> void rows(K k, int64_t n) {
   for (int64_t i = 0; i < n; ++i) {
     blockIdx.x = (unsigned)(i / THREADS); threadIdx.x = (unsigned)(i % THREADS); k();
   }
+}
+// A block-cooperative kernel: each block runs every phase over all its
+// threads (in order, or reversed) before the next phase, on a fresh junk
+// shared-memory array; out gets `width` words per row and a guard after.
+constexpr int GUARD = 64;
+template <class Ph>
+std::vector<uint32_t> blocks(Ph phase, int64_t n, int per, int threads, int phases, int smem,
+                             int width, bool reverse) {
+  std::vector<uint32_t> out(n * width + GUARD, 0xa5a5a5a5u), sm(smem);
+  for (int64_t blk = 0; blk * per < n; ++blk) {
+    std::fill(sm.begin(), sm.end(), 0xdeadbeefu);
+    for (int ph = 0; ph < phases; ++ph)
+      for (int k = 0; k < threads; ++k)
+        phase(ph, sm.data(), out.data(), blk, reverse ? threads - 1 - k : k);
+  }
+  return out;
+}
+// Both thread orders must agree and leave the guard untouched.
+template <class Ph>
+bool coop(std::vector<uint32_t>& o, Ph phase, int64_t n, int per, int threads, int phases,
+          int smem, int width) {
+  std::vector<uint32_t> f = blocks(phase, n, per, threads, phases, smem, width, false);
+  std::vector<uint32_t> r = blocks(phase, n, per, threads, phases, smem, width, true);
+  if (f != r) { fprintf(stderr, "thread order changes the result\n"); return false; }
+  if (std::any_of(f.begin() + n * width, f.end(), [](uint32_t w) { return w != 0xa5a5a5a5u; })) {
+    fprintf(stderr, "write past the last row\n");
+    return false;
+  }
+  o.assign(f.begin(), f.begin() + n * width);
+  return true;
 }
 int main(int argc, char** argv) {
   FILE* f = fopen(argv[1], "rb");
@@ -66,12 +111,16 @@ int main(int argc, char** argv) {
   if (fread(a.data(), 4, n * 72, f) != (size_t)(n * 72)) return 1;
   if (fread(b.data(), 4, n * 72, f) != (size_t)(n * 72)) return 1;
   fclose(f);
-  std::vector<uint32_t> o1(n * 12), o2(n * 24), o3(n * 24), o4(n * 72);
+  std::vector<uint32_t> o1(n * 12), o2, o3(n * 24), o4;
   std::vector<uint32_t> o5(n * 36), o6(n * 36), o7(n * 36);
   rows([&] { mont_mul_kernel<12>(a.data(), b.data(), o1.data(), n); }, n);
-  rows([&] { fp2_mul_kernel(a.data(), b.data(), o2.data(), n); }, n);
+  if (!coop(o2, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
+        fp2_mul_phase(ph, sm, a.data(), b.data(), out, n, blk, t); },
+      n, K2_ROWS, K2_BLOCK, K2_PHASES, K2_SMEM, 24)) return 2;
   rows([&] { fp2_sqr_kernel(a.data(), o3.data(), n); }, n);
-  rows([&] { fp6_mul_kernel(a.data(), b.data(), o4.data(), n); }, n);
+  if (!coop(o4, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
+        fp6_mul_phase(ph, sm, a.data(), b.data(), out, n, blk, t); },
+      n, K4_ROWS, K4_BLOCK, K4_PHASES, K4_SMEM, 72)) return 2;
   // curve kernels: points a[0, 36n), b[0, 36n); affine points b[36n, 60n)
   rows([&] { g1_madd_kernel(a.data(), b.data() + n * 36, o5.data(), n); }, n);
   rows([&] { g1_add_kernel(a.data(), b.data(), o6.data(), n); }, n);
@@ -87,12 +136,19 @@ int main(int argc, char** argv) {
 """
 
 
-@pytest.fixture(scope="module")
-def harness(tmp_path_factory):
+_BUILT = {}
+
+
+def build_harness(tmp_path_factory, fp6_threads=18):
+    """Compile the kernel bodies and MAIN with g++ (K4 with fp6_threads
+    threads per instance: 18, or the 6 of -DFP6_THREADS=6); once per
+    variant and test process."""
+    if fp6_threads in _BUILT:
+        return _BUILT[fp6_threads]
     cxx = shutil.which("g++") or shutil.which("clang++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the kernel bodies with")
-    d = tmp_path_factory.mktemp("csrc_host")
+    d = tmp_path_factory.mktemp(f"csrc_host_{fp6_threads}")
     (d / "inc").mkdir()
     (d / "inc" / "cuda_runtime.h").write_text(SHIM)
     bodies = []
@@ -104,9 +160,16 @@ def harness(tmp_path_factory):
            + "\n".join(bodies) + MAIN)
     (d / "harness.cpp").write_text(src)
     exe = d / "harness"
-    subprocess.run([cxx, "-std=c++17", "-O1", f"-I{d / 'inc'}", "-o", str(exe),
-                    str(d / "harness.cpp")], check=True, capture_output=True, timeout=300)
+    subprocess.run([cxx, "-std=c++17", "-O1", f"-DFP6_THREADS={fp6_threads}", f"-I{d / 'inc'}",
+                    "-o", str(exe), str(d / "harness.cpp")],
+                   check=True, capture_output=True, timeout=300)
+    _BUILT[fp6_threads] = (d, exe)
     return d, exe
+
+
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory):
+    return build_harness(tmp_path_factory)
 
 
 def run(harness, av, bv):
@@ -203,3 +266,23 @@ def test_kernel_bodies_match_plain_versions(harness):
     for k in (k5, k6):                  # identity + Q = Q; P + (-P) = O
         assert FP.int_of(k[3, 2].numpy()) == 0 and FP.int_of(k[3, 0].numpy()) == 0
     assert FP.int_of(k7[0, 2].numpy()) == 0                   # 2 O = O
+
+
+@pytest.mark.parametrize("fp6_threads,n", [(18, 1), (18, 16), (18, 47), (18, 96), (6, 47)])
+def test_cooperative_tower_kernels(tmp_path_factory, fp6_threads, n):
+    """K2 (32 instances per block) and K4 (16) at row counts below, at,
+    between and on multiples of a block: random canonical operands, with
+    rows of all p-1 (the largest pre-sums: 2p-2 raw, p-2 reduced), all 0
+    and all 1 at both ends of the launch, so in its ragged last block."""
+    h = build_harness(tmp_path_factory, fp6_threads)
+    rng = np.random.default_rng(100 + n)
+    av = [int.from_bytes(rng.bytes(48), "little") % P for _ in range(6 * n)]
+    bv = [int.from_bytes(rng.bytes(48), "little") % P for _ in range(6 * n)]
+    for r, (x, y) in {0: (P - 1, P - 1), 1: (0, P - 1), 2: (1, P - 1),
+                      n - 2: (P - 1, 1), n - 1: (P - 1, P - 1)}.items():
+        if r >= 0:                           # rows as K4 reads them: 6 Fp values
+            av[6 * r: 6 * r + 6], bv[6 * r: 6 * r + 6] = [x] * 6, [y] * 6
+    a, b, n, (_, k2, _, k4, _, _, _) = run(h, av, bv)
+    assert torch.equal(k2, FK.fp2_mul_plain(a[: 2 * n].reshape(n, 2, 12),
+                                            b[: 2 * n].reshape(n, 2, 12)))
+    assert torch.equal(k4, FK.fp6_mul_plain(a.reshape(n, 3, 2, 12), b.reshape(n, 3, 2, 12)))
