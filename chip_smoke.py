@@ -4,7 +4,6 @@ G1 scalar multiplication and G1 MSM on one CUDA card.
 
     python3 chip_smoke.py            # the smoke run
     python3 chip_smoke.py --trace    # and one profiled call of each path
-    python3 chip_smoke.py --nvcc-define FP6_THREADS=6   # a kernel variant
 
 Phases, one line each; any failure raises and ends the run non-zero:
   device   card name and count, nvidia-smi's name and power limit
@@ -32,18 +31,20 @@ Phases, one line each; any failure raises and ends the run non-zero:
            against the host integer oracle [sum a_i s_i mod r]G; points/s,
            launches and torch ops per call, peak device memory
 
+  rows     every kernel at each row count the paths launched it at that the
+           kernels phase did not time, on random canonical operands: held
+           bit for bit against its plain version, device time
+
 Each path runs with the launch counts set to 0 just before it and read
 just after; every kernel of the path must have launched.  With --trace,
 each path's line also gives one call under torch.profiler: the summed
 device time of its kernels against the host clock, and its top kernels.
 
 Then a JSON line of per-kernel numbers (with each kernel's device ms at
-each timed row count, and per path the launch-weighted device ms and bound
-of one call), nvidia-smi's line, and as the last line
-{"ok": true, "device": {...}}.  --nvcc-define NAME=VALUE (repeatable)
-builds the kernels with -DNAME=VALUE, for a design variant (tower.cu's
-FP6_THREADS=6, fp381.cuh's FP381_PTX_PRODUCT=1).  Imports nothing of
-the JAX package.
+each row count it was timed at, and per path the launch-weighted device ms
+and bound of one call, every launch at its own measured row count),
+nvidia-smi's line, and as the last line {"ok": true, "device": {...}}.
+Imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -62,8 +63,6 @@ B = 2048
 DISTINCT = 32
 ARGS = argparse.ArgumentParser(description="Drive the port's kernels and paths on one card.")
 ARGS.add_argument("--trace", action="store_true", help="one torch.profiler call of each path")
-ARGS.add_argument("--nvcc-define", action="append", default=[], metavar="NAME=VALUE",
-                  help="build the kernels with -DNAME=VALUE")
 G1_B = 8192                    # GLV batch, and the MSM's distinct points
 MSM_N = 1 << 16
 MSM_LANES, MSM_WINDOWS = 64, 33     # G1Vec.msm's defaults at c = 8
@@ -308,6 +307,7 @@ def phase_kernels(dev):
             "ms_by_rows": ms_by_rows, "eager_ms": eager_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "bytes_per_row": bytes_per_row, "ops_per_row": ops_per_row,
+            "fns": (kern, plain), "row_shapes": [tuple(t.shape[1:]) for t in ins],
         })
     line = "; ".join(
         f"{r['name']} rows={r['rows']} equal=True ms={r['ms']:.6f} eager_ms={r['eager_ms']:.6f} "
@@ -328,21 +328,43 @@ def _bound(bytes_per_row: int, ops_per_row: int, rows: int):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def phase_rows(dev, kernels) -> None:
+    """Each kernel at every row count the paths launched it at that the
+    kernels phase did not time: random canonical operands of the kernel's
+    row shapes, held bit for bit against the plain version, then timed."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 4)
+    done = []
+    for k in kernels:
+        kern, plain = k["fns"]
+        rows = sorted({r for per in ROWS_BY_PATH.values() for r in per.get(k["c_function"], {})}
+                      - set(k["ms_by_rows"]))
+        for r in rows:
+            ins = tuple(torch.from_numpy(_rand_fp(rng, r, int(np.prod(shape[:-1])))
+                                         .reshape((r,) + shape)).to(dev)
+                        for shape in k["row_shapes"])
+            got, want = kern(*ins), plain(*ins)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise SystemExit(f"rows: {k['name']} disagrees with its plain version at {r} rows")
+            k["ms_by_rows"][r] = _device_ms(lambda: kern(*ins))
+        k["ms_by_rows"] = dict(sorted(k["ms_by_rows"].items()))
+        done.append(f"{k['name']} timed_rows={rows}")
+    print(f"rows: equal=True {'; '.join(done)}", flush=True)
+
+
 def _weighted(k: dict) -> None:
     """Per path: the kernel's launch-weighted device ms and bound of one
-    call, each launch at its own row count.  A launch at a row count that
-    was not timed takes the ms of the nearest timed one; `exact` says
-    whether every launch's row count was timed."""
+    call, each launch at its own row count, every one of which was timed."""
     ms = k["ms_by_rows"]
     out = {}
     for path, rows in k.pop("launch_rows_by_path").items():
-        near = {r: min(ms, key=lambda t: abs(t - r)) for r in rows}
         out[path] = {
             "launch_rows": rows,
-            "ms": sum(c * ms[near[r]] for r, c in rows.items()),
+            "ms": sum(c * ms[r] for r, c in rows.items()),
             "bound_ms": sum(c * _bound(k["bytes_per_row"], k["ops_per_row"], r)[0]
                             for r, c in rows.items()),
-            "exact": all(near[r] == r for r in rows),
         }
     k["weighted_by_path"] = out
 
@@ -598,8 +620,6 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device")
     from crypto12381_tpu_torch import _build
 
-    _build.NVCC_FLAGS += tuple(f"-D{d}" for d in args.nvcc_define)
-
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     kind = torch.cuda.get_device_name(0)
@@ -613,12 +633,13 @@ def main() -> None:
     regs = {}
     for log in _build.BUILD_LOG.values():
         regs.update(_ptxas_report(log))
-    print(f"build: {build_s:.1f}s defines={args.nvcc_define} ptxas={regs}", flush=True)
+    print(f"build: {build_s:.1f}s ptxas={regs}", flush=True)
 
     kernels = phase_kernels(dev)
     by_path = {"pairing": phase_pairing(dev, args.trace)}
     pts, a, by_path["g1"] = phase_g1(dev, args.trace)
     by_path["msm"] = phase_msm(dev, pts, a, args.trace)
+    phase_rows(dev, kernels)
     for k in kernels:
         fn = k.pop("c_function")
         k["launches_by_path"] = {path: n[fn] for path, n in by_path.items() if fn in n}
@@ -626,7 +647,7 @@ def main() -> None:
         k["launch_rows_by_path"] = {path: rows[fn] for path, rows in ROWS_BY_PATH.items()
                                     if fn in rows}
         _weighted(k)
-        for key in ("rows", "bytes_per_row", "ops_per_row"):
+        for key in ("rows", "bytes_per_row", "ops_per_row", "fns", "row_shapes"):
             k.pop(key)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -87,127 +87,6 @@ __device__ __forceinline__ void mont_mul(uint32_t* r, const uint32_t* a, const u
   cond_sub_p<N>(r, t, t[N]);
 }
 
-// fp_mul: the Fp product of the tower kernels K2 and K4 (tower.cu), which
-// is mont_mul<NL>.  Built with -DFP381_PTX_PRODUCT, it is on the card the
-// same CIOS product with each row of multiply-adds one PTX carry chain
-// (mad.lo.cc / madc.hi.cc).  On the H100 that variant measured 1.4-1.5x
-// slower in K2 and K4 (PERF.md, PR 3), most likely because the card's
-// integer multiply-add gives no carry out, so each link of a chain costs
-// an extra add, where the 64-bit accumulators of mont_mul map to wide
-// multiply-adds.
-//
-// Bound of the PTX chains: for a, b < 2p each row keeps t < a + p < 3p <
-// 2^383 before its shift, so t + a b_i and t + m p stay below
-// (a + p) 2^32 < 2^415: thirteen words t[0..12] hold every intermediate and
-// no chain carries out of t[12].  The final t is below 2p as for mont_mul:
-// one conditional subtraction.
-#if defined(__CUDA_ARCH__) && defined(FP381_PTX_PRODUCT)
-
-#define FP381_T0_12(t)                                                               \
-  "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), \
-      "+r"(t[7]), "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12])
-#define FP381_T1_12(t)                                                               \
-  "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), \
-      "+r"(t[8]), "+r"(t[9]), "+r"(t[10]), "+r"(t[11]), "+r"(t[12])
-#define FP381_A0_11(a)                                                                 \
-  "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(a[4]), "r"(a[5]), "r"(a[6]), "r"(a[7]), \
-      "r"(a[8]), "r"(a[9]), "r"(a[10]), "r"(a[11])
-
-// t[0..12] += a * bi: the low halves of the 12 limb products into t[0..11],
-// then the high halves into t[1..12].
-__device__ __forceinline__ void mac_row(uint32_t* t, const uint32_t* a, uint32_t bi) {
-  asm("mad.lo.cc.u32  %0, %13, %25, %0;\n\t"
-      "madc.lo.cc.u32 %1, %14, %25, %1;\n\t"
-      "madc.lo.cc.u32 %2, %15, %25, %2;\n\t"
-      "madc.lo.cc.u32 %3, %16, %25, %3;\n\t"
-      "madc.lo.cc.u32 %4, %17, %25, %4;\n\t"
-      "madc.lo.cc.u32 %5, %18, %25, %5;\n\t"
-      "madc.lo.cc.u32 %6, %19, %25, %6;\n\t"
-      "madc.lo.cc.u32 %7, %20, %25, %7;\n\t"
-      "madc.lo.cc.u32 %8, %21, %25, %8;\n\t"
-      "madc.lo.cc.u32 %9, %22, %25, %9;\n\t"
-      "madc.lo.cc.u32 %10, %23, %25, %10;\n\t"
-      "madc.lo.cc.u32 %11, %24, %25, %11;\n\t"
-      "addc.u32       %12, %12, 0;"
-      : FP381_T0_12(t)
-      : FP381_A0_11(a), "r"(bi));
-  asm("mad.hi.cc.u32  %0, %12, %24, %0;\n\t"
-      "madc.hi.cc.u32 %1, %13, %24, %1;\n\t"
-      "madc.hi.cc.u32 %2, %14, %24, %2;\n\t"
-      "madc.hi.cc.u32 %3, %15, %24, %3;\n\t"
-      "madc.hi.cc.u32 %4, %16, %24, %4;\n\t"
-      "madc.hi.cc.u32 %5, %17, %24, %5;\n\t"
-      "madc.hi.cc.u32 %6, %18, %24, %6;\n\t"
-      "madc.hi.cc.u32 %7, %19, %24, %7;\n\t"
-      "madc.hi.cc.u32 %8, %20, %24, %8;\n\t"
-      "madc.hi.cc.u32 %9, %21, %24, %9;\n\t"
-      "madc.hi.cc.u32 %10, %22, %24, %10;\n\t"
-      "madc.hi.u32    %11, %23, %24, %11;"
-      : FP381_T1_12(t)
-      : FP381_A0_11(a), "r"(bi));
-}
-
-// t[0..12] += m * p, with p's limbs (FP_P) as immediates; t[0] becomes 0.
-__device__ __forceinline__ void mac_p(uint32_t* t, uint32_t m) {
-  asm("mad.lo.cc.u32  %0, %13, 0xffffaaab, %0;\n\t"
-      "madc.lo.cc.u32 %1, %13, 0xb9feffff, %1;\n\t"
-      "madc.lo.cc.u32 %2, %13, 0xb153ffff, %2;\n\t"
-      "madc.lo.cc.u32 %3, %13, 0x1eabfffe, %3;\n\t"
-      "madc.lo.cc.u32 %4, %13, 0xf6b0f624, %4;\n\t"
-      "madc.lo.cc.u32 %5, %13, 0x6730d2a0, %5;\n\t"
-      "madc.lo.cc.u32 %6, %13, 0xf38512bf, %6;\n\t"
-      "madc.lo.cc.u32 %7, %13, 0x64774b84, %7;\n\t"
-      "madc.lo.cc.u32 %8, %13, 0x434bacd7, %8;\n\t"
-      "madc.lo.cc.u32 %9, %13, 0x4b1ba7b6, %9;\n\t"
-      "madc.lo.cc.u32 %10, %13, 0x397fe69a, %10;\n\t"
-      "madc.lo.cc.u32 %11, %13, 0x1a0111ea, %11;\n\t"
-      "addc.u32       %12, %12, 0;"
-      : FP381_T0_12(t)
-      : "r"(m));
-  asm("mad.hi.cc.u32  %0, %12, 0xffffaaab, %0;\n\t"
-      "madc.hi.cc.u32 %1, %12, 0xb9feffff, %1;\n\t"
-      "madc.hi.cc.u32 %2, %12, 0xb153ffff, %2;\n\t"
-      "madc.hi.cc.u32 %3, %12, 0x1eabfffe, %3;\n\t"
-      "madc.hi.cc.u32 %4, %12, 0xf6b0f624, %4;\n\t"
-      "madc.hi.cc.u32 %5, %12, 0x6730d2a0, %5;\n\t"
-      "madc.hi.cc.u32 %6, %12, 0xf38512bf, %6;\n\t"
-      "madc.hi.cc.u32 %7, %12, 0x64774b84, %7;\n\t"
-      "madc.hi.cc.u32 %8, %12, 0x434bacd7, %8;\n\t"
-      "madc.hi.cc.u32 %9, %12, 0x4b1ba7b6, %9;\n\t"
-      "madc.hi.cc.u32 %10, %12, 0x397fe69a, %10;\n\t"
-      "madc.hi.u32    %11, %12, 0x1a0111ea, %11;"
-      : FP381_T1_12(t)
-      : "r"(m));
-}
-
-// r = a * b * 2^-384 mod p, canonical.  a, b < 2p.  r may alias a or b.
-__device__ __forceinline__ void fp_mul(uint32_t* r, const uint32_t* a, const uint32_t* b) {
-  uint32_t t[NL + 1];
-#pragma unroll
-  for (int j = 0; j <= NL; ++j) t[j] = 0;
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-    mac_row(t, a, b[i]);
-    mac_p(t, t[0] * FP_N0);
-#pragma unroll
-    for (int j = 0; j < NL; ++j) t[j] = t[j + 1];
-    t[NL] = 0;
-  }
-  cond_sub_p<NL>(r, t, 0);
-}
-
-#undef FP381_T0_12
-#undef FP381_T1_12
-#undef FP381_A0_11
-
-#else
-
-__device__ __forceinline__ void fp_mul(uint32_t* r, const uint32_t* a, const uint32_t* b) {
-  mont_mul<NL>(r, a, b);
-}
-
-#endif
-
 // r = a + b without reduction (a value below 2p for canonical a, b).
 template <int N>
 __device__ __forceinline__ void add_raw(uint32_t* r, const uint32_t* a, const uint32_t* b) {

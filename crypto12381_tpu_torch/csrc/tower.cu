@@ -17,16 +17,16 @@
 //
 // K2 and K4 therefore give each Fp product its own thread: 3 threads per
 // K2 instance (Karatsuba: a0 b0, a1 b1, (a0 + a1)(b0 + b1)), and 18 per
-// K4 instance (the 3 of each of its 6 Fp2 Karatsuba products; built with
-// -DFP6_THREADS=6 a thread runs one whole Fp2 product instead).  A thread
+// K4 instance (the 3 of each of its 6 Fp2 Karatsuba products).  A thread
 // holds two operands and the accumulator (K2 53 registers, K4 60, no
 // spills), so three 288-thread K4 blocks share an SM and hide each other's
-// latency, and the launch has 3x (K2) or 18x (K4) the threads.  A block takes 32 (K2) or 16 (K4) consecutive instances and
-// runs in phases with a barrier between each two:
+// latency, and the launch has 3x (K2) or 18x (K4) the threads.  A block
+// takes 32 (K2) or 16 (K4) consecutive instances and runs in phases with a
+// barrier between each two:
 //   stage    the block's span of each operand into shared memory, 16 bytes
 //            per thread, consecutive threads on consecutive bytes;
 //   product  each thread forms its operands from shared memory (pre-sums
-//            included), runs fp_mul (fp381.cuh: the CIOS product of K1)
+//            included), runs mont_mul (fp381.cuh: the CIOS product of K1)
 //            and writes the product back to shared memory;
 //   combine  the Karatsuba combines, one output Fp coefficient per thread:
 //            K2 re = t0 - t1, im = t2 - t0 - t1; K4 first forms its 6 Fp2
@@ -43,7 +43,7 @@
 // Bound proof of the product operands.  The pre-sum of two Fp2
 // coefficients of an Fp6 is reduced mod p (add_mod), and the third product
 // of an Fp2 Karatsuba takes the raw sum of two canonical values: every
-// operand is canonical or below 2p, which fp_mul takes.  The combines
+// operand is canonical or below 2p, which mont_mul takes.  The combines
 // are add_mod and sub_mod of canonical values, so every output is
 // canonical.
 //
@@ -188,7 +188,7 @@ __device__ __forceinline__ void fp2_mul_phase(int ph, uint32_t* sm, const uint32
       uint32_t x[NL], y[NL];
       fp2_operand(x, sm + K2_A + i * S2, k);
       fp2_operand(y, sm + K2_B + i * S2, k);
-      fp_mul(x, x, y);
+      mont_mul<NL>(x, x, y);
       st_fp(sm + K2_T + tid * NL, x);
     }
   } else if (ph == 2) {                     // coefficient f of instance i
@@ -237,14 +237,8 @@ fp2_sqr_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out, int64
 // p = 0..5: t0, t1, t2, m01, m12, m02; Fp product q = 3 p + k is product
 // k of pair p's Fp2 Karatsuba.
 
-#ifndef FP6_THREADS
-#define FP6_THREADS 18
-#endif
-static_assert(FP6_THREADS == 18 || FP6_THREADS == 6, "FP6_THREADS is 18 or 6");
-
 constexpr int K4_ROWS = 16;                      // instances per block
-constexpr int K4_PER = 18 / FP6_THREADS;         // Fp products per thread
-constexpr int K4_BLOCK = FP6_THREADS * K4_ROWS;
+constexpr int K4_BLOCK = 18 * K4_ROWS;           // one thread per Fp product
 constexpr int S6 = F6 + 4;                       // a padded shared Fp6 row
 // shared layout (limbs): operands A, B; products T[q][i]; then the Fp2
 // products V[2 p + f][i] over A and B, and the outputs over T
@@ -314,18 +308,14 @@ __device__ __forceinline__ void fp6_mul_phase(int ph, uint32_t* sm, const uint32
   if (ph == 0) {                            // stage
     stage_in<F6, S6, K4_BLOCK>(sm + K4_A, a + row0 * F6, rows, tid);
     stage_in<F6, S6, K4_BLOCK>(sm + K4_B, b + row0 * F6, rows, tid);
-  } else if (ph == 1) {                     // products g K4_PER + e of instance i
-    const int g = tid / K4_ROWS, i = tid % K4_ROWS;
+  } else if (ph == 1) {                     // product q of instance i
+    const int q = tid / K4_ROWS, i = tid % K4_ROWS;
     if (i < rows) {
-#pragma unroll 1
-      for (int e = 0; e < K4_PER; ++e) {
-        const int q = g * K4_PER + e;
-        uint32_t x[NL], y[NL];
-        fp6_operand(x, sm + K4_A + i * S6, q);
-        fp6_operand(y, sm + K4_B + i * S6, q);
-        fp_mul(x, x, y);
-        st_fp(sm + K4_T + (q * K4_ROWS + i) * NL, x);
-      }
+      uint32_t x[NL], y[NL];
+      fp6_operand(x, sm + K4_A + i * S6, q);
+      fp6_operand(y, sm + K4_B + i * S6, q);
+      mont_mul<NL>(x, x, y);
+      st_fp(sm + K4_T + tid * NL, x);
     }
   } else if (ph == 2) {                     // Fp2 coefficient w / K4_ROWS of instance i
     for (int w = tid; w < 12 * K4_ROWS; w += K4_BLOCK) {

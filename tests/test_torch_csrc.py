@@ -16,9 +16,8 @@ K1 on pre-sums up to 2p-2; for K2 and K4 at row counts below, at and
 between multiples of a block's instances, with rows of all-(p-1)
 operands, whose pre-sums are the largest; and for the curve kernels K5-K7
 on curve points with the identity, P = Q and P = -Q among them. The
-header's copies of p and n0' must equal params.py's. The opt-in PTX
-product of fp381.cuh (FP381_PTX_PRODUCT, under __CUDA_ARCH__), the launch
-code (the `<<<...>>>` wrappers) and the card itself are exercised only by
+header's copies of p and n0' must equal params.py's. The launch code (the
+`<<<...>>>` wrappers) and the card itself are exercised only by
 chip_smoke.py.
 """
 
@@ -136,19 +135,13 @@ int main(int argc, char** argv) {
 """
 
 
-_BUILT = {}
-
-
-def build_harness(tmp_path_factory, fp6_threads=18):
-    """Compile the kernel bodies and MAIN with g++ (K4 with fp6_threads
-    threads per instance: 18, or the 6 of -DFP6_THREADS=6); once per
-    variant and test process."""
-    if fp6_threads in _BUILT:
-        return _BUILT[fp6_threads]
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory):
+    """Compile the kernel bodies and MAIN with g++, once per test process."""
     cxx = shutil.which("g++") or shutil.which("clang++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the kernel bodies with")
-    d = tmp_path_factory.mktemp(f"csrc_host_{fp6_threads}")
+    d = tmp_path_factory.mktemp("csrc_host")
     (d / "inc").mkdir()
     (d / "inc" / "cuda_runtime.h").write_text(SHIM)
     bodies = []
@@ -160,16 +153,10 @@ def build_harness(tmp_path_factory, fp6_threads=18):
            + "\n".join(bodies) + MAIN)
     (d / "harness.cpp").write_text(src)
     exe = d / "harness"
-    subprocess.run([cxx, "-std=c++17", "-O1", f"-DFP6_THREADS={fp6_threads}", f"-I{d / 'inc'}",
+    subprocess.run([cxx, "-std=c++17", "-O1", f"-I{d / 'inc'}",
                     "-o", str(exe), str(d / "harness.cpp")],
                    check=True, capture_output=True, timeout=300)
-    _BUILT[fp6_threads] = (d, exe)
     return d, exe
-
-
-@pytest.fixture(scope="module")
-def harness(tmp_path_factory):
-    return build_harness(tmp_path_factory)
 
 
 def run(harness, av, bv):
@@ -268,21 +255,27 @@ def test_kernel_bodies_match_plain_versions(harness):
     assert FP.int_of(k7[0, 2].numpy()) == 0                   # 2 O = O
 
 
-@pytest.mark.parametrize("fp6_threads,n", [(18, 1), (18, 16), (18, 47), (18, 96), (6, 47)])
-def test_cooperative_tower_kernels(tmp_path_factory, fp6_threads, n):
+@pytest.mark.parametrize("n", [1, 16, 33, 47, 96])
+def test_cooperative_tower_kernels(harness, n):
     """K2 (32 instances per block) and K4 (16) at row counts below, at,
     between and on multiples of a block: random canonical operands, with
     rows of all p-1 (the largest pre-sums: 2p-2 raw, p-2 reduced), all 0
-    and all 1 at both ends of the launch, so in its ragged last block."""
-    h = build_harness(tmp_path_factory, fp6_threads)
+    and all 1 at the start of the launch, and rows of p-1 against 1 and
+    against p-1 at the end of each kernel's rows, so in its ragged last
+    block."""
     rng = np.random.default_rng(100 + n)
     av = [int.from_bytes(rng.bytes(48), "little") % P for _ in range(6 * n)]
     bv = [int.from_bytes(rng.bytes(48), "little") % P for _ in range(6 * n)]
-    for r, (x, y) in {0: (P - 1, P - 1), 1: (0, P - 1), 2: (1, P - 1),
-                      n - 2: (P - 1, 1), n - 1: (P - 1, P - 1)}.items():
-        if r >= 0:                           # rows as K4 reads them: 6 Fp values
-            av[6 * r: 6 * r + 6], bv[6 * r: 6 * r + 6] = [x] * 6, [y] * 6
-    a, b, n, (_, k2, _, k4, _, _, _) = run(h, av, bv)
+    tail = {n - 2: (P - 1, 1), n - 1: (P - 1, P - 1)}
+    # K4 reads rows of 6 Fp values from av, bv; K2 rows of 2 from their first
+    # 2n values, whose first 9 rows are K4's first 3 (the edges at the start)
+    for width, edges in ((6, {0: (P - 1, P - 1), 1: (0, P - 1), 2: (1, P - 1), **tail}),
+                         (2, tail)):
+        for r, (x, y) in edges.items():
+            if r >= 0:
+                av[width * r: width * r + width] = [x] * width
+                bv[width * r: width * r + width] = [y] * width
+    a, b, n, (_, k2, _, k4, _, _, _) = run(harness, av, bv)
     assert torch.equal(k2, FK.fp2_mul_plain(a[: 2 * n].reshape(n, 2, 12),
                                             b[: 2 * n].reshape(n, 2, 12)))
     assert torch.equal(k4, FK.fp6_mul_plain(a.reshape(n, 3, 2, 12), b.reshape(n, 3, 2, 12)))
