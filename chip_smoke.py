@@ -10,12 +10,13 @@ Phases, one line each; any failure raises and ends the run non-zero:
   build    nvcc seconds; registers, spills and shared memory per kernel
   kernels  K1-K7 at the row counts their paths give them (K1, K3: the
            pairing at B = 2048; K2 at each row count the pairing launches
-           it at, B to 15B, K4 at 2B and 3B, and each also at a row count
-           that leaves its last block ragged; K5: one MSM bucket step, 64
-           lanes x 33 windows; K6, K7: one GLV ladder step at B = 8192),
-           each held bit for bit against its plain PyTorch version on the
-           card (K2, K4 with edge rows at both ends, K5-K7 with the
-           identity, P = Q and P = -Q in their first rows); device time of
+           it at, B to 15B, K4 at 2B and 3B; K5: one MSM bucket step, 64
+           lanes x 33 windows; K6, K7: one GLV ladder step at B = 8192;
+           K2, K4, K5 and K7 each also at a row count that leaves its last
+           block ragged), each held bit for bit against its plain PyTorch
+           version on the card (K2, K4 with edge rows at both ends, K5-K7
+           with the identity, P = Q and P = -Q in their first and last
+           rows, checked against host points); device time of
            both (CUDA graph replays timed with CUDA events) and the
            kernel's time when issued eagerly from Python
   pairing  `pair_batch` at B = 2048 (32 distinct pairs, tiled): GT bytes
@@ -63,6 +64,8 @@ B = 2048
 DISTINCT = 32
 ARGS = argparse.ArgumentParser(description="Drive the port's kernels and paths on one card.")
 ARGS.add_argument("--trace", action="store_true", help="one torch.profiler call of each path")
+ARGS.add_argument("--nvcc-define", action="append", default=[], metavar="NAME=VALUE",
+                  help="build the kernels with -DNAME=VALUE")
 G1_B = 8192                    # GLV batch, and the MSM's distinct points
 MSM_N = 1 << 16
 MSM_LANES, MSM_WINDOWS = 64, 33     # G1Vec.msm's defaults at c = 8
@@ -76,10 +79,11 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: counted twice (low and high halves) plus 12 low products for m
 MULADDS_PER_PRODUCT = 2 * (144 + 144) + 12
 #: K2 and K4's row counts per pairing row: every count the pairing launches
-#: them at, and one more that leaves the kernel's last block ragged (K2
-#: blocks take 32 rows, K4 blocks 16); the first is the headline
+#: them at; the first is the headline
 K2_ROWS_PER_PAIR = (15, 1, 2, 3, 4, 5, 6)
 K4_ROWS_PER_PAIR = (3, 2)
+#: added to a headline row count, leaves the last block of K2 (32 rows per
+#: block), K4 (16), K5 (16) and K7 (32) ragged
 RAGGED = 7
 #: kernel -> launches per path and row count, read right after each path
 ROWS_BY_PATH: dict[str, dict[str, dict[int, int]]] = {}
@@ -146,9 +150,10 @@ def _edges(x, vals, last=False):
 def _curve_inputs(rng, kind: str, rows: int, dev):
     """Operands of K5 (projective, affine), K6 (projective, projective) or
     K7 (projective): random canonical coordinates, with curve points in
-    the first 4 rows, and the host's affine results for those rows.
-    Rows: O + B, A + A (the two A with different Z), (-A) + A, O + O
-    (K5: O + B in the last row); K7 doubles the first operand."""
+    the first 4 rows and again in the last 4, and the host's affine
+    results for those 8 rows. Rows: O + B, A + A (the two A with different
+    Z), (-A) + A, O + O (K5: O + B in the fourth row); K7 doubles the
+    first operand."""
     import torch
     from crypto12381_tpu_torch.fields import fp as FP
     from crypto12381_tpu_torch.host import curve as C
@@ -164,18 +169,17 @@ def _curve_inputs(rng, kind: str, rows: int, dev):
 
     neg_a = (A[0], P - A[1])
     O = [0, 1, 0]
-    first = [O, proj(A, z1), proj(neg_a, z1), O]
-    p = torch.from_numpy(_rand_fp(rng, rows, 3))
-    p[:4] = FP.from_int(first)
+    def fill(k, pts):
+        x = torch.from_numpy(_rand_fp(rng, rows, k))
+        x[:4] = x[-4:] = FP.from_int(pts)
+        return x.to(dev)
+
+    p = fill(3, [O, proj(A, z1), proj(neg_a, z1), O])
     if kind == "g1_dbl":
-        return (p.to(dev),), [None, A2, (A2[0], P - A2[1]), None]
+        return (p,), [None, A2, (A2[0], P - A2[1]), None] * 2
     if kind == "g1_madd":
-        q = torch.from_numpy(_rand_fp(rng, rows, 2))
-        q[:4] = FP.from_int([list(B), list(A), list(A), list(B)])
-        return (p.to(dev), q.to(dev)), [B, A2, None, B]
-    q = torch.from_numpy(_rand_fp(rng, rows, 3))
-    q[:4] = FP.from_int([proj(B, z2), proj(A, z2), proj(A, z2), O])
-    return (p.to(dev), q.to(dev)), [B, A2, None, None]
+        return (p, fill(2, [list(B), list(A), list(A), list(B)])), [B, A2, None, B] * 2
+    return (p, fill(3, [proj(B, z2), proj(A, z2), proj(A, z2), O])), [B, A2, None, None] * 2
 
 
 def _eager_ms(fn, reps: int = 20) -> float:
@@ -267,15 +271,18 @@ def phase_kernels(dev):
                       f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, counts[0],
                       prod, None))
     # K5: one MSM bucket step (lanes x windows rows); K6, K7: one GLV ladder
-    # step of the g1 phase's batch
-    for name, rows, prod, kern, plain, line in (
-        ("K5 g1_madd", MSM_LANES * MSM_WINDOWS, 11, FK.g1_madd, FK.g1_madd_plain, 660),
-        ("K6 g1_add", G1_B, 12, FK.g1_add, FK.g1_add_plain, 771),
-        ("K7 g1_dbl", G1_B, 8, FK.g1_dbl, FK.g1_dbl_plain, 734),
+    # step of the g1 phase's batch; K5 and K7 also at a ragged row count
+    # (blocks of 16 and 32 instances), with the edge rows in the last block
+    for name, rows, ragged, prod, kern, plain, line in (
+        ("K5 g1_madd", MSM_LANES * MSM_WINDOWS, True, 11, FK.g1_madd, FK.g1_madd_plain, 660),
+        ("K6 g1_add", G1_B, False, 12, FK.g1_add, FK.g1_add_plain, 771),
+        ("K7 g1_dbl", G1_B, True, 8, FK.g1_dbl, FK.g1_dbl_plain, 734),
     ):
-        ins, edge_want = _curve_inputs(rng, name.split()[1], rows, dev)
+        ins, edge_want = {}, {}
+        for r in (rows, rows + RAGGED) if ragged else (rows,):
+            ins[r], edge_want[r] = _curve_inputs(rng, name.split()[1], r, dev)
         specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/g1.cu",
-                      f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, {rows: ins}, rows,
+                      f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, rows,
                       prod, edge_want))
     results = []
     for name, fn_c, src, repl, kern, plain, ins_by_rows, rows, prod, edge_want in specs:
@@ -289,13 +296,15 @@ def phase_kernels(dev):
                 raise SystemExit(f"kernels: {name} disagrees with its plain version at "
                                  f"{r} rows, rows {bad}")
             err = max(err, float((got.to(torch.int64) - want.to(torch.int64)).abs().max().item()))
+            if edge_want is not None:
+                ends = torch.cat([got[:4], got[-4:]])
+                edge_got = list(G1C.to_affine_ints(tuple(ends.unbind(-2))))
+                if edge_got != edge_want[r]:
+                    raise SystemExit(f"kernels: {name} gives wrong points at the identity, "
+                                     f"P = Q or P = -Q at {r} rows: {edge_got} != "
+                                     f"{edge_want[r]}")
             ms_by_rows[r] = _device_ms(lambda: kern(*ins))
         ins, got = ins_by_rows[rows], outs[rows]
-        if edge_want is not None:
-            edge_got = list(G1C.to_affine_ints(tuple(got[:4].unbind(-2))))
-            if edge_got != edge_want:
-                raise SystemExit(f"kernels: {name} gives wrong points at the identity, "
-                                 f"P = Q or P = -Q: {edge_got} != {edge_want}")
         eager_ms = _eager_ms(lambda: kern(*ins))
         plain_ms = _device_ms(lambda: plain(*ins))
         bytes_per_row = 4 * (sum(t.numel() for t in ins) + got.numel()) // rows
@@ -627,13 +636,14 @@ def main() -> None:
     smi = _smi_line()
     print(f"device: {kind} count={count} nvidia-smi: {smi}", flush=True)
 
+    _build.NVCC_FLAGS += tuple(f"-D{d}" for d in args.nvcc_define)
     t0 = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t0
     regs = {}
     for log in _build.BUILD_LOG.values():
         regs.update(_ptxas_report(log))
-    print(f"build: {build_s:.1f}s ptxas={regs}", flush=True)
+    print(f"build: {build_s:.1f}s defines={args.nvcc_define} ptxas={regs}", flush=True)
 
     kernels = phase_kernels(dev)
     by_path = {"pairing": phase_pairing(dev, args.trace)}

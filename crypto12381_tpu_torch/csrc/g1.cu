@@ -1,4 +1,4 @@
-// K5, K6, K7: whole G1 curve operations per thread, one point per thread.
+// K5, K6, K7: the G1 curve operations.
 //
 // Replace the TPU programs of crypto12381_tpu/fields/fp32k.py run through
 // `_fused_pallas`: `prog_g1_madd` (K5, `_rcb_madd_generic`), `prog_g1_add`
@@ -6,31 +6,62 @@
 // They are the complete formulas of Renes-Costello-Batina 2015 for
 // y^2 = x^3 + b with b = 4: Alg. 7 (add), Alg. 7 with Z2 = 1 (mixed add)
 // and Alg. 9 (doubling), with 3b = 12 folded into the operands, so each
-// is two rounds of Montgomery products: 12 (K6), 11 (K5) and 8 (K7).
-// One formula covers every input, the identity (0 : 1 : 0), P = Q and
-// P = -Q included: there are no branches.  E(Fp) has odd order, so no
+// is two rounds of Montgomery products: 6 + 6 (K6), 5 + 6 (K5) and 4 + 4
+// (K7).  One formula covers every input, the identity (0 : 1 : 0), P = Q
+// and P = -Q included: there are no branches.  E(Fp) has odd order, so no
 // point of order two breaks completeness.
 //
 // The TPU programs worked on signed float32 digits and had to keep every
 // intermediate above -4096 p: hence their 2^16 p protective offset and the
 // `tighten` calls.  Here every value is canonical, subtraction is sub_mod,
 // and x12 is three modular doublings and an add (8x + 4x), so neither is
-// needed.  Bound: every operand of a product is canonical, or the raw sum
-// of two canonical values (below 2p), which mont_mul takes (fp381.cuh).
+// needed.
 //
 // Bound on the card: per point K5 reads 240 bytes and writes 144 for 11
 // products, K6 288 and 144 for 12, K7 144 and 144 for 8 (588 32-bit
 // multiply-adds per product), so the integer multiply rate bounds all
-// three.  What costs is register pressure: K6 takes two points (72 words).
-// The design reads each coordinate from device memory just before its
-// products, folds each round-1 product into the sums that use it at once,
-// and writes each output coordinate as soon as its two round-2 products
-// are done: six reduced values carry from round 1 to round 2, and round 2
-// holds two products beside them.
+// three.  At the row counts of their paths one point per thread is far
+// from that bound: the MSM's bucket step launches K5 on 2,112 rows (17
+// blocks of 128 threads on 132 SMs) and its Horner loop K7 on one row, and
+// a thread that owns a point runs 11 or 8 products as one dependent chain.
 //
-// Layouts (int32 limbs, row-major, contiguous): a projective point is
-// (n, 3, 12) [X, Y, Z], an affine point (n, 2, 12) [x, y].  Inputs are
-// canonical; outputs are canonical.
+// K5 and K7 therefore give each Fp product of a round its own thread, as
+// K2 and K4 do (tower.cu): 6 threads per K5 instance, 4 per K7 instance.
+// A block takes K5_ROWS (K5) or K7_ROWS (K7) consecutive instances and
+// runs in phases with a barrier between each two:
+//   stage      the block's span of each operand into shared memory, 16
+//              bytes per thread, consecutive threads on consecutive bytes;
+//   product 1  K5: X1 x2, Y1 y2, (X1 + Y1)(x2 + y2), x2 Z1, y2 Z1 (a
+//              sixth thread idles); K7: Y^2, Y Z, X Y, Z^2;
+//   combine 1  K5 only: the six operands of round 2, t3, t4, bt5, w, z3a
+//              and t1m, one per thread;
+//   product 2  K5: the six products of round 2; K7: each thread forms its
+//              two operands from the round-1 products (t0m, y3a, e8, 12 Z^2)
+//              and runs one of the four products;
+//   combine 2  X3, Y3 and Z3, one per thread;
+//   store      the outputs from shared memory, 16 bytes per thread.
+// Each phase is a function of (phase, block, thread), and the __global__
+// body only calls the phases with a barrier after each.  A projective row
+// in shared memory is 144 bytes and an affine row is padded from 96 to 112,
+// so that the 16-byte accesses of 8 consecutive threads fall in 32
+// distinct banks.  The last block of a ragged launch masks its copies,
+// products and combines; every thread reaches every barrier.
+//
+// Bound proof of the product operands: each is a coordinate, a product or
+// a combine (all canonical), or the raw sum of two canonical coordinates
+// (below 2p), which mont_mul takes (fp381.cuh).  The combines are add_mod
+// and sub_mod of canonical values, so every output is canonical.
+//
+// K6 keeps one point per thread.  What costs there is register pressure:
+// it takes two points (72 words).  It reads each coordinate from device
+// memory just before its products, folds each round-1 product into the
+// sums that use it at once, and writes each output coordinate as soon as
+// its two round-2 products are done: six reduced values carry from round 1
+// to round 2, and round 2 holds two products beside them.
+//
+// Layouts (int32 limbs, row-major, contiguous, 16-byte aligned): a
+// projective point is (n, 3, 12) [X, Y, Z], an affine point (n, 2, 12)
+// [x, y].  Inputs are canonical; outputs are canonical.
 
 #include "fp381.cuh"
 
@@ -47,6 +78,150 @@ __device__ __forceinline__ void mul12(uint32_t* r, const uint32_t* x) {
   add_mod<NL>(r, x4, x4);
   add_mod<NL>(r, r, x4);
 }
+
+// ------------------------------------------------------------- K5
+//
+// P + (x2 : y2 : 1), 5 + 6 products:
+//   round 1   t0 = X1 x2, t1 = Y1 y2, m3 = (X1 + Y1)(x2 + y2), zx = x2 Z1,
+//             zy = y2 Z1;
+//   combine 1 t3 = m3 - t0 - t1, t4 = zy + Y1, bt5 = 12 (zx + X1), w = 3 t0,
+//             z3a = t1 + 12 Z1, t1m = t1 - 12 Z1;
+//   round 2   t1m t3, bt5 t4, t1m z3a, bt5 w, z3a t4, w t3;
+//   combine 2 X3 = t1m t3 - bt5 t4, Y3 = t1m z3a + bt5 w,
+//             Z3 = z3a t4 + w t3.
+
+#ifndef K5_INSTANCES
+#define K5_INSTANCES 16
+#endif
+#ifndef K5_COMBINE_PHASE
+#define K5_COMBINE_PHASE 1
+#endif
+constexpr int K5_ROWS = K5_INSTANCES;        // instances per block
+constexpr int K5_BLOCK = 6 * K5_ROWS;        // one thread per round-2 product
+constexpr int SA = AF + 4;                   // a padded shared affine row
+// shared layout (limbs): P rows, Q rows, the round-1 products T[k][i] and
+// the round-2 operands U[j][i]; then the round-2 products V[k][i] over P,
+// Q and T, and the outputs over U
+constexpr int K5_P = 0, K5_Q = K5_ROWS * PT, K5_T = K5_Q + K5_ROWS * SA;
+constexpr int K5_U = K5_T + 5 * K5_ROWS * NL;
+constexpr int K5_V = K5_COMBINE_PHASE ? 0 : K5_U, K5_O = K5_COMBINE_PHASE ? K5_U : 0;
+constexpr int K5_SMEM = K5_U + 6 * K5_ROWS * NL;
+constexpr int K5_PHASES = 6;
+static_assert(6 * K5_ROWS * NL <= K5_U, "V fits over P, Q and T");
+static_assert(K5_ROWS * PT <= 6 * K5_ROWS * NL, "the outputs fit over U");
+
+// Round-1 product k of K5 from the shared rows p = (X1, Y1, Z1) and
+// q = (x2, y2): X1 x2, Y1 y2, (X1 + Y1)(x2 + y2), Z1 x2, Z1 y2.
+__device__ __forceinline__ void k5_round1(uint32_t* r, const uint32_t* p, const uint32_t* q,
+                                          int k) {
+  uint32_t a[NL], b[NL];
+  if (k < 3) {
+    kara_operand(a, p, k);
+    kara_operand(b, q, k);
+  } else {
+    ld_fp(a, p + 2 * NL);
+    ld_fp(b, q + (k - 3) * NL);
+  }
+  mont_mul<NL>(r, a, b);
+}
+
+// Round-2 operand j of K5 (t3, t4, bt5, w, z3a, t1m) from the shared row
+// p = (X1, Y1, Z1) and the round-1 products t0, t1, m3, zx, zy at t + k d.
+__device__ __forceinline__ void k5_operand(uint32_t* r, const uint32_t* p, const uint32_t* t,
+                                           int d, int j) {
+  if (j == 0) {                    // t3 = m3 - t0 - t1
+    ld_fp(r, t + 2 * d);
+    sub_sh(r, t);
+    sub_sh(r, t + d);
+  } else if (j == 1) {             // t4 = zy + Y1
+    ld_fp(r, t + 4 * d);
+    add_sh(r, p + NL);
+  } else if (j == 2) {             // bt5 = 12 (zx + X1)
+    ld_fp(r, t + 3 * d);
+    add_sh(r, p);
+    mul12(r, r);
+  } else if (j == 3) {             // w = 3 t0
+    uint32_t t0[NL];
+    ld_fp(t0, t);
+    add_mod<NL>(r, t0, t0);
+    add_mod<NL>(r, r, t0);
+  } else {                         // z3a = t1 + 12 Z1, t1m = t1 - 12 Z1
+    uint32_t z[NL];
+    ld_fp(z, p + 2 * NL);
+    mul12(z, z);
+    ld_fp(r, t + d);
+    if (j == 4) add_mod<NL>(r, r, z); else sub_mod<NL>(r, r, z);
+  }
+}
+
+// The operands (indices j of k5_operand) of round-2 product k:
+// t1m t3, bt5 t4, t1m z3a, bt5 w, z3a t4, w t3.
+__device__ __forceinline__ int k5_lhs(int k) { return (0x342525 >> 4 * k) & 15; }
+__device__ __forceinline__ int k5_rhs(int k) { return (0x013410 >> 4 * k) & 15; }
+
+// Phase `ph` of K5 for thread `tid` of block `blk`.
+__device__ __forceinline__ void g1_madd_phase(int ph, uint32_t* sm, const uint32_t* p,
+                                              const uint32_t* q, uint32_t* out, int64_t n,
+                                              int64_t blk, int tid) {
+  const int64_t row0 = blk * K5_ROWS;
+  const int rows = block_rows(n, blk, K5_ROWS);
+  const int k = tid / K5_ROWS, i = tid % K5_ROWS;
+  const uint32_t* pi = sm + K5_P + i * PT;
+  const uint32_t* ti = sm + K5_T + i * NL;
+  if (ph == 0) {                            // stage
+    stage_in<PT, PT, K5_BLOCK>(sm + K5_P, p + row0 * PT, rows, tid);
+    stage_in<AF, SA, K5_BLOCK>(sm + K5_Q, q + row0 * AF, rows, tid);
+  } else if (ph == 1) {                     // round-1 product k of instance i
+    if (k < 5 && i < rows) {
+      uint32_t r[NL];
+      k5_round1(r, pi, sm + K5_Q + i * SA, k);
+      st_fp(sm + K5_T + tid * NL, r);
+    }
+  } else if (ph == 2) {                     // round-2 operand k of instance i
+    if (K5_COMBINE_PHASE && i < rows) {
+      uint32_t r[NL];
+      k5_operand(r, pi, ti, K5_ROWS * NL, k);
+      st_fp(sm + K5_U + tid * NL, r);
+    }
+  } else if (ph == 3) {                     // round-2 product k of instance i
+    if (i < rows) {
+      uint32_t x[NL], y[NL];
+      if (K5_COMBINE_PHASE) {
+        ld_fp(x, sm + K5_U + (k5_lhs(k) * K5_ROWS + i) * NL);
+        ld_fp(y, sm + K5_U + (k5_rhs(k) * K5_ROWS + i) * NL);
+      } else {
+        k5_operand(x, pi, ti, K5_ROWS * NL, k5_lhs(k));
+        k5_operand(y, pi, ti, K5_ROWS * NL, k5_rhs(k));
+      }
+      mont_mul<NL>(x, x, y);
+      st_fp(sm + K5_V + tid * NL, x);
+    }
+  } else if (ph == 4) {                     // output coordinate k of instance i
+    if (k < 3 && i < rows) {
+      const uint32_t* v = sm + K5_V + (2 * k * K5_ROWS + i) * NL;
+      uint32_t r[NL];
+      ld_fp(r, v);
+      if (k == 0) sub_sh(r, v + K5_ROWS * NL); else add_sh(r, v + K5_ROWS * NL);
+      st_fp(sm + K5_O + i * PT + k * NL, r);
+    }
+  } else {                                  // store
+    stage_out<PT, PT, K5_BLOCK>(out + row0 * PT, sm + K5_O, rows, tid);
+  }
+}
+
+__global__ void __launch_bounds__(K5_BLOCK)
+g1_madd_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
+               uint32_t* __restrict__ out, int64_t n) {
+  __shared__ __align__(16) uint32_t sm[K5_SMEM];
+#pragma unroll
+  for (int ph = 0; ph < K5_PHASES; ++ph) {
+    if (!K5_COMBINE_PHASE && ph == 2) continue;
+    g1_madd_phase(ph, sm, p, q, out, n, blockIdx.x, threadIdx.x);
+    if (ph + 1 < K5_PHASES) __syncthreads();
+  }
+}
+
+// ------------------------------------------------------------- K6
 
 // t = a * b for coordinates a, b read from device memory.
 __device__ __forceinline__ void coord_product(uint32_t* t, const uint32_t* ga,
@@ -72,7 +247,7 @@ __device__ __forceinline__ void presum_product(uint32_t* t, const uint32_t* ga0,
   mont_mul<NL>(t, a, b);
 }
 
-// Round 2, shared by K5 and K6:
+// Round 2 of K6:
 //   X3 = t1m t3 - bt5 t4,  Y3 = t1m z3a + bt5 w,  Z3 = z3a t4 + w t3.
 __device__ __forceinline__ void rcb_round2(uint32_t* o, const uint32_t* t1m,
                                            const uint32_t* z3a, const uint32_t* t3,
@@ -91,45 +266,6 @@ __device__ __forceinline__ void rcb_round2(uint32_t* o, const uint32_t* t1m,
   mont_mul<NL>(b, w, t3);
   add_mod<NL>(a, a, b);
   store<NL>(o + 2 * NL, a);
-}
-
-// K5: P + (x2 : y2 : 1), 5 + 6 products.
-//   t0 = X1 x2, t1 = Y1 y2, t3 = (X1 + Y1)(x2 + y2) - t0 - t1,
-//   t4 = y2 Z1 + Y1, t5 = x2 Z1 + X1, w = 3 t0,
-//   bt5 = 12 t5, z3a = t1 + 12 Z1, t1m = t1 - 12 Z1.
-__global__ void __launch_bounds__(THREADS)
-g1_madd_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
-               uint32_t* __restrict__ out, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t* X1 = p + i * PT;
-  const uint32_t* Y1 = X1 + NL;
-  const uint32_t* Z1 = X1 + 2 * NL;
-  const uint32_t* x2 = q + i * AF;
-  const uint32_t* y2 = x2 + NL;
-  uint32_t t0[NL], t1[NL], t3[NL], t4[NL], bt5[NL], u[NL];
-
-  coord_product(t0, X1, x2);
-  coord_product(t1, Y1, y2);
-  presum_product(t3, X1, Y1, x2, y2);
-  sub_mod<NL>(t3, t3, t0);
-  sub_mod<NL>(t3, t3, t1);
-  coord_product(t4, y2, Z1);
-  load<NL>(u, Y1);
-  add_mod<NL>(t4, t4, u);
-  coord_product(bt5, x2, Z1);
-  load<NL>(u, X1);
-  add_mod<NL>(bt5, bt5, u);
-  mul12(bt5, bt5);
-
-  uint32_t w[NL], z3a[NL];
-  add_mod<NL>(w, t0, t0);
-  add_mod<NL>(w, w, t0);
-  load<NL>(u, Z1);
-  mul12(u, u);
-  add_mod<NL>(z3a, t1, u);
-  sub_mod<NL>(t1, t1, u);          // t1m
-  rcb_round2(out + i * PT, t1, z3a, t3, t4, w, bt5);
 }
 
 // K6: P1 + P2, 6 + 6 products.
@@ -173,49 +309,107 @@ g1_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
   rcb_round2(out + i * PT, t1, z3a, t3, t4, w, bt5);
 }
 
-// K7: 2P, 4 + 4 products.
-//   t0 = Y^2, t1 = Y Z, xy = X Y, t2 = 12 Z^2,
-//   X3 = 2 (t0 - 3 t2) xy, Y3 = (t0 - 3 t2)(t0 + t2) + 8 t0 t2,
-//   Z3 = 8 t0 t1.
-__global__ void __launch_bounds__(THREADS)
+// ------------------------------------------------------------- K7
+//
+// 2P, 4 + 4 products:
+//   round 1   t0 = Y^2, t1 = Y Z, xy = X Y, z2 = Z^2; t2 = 12 z2;
+//   round 2   t0m xy, t0m y3a, e8 t2, e8 t1 with t0m = t0 - 3 t2,
+//             y3a = t0 + t2, e8 = 8 t0;
+//   combine   X3 = 2 t0m xy, Y3 = t0m y3a + e8 t2, Z3 = e8 t1.
+
+constexpr int K7_ROWS = 32;                  // instances per block
+constexpr int K7_BLOCK = 4 * K7_ROWS;        // one thread per product of a round
+// shared layout (limbs): the round-1 products T[k][i], P rows; then the
+// round-2 products V[k][i] over P, and the outputs over T
+constexpr int K7_T = 0, K7_P = 4 * K7_ROWS * NL, K7_V = K7_P, K7_O = 0;
+constexpr int K7_SMEM = K7_V + 4 * K7_ROWS * NL;
+constexpr int K7_PHASES = 5;
+static_assert(K7_ROWS * PT <= 4 * K7_ROWS * NL, "P and the outputs fit in T's span");
+
+// Round-1 product k of K7 from the shared row p = (X, Y, Z):
+// Y Y, Y Z, X Y, Z Z.
+__device__ __forceinline__ void k7_round1(uint32_t* r, const uint32_t* p, int k) {
+  uint32_t a[NL], b[NL];
+  ld_fp(a, p + (k == 2 ? 0 : k == 3 ? 2 : 1) * NL);
+  ld_fp(b, p + (k == 0 || k == 2 ? 1 : 2) * NL);
+  mont_mul<NL>(r, a, b);
+}
+
+// Round-2 product k of K7 from the round-1 products t0, t1, xy, z2 at
+// t + j d: t0m xy, t0m y3a, e8 t2, e8 t1.
+__device__ __forceinline__ void k7_round2(uint32_t* r, const uint32_t* t, int d, int k) {
+  uint32_t t0[NL], a[NL], b[NL];
+  ld_fp(t0, t);
+  if (k < 2) {                     // t0m = t0 - 3 t2, with xy or y3a = t0 + t2
+    uint32_t t2[NL];
+    ld_fp(t2, t + 3 * d);
+    mul12(t2, t2);
+    add_mod<NL>(a, t2, t2);
+    add_mod<NL>(a, a, t2);
+    sub_mod<NL>(a, t0, a);
+    if (k == 0) ld_fp(b, t + 2 * d); else add_mod<NL>(b, t0, t2);
+  } else {                         // e8 = 8 t0, with t2 or t1
+    add_mod<NL>(a, t0, t0);
+    add_mod<NL>(a, a, a);
+    add_mod<NL>(a, a, a);
+    if (k == 2) {
+      ld_fp(b, t + 3 * d);
+      mul12(b, b);
+    } else {
+      ld_fp(b, t + d);
+    }
+  }
+  mont_mul<NL>(r, a, b);
+}
+
+// Phase `ph` of K7 for thread `tid` of block `blk`.
+__device__ __forceinline__ void g1_dbl_phase(int ph, uint32_t* sm, const uint32_t* p,
+                                             uint32_t* out, int64_t n, int64_t blk, int tid) {
+  const int64_t row0 = blk * K7_ROWS;
+  const int rows = block_rows(n, blk, K7_ROWS);
+  const int k = tid / K7_ROWS, i = tid % K7_ROWS;
+  if (ph == 0) {                            // stage
+    stage_in<PT, PT, K7_BLOCK>(sm + K7_P, p + row0 * PT, rows, tid);
+  } else if (ph == 1) {                     // round-1 product k of instance i
+    if (i < rows) {
+      uint32_t r[NL];
+      k7_round1(r, sm + K7_P + i * PT, k);
+      st_fp(sm + K7_T + tid * NL, r);
+    }
+  } else if (ph == 2) {                     // round-2 product k of instance i
+    if (i < rows) {
+      uint32_t r[NL];
+      k7_round2(r, sm + K7_T + i * NL, K7_ROWS * NL, k);
+      st_fp(sm + K7_V + tid * NL, r);
+    }
+  } else if (ph == 3) {                     // output coordinate k of instance i
+    if (k < 3 && i < rows) {
+      const uint32_t* v = sm + K7_V + i * NL;   // product j at v + j d
+      const int d = K7_ROWS * NL;
+      uint32_t r[NL];
+      ld_fp(r, v + (k == 2 ? 3 : k) * d);
+      if (k == 0) add_mod<NL>(r, r, r); else if (k == 1) add_sh(r, v + 2 * d);
+      st_fp(sm + K7_O + i * PT + k * NL, r);
+    }
+  } else {                                  // store
+    stage_out<PT, PT, K7_BLOCK>(out + row0 * PT, sm + K7_O, rows, tid);
+  }
+}
+
+__global__ void __launch_bounds__(K7_BLOCK)
 g1_dbl_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ out, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t* X = p + i * PT;
-  const uint32_t* Y = X + NL;
-  const uint32_t* Z = X + 2 * NL;
-  uint32_t t0[NL], t1[NL], xy[NL], t2[NL];
-
-  coord_product(t0, Y, Y);
-  coord_product(t1, Y, Z);
-  coord_product(xy, X, Y);
-  coord_product(t2, Z, Z);
-  mul12(t2, t2);
-
-  uint32_t e8[NL], y3a[NL], a[NL], b[NL];
-  add_mod<NL>(e8, t0, t0);
-  add_mod<NL>(e8, e8, e8);
-  add_mod<NL>(e8, e8, e8);         // 8 Y^2
-  add_mod<NL>(y3a, t0, t2);        // Y^2 + 3b Z^2
-  add_mod<NL>(a, t2, t2);
-  add_mod<NL>(a, a, t2);
-  sub_mod<NL>(t0, t0, a);          // t0m = Y^2 - 9b Z^2
-
-  uint32_t* o = out + i * PT;
-  mont_mul<NL>(a, t0, xy);
-  add_mod<NL>(a, a, a);
-  store<NL>(o, a);
-  mont_mul<NL>(a, t0, y3a);
-  mont_mul<NL>(b, e8, t2);
-  add_mod<NL>(a, a, b);
-  store<NL>(o + NL, a);
-  mont_mul<NL>(a, e8, t1);
-  store<NL>(o + 2 * NL, a);
+  __shared__ __align__(16) uint32_t sm[K7_SMEM];
+#pragma unroll
+  for (int ph = 0; ph < K7_PHASES; ++ph) {
+    g1_dbl_phase(ph, sm, p, out, n, blockIdx.x, threadIdx.x);
+    if (ph + 1 < K7_PHASES) __syncthreads();
+  }
 }
 
 extern "C" int g1_madd(const void* p, const void* q, void* out, int64_t n, void* stream) {
   if (n > 0) {
-    g1_madd_kernel<<<(unsigned)blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+    g1_madd_kernel<<<(unsigned)((n + K5_ROWS - 1) / K5_ROWS), K5_BLOCK, 0,
+                     (cudaStream_t)stream>>>(
         (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();
@@ -231,7 +425,8 @@ extern "C" int g1_add(const void* p, const void* q, void* out, int64_t n, void* 
 
 extern "C" int g1_dbl(const void* p, void* out, int64_t n, void* stream) {
   if (n > 0) {
-    g1_dbl_kernel<<<(unsigned)blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+    g1_dbl_kernel<<<(unsigned)((n + K7_ROWS - 1) / K7_ROWS), K7_BLOCK, 0,
+                    (cudaStream_t)stream>>>(
         (const uint32_t*)p, (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();

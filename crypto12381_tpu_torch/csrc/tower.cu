@@ -60,95 +60,7 @@ using namespace fp381;
 constexpr int F2 = 2 * NL;   // limbs of one Fp2 value
 constexpr int F6 = 3 * F2;   // limbs of one Fp6 value
 
-// ------------------------------------------------------ shared memory
-
-// 16 bytes from s to d, both 16-byte aligned.
-__device__ __forceinline__ void copy16(uint32_t* d, const uint32_t* s) {
-#ifdef __CUDA_ARCH__
-  *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
-#else
-  for (int k = 0; k < 4; ++k) d[k] = s[k];
-#endif
-}
-
-// One Fp value from shared memory s into registers r, 16 bytes at a time.
-__device__ __forceinline__ void ld_fp(uint32_t* r, const uint32_t* s) {
-#pragma unroll
-  for (int k = 0; k < NL; k += 4) {
-#ifdef __CUDA_ARCH__
-    const uint4 v = *reinterpret_cast<const uint4*>(s + k);
-    r[k] = v.x;
-    r[k + 1] = v.y;
-    r[k + 2] = v.z;
-    r[k + 3] = v.w;
-#else
-    for (int j = 0; j < 4; ++j) r[k + j] = s[k + j];
-#endif
-  }
-}
-
-// One Fp value from registers r into shared memory s.
-__device__ __forceinline__ void st_fp(uint32_t* s, const uint32_t* r) {
-#pragma unroll
-  for (int k = 0; k < NL; k += 4) {
-#ifdef __CUDA_ARCH__
-    *reinterpret_cast<uint4*>(s + k) = make_uint4(r[k], r[k + 1], r[k + 2], r[k + 3]);
-#else
-    for (int j = 0; j < 4; ++j) s[k + j] = r[k + j];
-#endif
-  }
-}
-
-// r = r + s mod p, r = r - s mod p, for s in shared memory.
-__device__ __forceinline__ void add_sh(uint32_t* r, const uint32_t* s) {
-  uint32_t y[NL];
-  ld_fp(y, s);
-  add_mod<NL>(r, r, y);
-}
-
-__device__ __forceinline__ void sub_sh(uint32_t* r, const uint32_t* s) {
-  uint32_t y[NL];
-  ld_fp(y, s);
-  sub_mod<NL>(r, r, y);
-}
-
-// Copy `rows` rows of W limbs from device memory g into shared memory s as
-// rows of S limbs, each of BLOCK threads moving 16 bytes per step.
-template <int W, int S, int BLOCK>
-__device__ __forceinline__ void stage_in(uint32_t* s, const uint32_t* g, int rows, int tid) {
-  for (int v = tid; v < rows * (W / 4); v += BLOCK) {
-    const int r = v / (W / 4), c = 4 * (v % (W / 4));
-    copy16(s + r * S + c, g + (int64_t)r * W + c);
-  }
-}
-
-// The reverse: shared rows of S limbs to device rows of W limbs.
-template <int W, int S, int BLOCK>
-__device__ __forceinline__ void stage_out(uint32_t* g, const uint32_t* s, int rows, int tid) {
-  for (int v = tid; v < rows * (W / 4); v += BLOCK) {
-    const int r = v / (W / 4), c = 4 * (v % (W / 4));
-    copy16(g + (int64_t)r * W + c, s + r * S + c);
-  }
-}
-
-// Rows of the block `blk` of `per` instances each: min(per, n - blk per).
-__device__ __forceinline__ int block_rows(int64_t n, int64_t blk, int per) {
-  const int64_t left = n - blk * per;
-  return left < per ? (int)left : per;
-}
-
 // ------------------------------------------------- Karatsuba pieces
-
-// Operand k of an Fp2 Karatsuba product, from the Fp2 value x in shared
-// memory: x0 (k = 0), x1 (k = 1) or the raw sum x0 + x1 (k = 2, < 2p).
-__device__ __forceinline__ void fp2_operand(uint32_t* r, const uint32_t* x, int k) {
-  ld_fp(r, x + (k == 1 ? NL : 0));
-  if (k == 2) {
-    uint32_t s[NL];
-    ld_fp(s, x + NL);
-    add_raw<NL>(r, r, s);
-  }
-}
 
 // Coefficient f (0 real, 1 imaginary) of an Fp2 Karatsuba product from its
 // Fp products t0 = t[0], t1 = t[d], t2 = t[2 d] in shared memory:
@@ -186,8 +98,8 @@ __device__ __forceinline__ void fp2_mul_phase(int ph, uint32_t* sm, const uint32
     const int k = tid / K2_ROWS, i = tid % K2_ROWS;
     if (i < rows) {
       uint32_t x[NL], y[NL];
-      fp2_operand(x, sm + K2_A + i * S2, k);
-      fp2_operand(y, sm + K2_B + i * S2, k);
+      kara_operand(x, sm + K2_A + i * S2, k);
+      kara_operand(y, sm + K2_B + i * S2, k);
       mont_mul<NL>(x, x, y);
       st_fp(sm + K2_T + tid * NL, x);
     }
@@ -258,7 +170,7 @@ __device__ __forceinline__ void fp6_presum(uint32_t* r, const uint32_t* x, int p
 }
 
 // The operand of Fp product q = 3 p + k from the Fp6 value x: operand k of
-// pair p's Fp2 pre-sum (fp2_operand).
+// pair p's Fp2 pre-sum (kara_operand).
 __device__ __forceinline__ void fp6_operand(uint32_t* r, const uint32_t* x, int q) {
   const int p = q / 3, k = q % 3;
   fp6_presum(r, x, p, k == 1);

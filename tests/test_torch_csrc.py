@@ -3,7 +3,7 @@
 The device functions and kernel bodies of crypto12381_tpu_torch/csrc/
 are plain C++ once the CUDA keywords are defined away, so a host C++
 compiler can build them into a small program. It runs each one-thread-
-per-instance kernel body (K1, K3, K5-K7) once per row. K2 and K4 are
+per-instance kernel body (K1, K3, K6) once per row. K2, K4, K5 and K7 are
 block-cooperative: their threads share operands and products through
 shared memory, with barriers between phases. The program runs each of
 their blocks phase by phase, every thread of a phase before the next,
@@ -15,10 +15,11 @@ bit for bit: on canonical operands with the edge values 0, 1 and p-1; for
 K1 on pre-sums up to 2p-2; for K2 and K4 at row counts below, at and
 between multiples of a block's instances, with rows of all-(p-1)
 operands, whose pre-sums are the largest; and for the curve kernels K5-K7
-on curve points with the identity, P = Q and P = -Q among them. The
-header's copies of p and n0' must equal params.py's. The launch code (the
-`<<<...>>>` wrappers) and the card itself are exercised only by
-chip_smoke.py.
+on curve points with the identity, P = Q and P = -Q among them, for K5
+and K7 also at row counts below, at and between multiples of a block,
+with those rows at both ends of the launch. The header's copies of p and
+n0' must equal params.py's. The launch code (the `<<<...>>>` wrappers)
+and the card itself are exercised only by chip_smoke.py.
 """
 
 import pathlib
@@ -34,15 +35,16 @@ from crypto12381_tpu.params import P
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "crypto12381_tpu_torch" / "csrc"
 R_INV = pow(1 << 384, -1, P)        # the port's Montgomery R = 2^384
 
-torch = FP = FK = C = None          # bound by _port
+torch = FP = FK = C = G1C = None    # bound by _port
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _port():
     """Import torch and the port when this file's test runs, not when the
     file is collected (every test worker collects every file)."""
-    global torch, FP, FK, C
+    global torch, FP, FK, C, G1C
     import torch
+    from crypto12381_tpu_torch.curves import g1 as G1C
     from crypto12381_tpu_torch.fields import fp as FP
     from crypto12381_tpu_torch.fields import fused as FK
     from crypto12381_tpu_torch.host import curve as C
@@ -111,7 +113,7 @@ int main(int argc, char** argv) {
   if (fread(b.data(), 4, n * 72, f) != (size_t)(n * 72)) return 1;
   fclose(f);
   std::vector<uint32_t> o1(n * 12), o2, o3(n * 24), o4;
-  std::vector<uint32_t> o5(n * 36), o6(n * 36), o7(n * 36);
+  std::vector<uint32_t> o5, o6(n * 36), o7;
   rows([&] { mont_mul_kernel<12>(a.data(), b.data(), o1.data(), n); }, n);
   if (!coop(o2, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
         fp2_mul_phase(ph, sm, a.data(), b.data(), out, n, blk, t); },
@@ -121,9 +123,13 @@ int main(int argc, char** argv) {
         fp6_mul_phase(ph, sm, a.data(), b.data(), out, n, blk, t); },
       n, K4_ROWS, K4_BLOCK, K4_PHASES, K4_SMEM, 72)) return 2;
   // curve kernels: points a[0, 36n), b[0, 36n); affine points b[36n, 60n)
-  rows([&] { g1_madd_kernel(a.data(), b.data() + n * 36, o5.data(), n); }, n);
+  if (!coop(o5, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
+        g1_madd_phase(ph, sm, a.data(), b.data() + n * 36, out, n, blk, t); },
+      n, K5_ROWS, K5_BLOCK, K5_PHASES, K5_SMEM, 36)) return 2;
   rows([&] { g1_add_kernel(a.data(), b.data(), o6.data(), n); }, n);
-  rows([&] { g1_dbl_kernel(a.data(), o7.data(), n); }, n);
+  if (!coop(o7, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
+        g1_dbl_phase(ph, sm, a.data(), out, n, blk, t); },
+      n, K7_ROWS, K7_BLOCK, K7_PHASES, K7_SMEM, 36)) return 2;
   FILE* g = fopen(argv[2], "wb");
   fwrite(o1.data(), 4, n * 12, g); fwrite(o2.data(), 4, n * 24, g);
   fwrite(o3.data(), 4, n * 24, g); fwrite(o4.data(), 4, n * 72, g);
@@ -279,3 +285,35 @@ def test_cooperative_tower_kernels(harness, n):
     assert torch.equal(k2, FK.fp2_mul_plain(a[: 2 * n].reshape(n, 2, 12),
                                             b[: 2 * n].reshape(n, 2, 12)))
     assert torch.equal(k4, FK.fp6_mul_plain(a.reshape(n, 3, 2, 12), b.reshape(n, 3, 2, 12)))
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 33, 47, 96])
+def test_cooperative_curve_kernels(harness, n):
+    """K5 (16 instances per block) and K7 (32) at row counts below, at,
+    between and on multiples of a block: P + Q and 2P for projective P
+    (random Z) and affine Q, with the rows O + B, A + A and (-A) + A at the
+    start of the launch and again at its end, so in its ragged last block,
+    and random curve points between. Each output equals the plain version
+    bit for bit and, made affine, the host's P + Q and 2P."""
+    rng = np.random.default_rng(200 + n)
+    r_mod = (1 << 384) % P
+    k_a, k_b = (int(k) for k in rng.integers(2, 1 << 62, size=2))
+    edges = [(0, k_b), (k_a, k_a), (-k_a, k_a)]         # O + B, A + A, (-A) + A
+    mid = [(int(k), int(j)) for k, j in rng.integers(2, 1 << 62, size=(max(n - 6, 0), 2))]
+    scalars = (edges + mid + edges)[:n] if n >= 6 else edges[:n]
+    pv, qv = [], []
+    for sp, sq in scalars:                # P = [sp]G with a random Z, Q = [sq]G
+        pt, q = C.g1_mul(C.G1_GEN, sp), C.g1_mul(C.G1_GEN, sq)
+        z = int.from_bytes(rng.bytes(48), "little") % (P - 1) + 1
+        pv += [0, r_mod, 0] if pt is None else [pt[0] * z % P * r_mod % P,
+                                                pt[1] * z % P * r_mod % P, z * r_mod % P]
+        qv += [q[0] * r_mod % P, q[1] * r_mod % P]
+    a, b, n, (_, _, _, _, k5, _, k7) = run(harness, pv + [0] * (3 * n),
+                                           [0] * (3 * n) + qv + [0] * n)
+    p, qa = a[: 3 * n].reshape(n, 3, 12), b[3 * n: 5 * n].reshape(n, 2, 12)
+    assert torch.equal(k5, FK.g1_madd_plain(p, qa))
+    assert torch.equal(k7, FK.g1_dbl_plain(p))
+    want5 = [C.g1_mul(C.G1_GEN, sp + sq) for sp, sq in scalars]
+    want7 = [C.g1_mul(C.G1_GEN, 2 * sp) for sp, _ in scalars]
+    assert list(G1C.to_affine_ints(tuple(k5.unbind(-2)))) == want5
+    assert list(G1C.to_affine_ints(tuple(k7.unbind(-2)))) == want7
