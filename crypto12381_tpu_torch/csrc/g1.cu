@@ -90,13 +90,12 @@ __device__ __forceinline__ void mul12(uint32_t* r, const uint32_t* x) {
 //   combine 2 X3 = t1m t3 - bt5 t4, Y3 = t1m z3a + bt5 w,
 //             Z3 = z3a t4 + w t3.
 
-#ifndef K5_INSTANCES
-#define K5_INSTANCES 16
-#endif
-#ifndef K5_COMBINE_PHASE
-#define K5_COMBINE_PHASE 1
-#endif
-constexpr int K5_ROWS = K5_INSTANCES;        // instances per block
+// 16 instances per block make the MSM's 2,112 rows 132 blocks, one per SM.
+// Measured on the card and not taken (PERF.md): 32 instances per block,
+// and round-2 threads that form their own operands in place of the
+// combine-1 phase (one barrier fewer, but bt5 and the others each formed
+// twice on the critical path), 13% and 17% slower at 2,112 rows.
+constexpr int K5_ROWS = 16;                  // instances per block
 constexpr int K5_BLOCK = 6 * K5_ROWS;        // one thread per round-2 product
 constexpr int SA = AF + 4;                   // a padded shared affine row
 // shared layout (limbs): P rows, Q rows, the round-1 products T[k][i] and
@@ -104,7 +103,7 @@ constexpr int SA = AF + 4;                   // a padded shared affine row
 // Q and T, and the outputs over U
 constexpr int K5_P = 0, K5_Q = K5_ROWS * PT, K5_T = K5_Q + K5_ROWS * SA;
 constexpr int K5_U = K5_T + 5 * K5_ROWS * NL;
-constexpr int K5_V = K5_COMBINE_PHASE ? 0 : K5_U, K5_O = K5_COMBINE_PHASE ? K5_U : 0;
+constexpr int K5_V = 0, K5_O = K5_U;
 constexpr int K5_SMEM = K5_U + 6 * K5_ROWS * NL;
 constexpr int K5_PHASES = 6;
 static_assert(6 * K5_ROWS * NL <= K5_U, "V fits over P, Q and T");
@@ -178,7 +177,7 @@ __device__ __forceinline__ void g1_madd_phase(int ph, uint32_t* sm, const uint32
       st_fp(sm + K5_T + tid * NL, r);
     }
   } else if (ph == 2) {                     // round-2 operand k of instance i
-    if (K5_COMBINE_PHASE && i < rows) {
+    if (i < rows) {
       uint32_t r[NL];
       k5_operand(r, pi, ti, K5_ROWS * NL, k);
       st_fp(sm + K5_U + tid * NL, r);
@@ -186,13 +185,8 @@ __device__ __forceinline__ void g1_madd_phase(int ph, uint32_t* sm, const uint32
   } else if (ph == 3) {                     // round-2 product k of instance i
     if (i < rows) {
       uint32_t x[NL], y[NL];
-      if (K5_COMBINE_PHASE) {
-        ld_fp(x, sm + K5_U + (k5_lhs(k) * K5_ROWS + i) * NL);
-        ld_fp(y, sm + K5_U + (k5_rhs(k) * K5_ROWS + i) * NL);
-      } else {
-        k5_operand(x, pi, ti, K5_ROWS * NL, k5_lhs(k));
-        k5_operand(y, pi, ti, K5_ROWS * NL, k5_rhs(k));
-      }
+      ld_fp(x, sm + K5_U + (k5_lhs(k) * K5_ROWS + i) * NL);
+      ld_fp(y, sm + K5_U + (k5_rhs(k) * K5_ROWS + i) * NL);
       mont_mul<NL>(x, x, y);
       st_fp(sm + K5_V + tid * NL, x);
     }
@@ -215,7 +209,6 @@ g1_madd_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
   __shared__ __align__(16) uint32_t sm[K5_SMEM];
 #pragma unroll
   for (int ph = 0; ph < K5_PHASES; ++ph) {
-    if (!K5_COMBINE_PHASE && ph == 2) continue;
     g1_madd_phase(ph, sm, p, q, out, n, blockIdx.x, threadIdx.x);
     if (ph + 1 < K5_PHASES) __syncthreads();
   }
