@@ -12,9 +12,9 @@ Phases, one line each; any failure raises and ends the run non-zero:
            pairing at B = 2048; K2 at each row count the pairing launches
            it at, B to 15B, K4 at 2B and 3B; K5: one MSM bucket step, 64
            lanes x 33 windows; K6, K7: one GLV ladder step at B = 8192;
-           K2, K4, K5 and K7 each also at a row count that leaves its last
-           block ragged), each held bit for bit against its plain PyTorch
-           version on the card (K2, K4 with edge rows at both ends, K5-K7
+           K2-K7 each also at a row count that leaves its last block
+           ragged), each held bit for bit against its plain PyTorch
+           version on the card (K2-K4 with edge rows at both ends, K5-K7
            with the identity, P = Q and P = -Q in their first and last
            rows, checked against host points); device time of
            both (CUDA graph replays timed with CUDA events) and the
@@ -64,6 +64,8 @@ B = 2048
 DISTINCT = 32
 ARGS = argparse.ArgumentParser(description="Drive the port's kernels and paths on one card.")
 ARGS.add_argument("--trace", action="store_true", help="one torch.profiler call of each path")
+ARGS.add_argument("--nvcc-define", action="append", default=[], metavar="NAME=VALUE",
+                  help="build the kernels with -DNAME=VALUE")
 G1_B = 8192                    # GLV batch, and the MSM's distinct points
 MSM_N = 1 << 16
 MSM_LANES, MSM_WINDOWS = 64, 33     # G1Vec.msm's defaults at c = 8
@@ -81,7 +83,7 @@ MULADDS_PER_PRODUCT = 2 * (144 + 144) + 12
 K2_ROWS_PER_PAIR = (15, 1, 2, 3, 4, 5, 6)
 K4_ROWS_PER_PAIR = (3, 2)
 #: added to a headline row count, leaves the last block of K2 (32 rows per
-#: block), K4 (16), K5 (16) and K7 (32) ragged
+#: block), K3 (64), K4 (16), K5 (16), K6 (16) and K7 (32) ragged
 RAGGED = 7
 #: kernel -> launches per path and row count, read right after each path
 ROWS_BY_PATH: dict[str, dict[str, dict[int, int]]] = {}
@@ -247,37 +249,36 @@ def phase_kernels(dev):
                   {n: (a, b)}, n, 1, None))
     # K2: 15 rows per pairing row in the sparse multiply, B to 6B in the
     # line coefficients and G2 steps; K3: 9 (cyclotomic square); K4: 3
-    # (Fp12 product) and 2 (Fp12 square).  K2 and K4 carry edge rows at both
-    # ends, all p-1 against all p-1 among them (the largest pre-sums).
+    # (Fp12 product) and 2 (Fp12 square), each also at a ragged count.  Each
+    # carries edge rows at both ends, all p-1 against all p-1 among them (the
+    # largest pre-sums).
     tower_edge = ([0, 1, P - 1, P - 1], [P - 1, 1, 0, P - 1])
-    for name, per_pair, both_ends, shape, prod, n_in, kern, plain, line in (
-        ("K2 fp2_mul", K2_ROWS_PER_PAIR, True, (2,), 3, 2, FK.fp2_mul, FK.fp2_mul_plain, 379),
-        ("K3 fp2_sqr", (9,), False, (2,), 2, 1, FK.fp2_sqr, FK.fp2_sqr_plain, 790),
-        ("K4 fp6_mul", K4_ROWS_PER_PAIR, True, (3, 2), 18, 2, FK.fp6_mul, FK.fp6_mul_plain,
-         387),
+    for name, per_pair, shape, prod, n_in, kern, plain, line in (
+        ("K2 fp2_mul", K2_ROWS_PER_PAIR, (2,), 3, 2, FK.fp2_mul, FK.fp2_mul_plain, 379),
+        ("K3 fp2_sqr", (9,), (2,), 2, 1, FK.fp2_sqr, FK.fp2_sqr_plain, 790),
+        ("K4 fp6_mul", K4_ROWS_PER_PAIR, (3, 2), 18, 2, FK.fp6_mul, FK.fp6_mul_plain, 387),
     ):
         k = int(np.prod(shape))
-        counts = [m * B for m in per_pair] + ([per_pair[0] * B + RAGGED] if both_ends else [])
-        edges = tower_edge if both_ends else (edge, edge[::-1])
+        counts = [m * B for m in per_pair] + [per_pair[0] * B + RAGGED]
         ins = {}
         for rows in counts:
             ins[rows] = tuple(
-                torch.from_numpy(_edges(_rand_fp(rng, rows, k), edges[i], last=both_ends)
+                torch.from_numpy(_edges(_rand_fp(rng, rows, k), tower_edge[i], last=True)
                                  .reshape((rows,) + shape + (12,))).to(dev)
                 for i in range(n_in))
         specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/tower.cu",
                       f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, counts[0],
                       prod, None))
     # K5: one MSM bucket step (lanes x windows rows); K6, K7: one GLV ladder
-    # step of the g1 phase's batch; K5 and K7 also at a ragged row count
-    # (blocks of 16 and 32 instances), with the edge rows in the last block
-    for name, rows, ragged, prod, kern, plain, line in (
-        ("K5 g1_madd", MSM_LANES * MSM_WINDOWS, True, 11, FK.g1_madd, FK.g1_madd_plain, 660),
-        ("K6 g1_add", G1_B, False, 12, FK.g1_add, FK.g1_add_plain, 771),
-        ("K7 g1_dbl", G1_B, True, 8, FK.g1_dbl, FK.g1_dbl_plain, 734),
+    # step of the g1 phase's batch; each also at a ragged row count (blocks
+    # of 16, 16 and 32 instances), with the edge rows in the last block
+    for name, rows, prod, kern, plain, line in (
+        ("K5 g1_madd", MSM_LANES * MSM_WINDOWS, 11, FK.g1_madd, FK.g1_madd_plain, 660),
+        ("K6 g1_add", G1_B, 12, FK.g1_add, FK.g1_add_plain, 771),
+        ("K7 g1_dbl", G1_B, 8, FK.g1_dbl, FK.g1_dbl_plain, 734),
     ):
         ins, edge_want = {}, {}
-        for r in (rows, rows + RAGGED) if ragged else (rows,):
+        for r in (rows, rows + RAGGED):
             ins[r], edge_want[r] = _curve_inputs(rng, name.split()[1], r, dev)
         specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/g1.cu",
                       f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, rows,
@@ -634,13 +635,14 @@ def main() -> None:
     smi = _smi_line()
     print(f"device: {kind} count={count} nvidia-smi: {smi}", flush=True)
 
+    _build.NVCC_FLAGS += tuple(f"-D{d}" for d in args.nvcc_define)
     t0 = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t0
     regs = {}
     for log in _build.BUILD_LOG.values():
         regs.update(_ptxas_report(log))
-    print(f"build: {build_s:.1f}s ptxas={regs}", flush=True)
+    print(f"build: {build_s:.1f}s defines={args.nvcc_define} ptxas={regs}", flush=True)
 
     kernels = phase_kernels(dev)
     by_path = {"pairing": phase_pairing(dev, args.trace)}

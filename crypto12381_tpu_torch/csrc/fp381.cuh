@@ -134,19 +134,6 @@ __device__ __forceinline__ void sub_mod(uint32_t* r, const uint32_t* a, const ui
   }
 }
 
-// ---------------------------------------------------------------- Fp2
-// An Fp2 value is x[0..N) (real) and x[N..2N) (imaginary).
-
-// r = a^2: (a0 + a1)(a0 - a1), a0 * 2 a1.  r must not alias a.
-__device__ __forceinline__ void fp2_sqr(uint32_t* r, const uint32_t* a) {
-  uint32_t x[NL], y[NL];
-  add_raw<NL>(x, a, a + NL);
-  sub_mod<NL>(y, a, a + NL);
-  mont_mul<NL>(r, x, y);
-  add_raw<NL>(y, a + NL, a + NL);
-  mont_mul<NL>(r + NL, a, y);
-}
-
 // ------------------------------------------------------- global memory
 
 template <int N>
@@ -163,7 +150,7 @@ __device__ __forceinline__ void store(uint32_t* g, const uint32_t* r) {
 
 // ------------------------------------------------------ shared memory
 //
-// The block-cooperative kernels (K2, K4, K5, K7) stage their operands and
+// The block-cooperative kernels (K2-K7) stage their operands and
 // products in shared memory and move them with 16-byte accesses.
 
 // 16 bytes from s to d, both 16-byte aligned.

@@ -22,24 +22,29 @@
 // multiply-adds per product), so the integer multiply rate bounds all
 // three.  At the row counts of their paths one point per thread is far
 // from that bound: the MSM's bucket step launches K5 on 2,112 rows (17
-// blocks of 128 threads on 132 SMs) and its Horner loop K7 on one row, and
-// a thread that owns a point runs 11 or 8 products as one dependent chain.
+// blocks of 128 threads on 132 SMs), its Horner loop K7 and K6 on one row,
+// and a thread that owns a point runs 11, 12 or 8 products as one
+// dependent chain (K6 then needs 166 registers).
 //
-// K5 and K7 therefore give each Fp product of a round its own thread, as
-// K2 and K4 do (tower.cu): 6 threads per K5 instance, 4 per K7 instance.
-// A block takes K5_ROWS (K5) or K7_ROWS (K7) consecutive instances and
-// runs in phases with a barrier between each two:
+// Each kernel therefore gives each Fp product of a round its own thread,
+// as K2 and K4 do (tower.cu): 6 threads per K5 or K6 instance, 4 per K7
+// instance.  A block takes K5_ROWS, K6_ROWS or K7_ROWS consecutive
+// instances and runs in phases with a barrier between each two:
 //   stage      the block's span of each operand into shared memory, 16
 //              bytes per thread, consecutive threads on consecutive bytes;
 //   product 1  K5: X1 x2, Y1 y2, (X1 + Y1)(x2 + y2), x2 Z1, y2 Z1 (a
-//              sixth thread idles); K7: Y^2, Y Z, X Y, Z^2;
-//   combine 1  K5 only: the six operands of round 2, t3, t4, bt5, w, z3a
+//              sixth thread idles); K6: X1 X2, Y1 Y2, Z1 Z2 and the three
+//              pre-sum products (X1 + Y1)(X2 + Y2), (Y1 + Z1)(Y2 + Z2),
+//              (X1 + Z1)(X2 + Z2), every thread busy; K7: Y^2, Y Z, X Y,
+//              Z^2;
+//   combine 1  K5 and K6: the six operands of round 2, t3, t4, bt5, w, z3a
 //              and t1m, one per thread;
-//   product 2  K5: the six products of round 2; K7: each thread forms its
-//              two operands from the round-1 products (t0m, y3a, e8, 12 Z^2)
-//              and runs one of the four products;
+//   product 2  K5 and K6: the same six products of round 2; K7: each
+//              thread forms its two operands from the round-1 products
+//              (t0m, y3a, e8, 12 Z^2) and runs one of the four products;
 //   combine 2  X3, Y3 and Z3, one per thread;
 //   store      the outputs from shared memory, 16 bytes per thread.
+// K5 and K6 share one copy of their last three phases (rcb_round2_phase).
 // Each phase is a function of (phase, block, thread), and the __global__
 // body only calls the phases with a barrier after each.  A projective row
 // in shared memory is 144 bytes and an affine row is padded from 96 to 112,
@@ -51,13 +56,6 @@
 // a combine (all canonical), or the raw sum of two canonical coordinates
 // (below 2p), which mont_mul takes (fp381.cuh).  The combines are add_mod
 // and sub_mod of canonical values, so every output is canonical.
-//
-// K6 keeps one point per thread.  What costs there is register pressure:
-// it takes two points (72 words).  It reads each coordinate from device
-// memory just before its products, folds each round-1 product into the
-// sums that use it at once, and writes each output coordinate as soon as
-// its two round-2 products are done: six reduced values carry from round 1
-// to round 2, and round 2 holds two products beside them.
 //
 // Layouts (int32 limbs, row-major, contiguous, 16-byte aligned): a
 // projective point is (n, 3, 12) [X, Y, Z], an affine point (n, 2, 12)
@@ -79,6 +77,70 @@ __device__ __forceinline__ void mul12(uint32_t* r, const uint32_t* x) {
   add_mod<NL>(r, r, x4);
 }
 
+// --------------------------------------------- K5 and K6: round 2
+//
+// Both end in the same six products and combines:
+//   round 2   t1m t3, bt5 t4, t1m z3a, bt5 w, z3a t4, w t3;
+//   combine 2 X3 = t1m t3 - bt5 t4, Y3 = t1m z3a + bt5 w,
+//             Z3 = z3a t4 + w t3.
+// Their combine 1 writes the round-2 operands U[j][i] (j: t3, t4, bt5, w,
+// z3a, t1m) of a block of ROWS instances, 6 threads each.
+
+// w = 3 t0 (j = 3), z3a = t1 + 12 z (j = 4) or t1m = t1 - 12 z (j = 5)
+// from t0, t1 = t0 + d and z in shared memory (K5: z = Z1, K6: z = t2).
+__device__ __forceinline__ void rcb_wz(uint32_t* r, const uint32_t* t, int d,
+                                       const uint32_t* z, int j) {
+  if (j == 3) {
+    uint32_t t0[NL];
+    ld_fp(t0, t);
+    add_mod<NL>(r, t0, t0);
+    add_mod<NL>(r, r, t0);
+  } else {
+    uint32_t bz[NL];
+    ld_fp(bz, z);
+    mul12(bz, bz);
+    ld_fp(r, t + d);
+    if (j == 4) add_mod<NL>(r, r, bz); else sub_mod<NL>(r, r, bz);
+  }
+}
+
+// The operands (indices j of U) of round-2 product k:
+// t1m t3, bt5 t4, t1m z3a, bt5 w, z3a t4, w t3.
+__device__ __forceinline__ int rcb_lhs(int k) { return (0x342525 >> 4 * k) & 15; }
+__device__ __forceinline__ int rcb_rhs(int k) { return (0x013410 >> 4 * k) & 15; }
+
+// Phases 3-5 of K5 and K6 (product 2, combine 2, store) for thread `tid` of
+// a block of `rows` live instances whose round-2 operands lie at sm + U;
+// out points at the block's first output row.  The round-2 products
+// V[k][i] go to sm (over the dead operand rows and round-1 products), the
+// outputs over U.
+template <int ROWS, int U>
+__device__ __forceinline__ void rcb_round2_phase(int ph, uint32_t* sm, uint32_t* out, int rows,
+                                                 int tid) {
+  static_assert(6 * ROWS * NL <= U, "V fits below U");
+  static_assert(ROWS * PT <= 6 * ROWS * NL, "the outputs fit over U");
+  const int k = tid / ROWS, i = tid % ROWS;
+  if (ph == 3) {                            // round-2 product k of instance i
+    if (i < rows) {
+      uint32_t x[NL], y[NL];
+      ld_fp(x, sm + U + (rcb_lhs(k) * ROWS + i) * NL);
+      ld_fp(y, sm + U + (rcb_rhs(k) * ROWS + i) * NL);
+      mont_mul<NL>(x, x, y);
+      st_fp(sm + tid * NL, x);
+    }
+  } else if (ph == 4) {                     // output coordinate k of instance i
+    if (k < 3 && i < rows) {
+      const uint32_t* v = sm + (2 * k * ROWS + i) * NL;
+      uint32_t r[NL];
+      ld_fp(r, v);
+      if (k == 0) sub_sh(r, v + ROWS * NL); else add_sh(r, v + ROWS * NL);
+      st_fp(sm + U + i * PT + k * NL, r);
+    }
+  } else {                                  // store
+    stage_out<PT, PT, 6 * ROWS>(out, sm + U, rows, tid);
+  }
+}
+
 // ------------------------------------------------------------- K5
 //
 // P + (x2 : y2 : 1), 5 + 6 products:
@@ -86,9 +148,7 @@ __device__ __forceinline__ void mul12(uint32_t* r, const uint32_t* x) {
 //             zy = y2 Z1;
 //   combine 1 t3 = m3 - t0 - t1, t4 = zy + Y1, bt5 = 12 (zx + X1), w = 3 t0,
 //             z3a = t1 + 12 Z1, t1m = t1 - 12 Z1;
-//   round 2   t1m t3, bt5 t4, t1m z3a, bt5 w, z3a t4, w t3;
-//   combine 2 X3 = t1m t3 - bt5 t4, Y3 = t1m z3a + bt5 w,
-//             Z3 = z3a t4 + w t3.
+//   round 2   as above.
 
 // 16 instances per block make the MSM's 2,112 rows 132 blocks, one per SM.
 // Measured on the card and not taken (PERF.md): 32 instances per block,
@@ -99,15 +159,12 @@ constexpr int K5_ROWS = 16;                  // instances per block
 constexpr int K5_BLOCK = 6 * K5_ROWS;        // one thread per round-2 product
 constexpr int SA = AF + 4;                   // a padded shared affine row
 // shared layout (limbs): P rows, Q rows, the round-1 products T[k][i] and
-// the round-2 operands U[j][i]; then the round-2 products V[k][i] over P,
-// Q and T, and the outputs over U
+// the round-2 operands U[j][i]; then rcb_round2_phase's products over P, Q
+// and T, and the outputs over U
 constexpr int K5_P = 0, K5_Q = K5_ROWS * PT, K5_T = K5_Q + K5_ROWS * SA;
 constexpr int K5_U = K5_T + 5 * K5_ROWS * NL;
-constexpr int K5_V = 0, K5_O = K5_U;
 constexpr int K5_SMEM = K5_U + 6 * K5_ROWS * NL;
 constexpr int K5_PHASES = 6;
-static_assert(6 * K5_ROWS * NL <= K5_U, "V fits over P, Q and T");
-static_assert(K5_ROWS * PT <= 6 * K5_ROWS * NL, "the outputs fit over U");
 
 // Round-1 product k of K5 from the shared rows p = (X1, Y1, Z1) and
 // q = (x2, y2): X1 x2, Y1 y2, (X1 + Y1)(x2 + y2), Z1 x2, Z1 y2.
@@ -139,24 +196,10 @@ __device__ __forceinline__ void k5_operand(uint32_t* r, const uint32_t* p, const
     ld_fp(r, t + 3 * d);
     add_sh(r, p);
     mul12(r, r);
-  } else if (j == 3) {             // w = 3 t0
-    uint32_t t0[NL];
-    ld_fp(t0, t);
-    add_mod<NL>(r, t0, t0);
-    add_mod<NL>(r, r, t0);
-  } else {                         // z3a = t1 + 12 Z1, t1m = t1 - 12 Z1
-    uint32_t z[NL];
-    ld_fp(z, p + 2 * NL);
-    mul12(z, z);
-    ld_fp(r, t + d);
-    if (j == 4) add_mod<NL>(r, r, z); else sub_mod<NL>(r, r, z);
+  } else {                         // w, z3a, t1m with z = Z1
+    rcb_wz(r, t, d, p + 2 * NL, j);
   }
 }
-
-// The operands (indices j of k5_operand) of round-2 product k:
-// t1m t3, bt5 t4, t1m z3a, bt5 w, z3a t4, w t3.
-__device__ __forceinline__ int k5_lhs(int k) { return (0x342525 >> 4 * k) & 15; }
-__device__ __forceinline__ int k5_rhs(int k) { return (0x013410 >> 4 * k) & 15; }
 
 // Phase `ph` of K5 for thread `tid` of block `blk`.
 __device__ __forceinline__ void g1_madd_phase(int ph, uint32_t* sm, const uint32_t* p,
@@ -166,7 +209,6 @@ __device__ __forceinline__ void g1_madd_phase(int ph, uint32_t* sm, const uint32
   const int rows = block_rows(n, blk, K5_ROWS);
   const int k = tid / K5_ROWS, i = tid % K5_ROWS;
   const uint32_t* pi = sm + K5_P + i * PT;
-  const uint32_t* ti = sm + K5_T + i * NL;
   if (ph == 0) {                            // stage
     stage_in<PT, PT, K5_BLOCK>(sm + K5_P, p + row0 * PT, rows, tid);
     stage_in<AF, SA, K5_BLOCK>(sm + K5_Q, q + row0 * AF, rows, tid);
@@ -179,27 +221,11 @@ __device__ __forceinline__ void g1_madd_phase(int ph, uint32_t* sm, const uint32
   } else if (ph == 2) {                     // round-2 operand k of instance i
     if (i < rows) {
       uint32_t r[NL];
-      k5_operand(r, pi, ti, K5_ROWS * NL, k);
+      k5_operand(r, pi, sm + K5_T + i * NL, K5_ROWS * NL, k);
       st_fp(sm + K5_U + tid * NL, r);
     }
-  } else if (ph == 3) {                     // round-2 product k of instance i
-    if (i < rows) {
-      uint32_t x[NL], y[NL];
-      ld_fp(x, sm + K5_U + (k5_lhs(k) * K5_ROWS + i) * NL);
-      ld_fp(y, sm + K5_U + (k5_rhs(k) * K5_ROWS + i) * NL);
-      mont_mul<NL>(x, x, y);
-      st_fp(sm + K5_V + tid * NL, x);
-    }
-  } else if (ph == 4) {                     // output coordinate k of instance i
-    if (k < 3 && i < rows) {
-      const uint32_t* v = sm + K5_V + (2 * k * K5_ROWS + i) * NL;
-      uint32_t r[NL];
-      ld_fp(r, v);
-      if (k == 0) sub_sh(r, v + K5_ROWS * NL); else add_sh(r, v + K5_ROWS * NL);
-      st_fp(sm + K5_O + i * PT + k * NL, r);
-    }
-  } else {                                  // store
-    stage_out<PT, PT, K5_BLOCK>(out + row0 * PT, sm + K5_O, rows, tid);
+  } else {                                  // round 2, combine 2, store
+    rcb_round2_phase<K5_ROWS, K5_U>(ph, sm, out + row0 * PT, rows, tid);
   }
 }
 
@@ -215,91 +241,89 @@ g1_madd_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
 }
 
 // ------------------------------------------------------------- K6
+//
+// P1 + P2, 6 + 6 products:
+//   round 1   t0 = X1 X2, t1 = Y1 Y2, t2 = Z1 Z2, m3 = (X1 + Y1)(X2 + Y2),
+//             m4 = (Y1 + Z1)(Y2 + Z2), m5 = (X1 + Z1)(X2 + Z2);
+//   combine 1 t3 = m3 - t0 - t1, t4 = m4 - t1 - t2, bt5 = 12 (m5 - t0 - t2),
+//             w = 3 t0, z3a = t1 + 12 t2, t1m = t1 - 12 t2;
+//   round 2   as K5's.
 
-// t = a * b for coordinates a, b read from device memory.
-__device__ __forceinline__ void coord_product(uint32_t* t, const uint32_t* ga,
-                                              const uint32_t* gb) {
-  uint32_t a[NL], b[NL];
-  load<NL>(a, ga);
-  load<NL>(b, gb);
-  mont_mul<NL>(t, a, b);
+#ifndef K6_INSTANCES
+#define K6_INSTANCES 16
+#endif
+constexpr int K6_ROWS = K6_INSTANCES;        // instances per block
+constexpr int K6_BLOCK = 6 * K6_ROWS;        // one thread per product of a round
+// shared layout (limbs): P rows, Q rows, the round-1 products T[k][i] and
+// the round-2 operands U[j][i]; then rcb_round2_phase's products over P, Q
+// and T, and the outputs over U
+constexpr int K6_P = 0, K6_Q = K6_ROWS * PT, K6_T = 2 * K6_ROWS * PT;
+constexpr int K6_U = K6_T + 6 * K6_ROWS * NL;
+constexpr int K6_SMEM = K6_U + 6 * K6_ROWS * NL;
+constexpr int K6_PHASES = 6;
+
+// The factor from the shared row x = (X, Y, Z) of K6's round-1 product k:
+// X, Y, Z (k < 3), or the raw sums X + Y, Y + Z, Z + X (below 2p).
+__device__ __forceinline__ void k6_factor(uint32_t* r, const uint32_t* x, int k) {
+  ld_fp(r, x + (k % 3) * NL);
+  if (k >= 3) {
+    uint32_t s[NL];
+    ld_fp(s, x + ((k + 1) % 3) * NL);
+    add_raw<NL>(r, r, s);
+  }
 }
 
-// t = (a0 + a1) * (b0 + b1) for coordinates read from device memory; the
-// pre-sums are raw (below 2p).
-__device__ __forceinline__ void presum_product(uint32_t* t, const uint32_t* ga0,
-                                               const uint32_t* ga1, const uint32_t* gb0,
-                                               const uint32_t* gb1) {
-  uint32_t a[NL], b[NL], s[NL];
-  load<NL>(a, ga0);
-  load<NL>(s, ga1);
-  add_raw<NL>(a, a, s);
-  load<NL>(b, gb0);
-  load<NL>(s, gb1);
-  add_raw<NL>(b, b, s);
-  mont_mul<NL>(t, a, b);
+// Round-2 operand j of K6 (t3, t4, bt5, w, z3a, t1m) from the round-1
+// products t0, t1, t2, m3, m4, m5 at t + k d.
+__device__ __forceinline__ void k6_operand(uint32_t* r, const uint32_t* t, int d, int j) {
+  if (j < 3) {                     // m(3 + j) minus two of t0, t1, t2
+    ld_fp(r, t + (3 + j) * d);
+    sub_sh(r, t + (j == 1 ? d : 0));
+    sub_sh(r, t + (j == 0 ? d : 2 * d));
+    if (j == 2) mul12(r, r);
+  } else {                         // w, z3a, t1m with z = t2
+    rcb_wz(r, t, d, t + 2 * d, j);
+  }
 }
 
-// Round 2 of K6:
-//   X3 = t1m t3 - bt5 t4,  Y3 = t1m z3a + bt5 w,  Z3 = z3a t4 + w t3.
-__device__ __forceinline__ void rcb_round2(uint32_t* o, const uint32_t* t1m,
-                                           const uint32_t* z3a, const uint32_t* t3,
-                                           const uint32_t* t4, const uint32_t* w,
-                                           const uint32_t* bt5) {
-  uint32_t a[NL], b[NL];
-  mont_mul<NL>(a, t1m, t3);
-  mont_mul<NL>(b, bt5, t4);
-  sub_mod<NL>(a, a, b);
-  store<NL>(o, a);
-  mont_mul<NL>(a, t1m, z3a);
-  mont_mul<NL>(b, bt5, w);
-  add_mod<NL>(a, a, b);
-  store<NL>(o + NL, a);
-  mont_mul<NL>(a, z3a, t4);
-  mont_mul<NL>(b, w, t3);
-  add_mod<NL>(a, a, b);
-  store<NL>(o + 2 * NL, a);
+// Phase `ph` of K6 for thread `tid` of block `blk`.
+__device__ __forceinline__ void g1_add_phase(int ph, uint32_t* sm, const uint32_t* p,
+                                             const uint32_t* q, uint32_t* out, int64_t n,
+                                             int64_t blk, int tid) {
+  const int64_t row0 = blk * K6_ROWS;
+  const int rows = block_rows(n, blk, K6_ROWS);
+  const int k = tid / K6_ROWS, i = tid % K6_ROWS;
+  if (ph == 0) {                            // stage
+    stage_in<PT, PT, K6_BLOCK>(sm + K6_P, p + row0 * PT, rows, tid);
+    stage_in<PT, PT, K6_BLOCK>(sm + K6_Q, q + row0 * PT, rows, tid);
+  } else if (ph == 1) {                     // round-1 product k of instance i
+    if (i < rows) {
+      uint32_t x[NL], y[NL];
+      k6_factor(x, sm + K6_P + i * PT, k);
+      k6_factor(y, sm + K6_Q + i * PT, k);
+      mont_mul<NL>(x, x, y);
+      st_fp(sm + K6_T + tid * NL, x);
+    }
+  } else if (ph == 2) {                     // round-2 operand k of instance i
+    if (i < rows) {
+      uint32_t r[NL];
+      k6_operand(r, sm + K6_T + i * NL, K6_ROWS * NL, k);
+      st_fp(sm + K6_U + tid * NL, r);
+    }
+  } else {                                  // round 2, combine 2, store
+    rcb_round2_phase<K6_ROWS, K6_U>(ph, sm, out + row0 * PT, rows, tid);
+  }
 }
 
-// K6: P1 + P2, 6 + 6 products.
-//   t0 = X1 X2, t1 = Y1 Y2, t2 = Z1 Z2,
-//   t3 = (X1 + Y1)(X2 + Y2) - t0 - t1, t4 = (Y1 + Z1)(Y2 + Z2) - t1 - t2,
-//   t5 = (X1 + Z1)(X2 + Z2) - t0 - t2, w = 3 t0,
-//   bt5 = 12 t5, z3a = t1 + 12 t2, t1m = t1 - 12 t2.
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(K6_BLOCK)
 g1_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
               uint32_t* __restrict__ out, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t* X1 = p + i * PT;
-  const uint32_t* Y1 = X1 + NL;
-  const uint32_t* Z1 = X1 + 2 * NL;
-  const uint32_t* X2 = q + i * PT;
-  const uint32_t* Y2 = X2 + NL;
-  const uint32_t* Z2 = X2 + 2 * NL;
-  uint32_t t0[NL], t1[NL], t2[NL], t3[NL], t4[NL], bt5[NL];
-
-  coord_product(t0, X1, X2);
-  coord_product(t1, Y1, Y2);
-  coord_product(t2, Z1, Z2);
-  presum_product(t3, X1, Y1, X2, Y2);
-  sub_mod<NL>(t3, t3, t0);
-  sub_mod<NL>(t3, t3, t1);
-  presum_product(t4, Y1, Z1, Y2, Z2);
-  sub_mod<NL>(t4, t4, t1);
-  sub_mod<NL>(t4, t4, t2);
-  presum_product(bt5, X1, Z1, X2, Z2);
-  sub_mod<NL>(bt5, bt5, t0);
-  sub_mod<NL>(bt5, bt5, t2);
-  mul12(bt5, bt5);
-
-  uint32_t w[NL], z3a[NL];
-  add_mod<NL>(w, t0, t0);
-  add_mod<NL>(w, w, t0);
-  mul12(t2, t2);
-  add_mod<NL>(z3a, t1, t2);
-  sub_mod<NL>(t1, t1, t2);         // t1m
-  rcb_round2(out + i * PT, t1, z3a, t3, t4, w, bt5);
+  __shared__ __align__(16) uint32_t sm[K6_SMEM];
+#pragma unroll
+  for (int ph = 0; ph < K6_PHASES; ++ph) {
+    g1_add_phase(ph, sm, p, q, out, n, blockIdx.x, threadIdx.x);
+    if (ph + 1 < K6_PHASES) __syncthreads();
+  }
 }
 
 // ------------------------------------------------------------- K7
@@ -410,7 +434,8 @@ extern "C" int g1_madd(const void* p, const void* q, void* out, int64_t n, void*
 
 extern "C" int g1_add(const void* p, const void* q, void* out, int64_t n, void* stream) {
   if (n > 0) {
-    g1_add_kernel<<<(unsigned)blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
+    g1_add_kernel<<<(unsigned)((n + K6_ROWS - 1) / K6_ROWS), K6_BLOCK, 0,
+                    (cudaStream_t)stream>>>(
         (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();

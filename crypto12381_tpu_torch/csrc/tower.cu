@@ -9,45 +9,46 @@
 // Bound on the card.  Per instance K2 reads 192 bytes and writes 96 for 3
 // Fp products, K3 96 and 96 for 2, K4 576 and 288 for 18, at 588 32-bit
 // multiply-adds per product: the integer multiply rate bounds all three.
-// At the pairing's row counts (K2 2,048 to 30,720 rows, K4 4,096 and
-// 6,144) one thread per instance is far from that bound: a launch is a
-// partial wave of a few warps per SM, each stalled on a dependent chain of
-// multiply-adds with carry, and K4's 18 products in one thread need 255
-// registers and spill.
+// At the pairing's row counts (K2 2,048 to 30,720 rows, K3 18,432, K4
+// 4,096 and 6,144) one thread per instance is far from that bound: a
+// launch is a partial wave of a few warps per SM, each stalled on a
+// dependent chain of multiply-adds with carry, and K4's 18 products in one
+// thread need 255 registers and spill.
 //
-// K2 and K4 therefore give each Fp product its own thread: 3 threads per
-// K2 instance (Karatsuba: a0 b0, a1 b1, (a0 + a1)(b0 + b1)), and 18 per
-// K4 instance (the 3 of each of its 6 Fp2 Karatsuba products).  A thread
-// holds two operands and the accumulator (K2 53 registers, K4 60, no
-// spills), so three 288-thread K4 blocks share an SM and hide each other's
-// latency, and the launch has 3x (K2) or 18x (K4) the threads.  A block
-// takes 32 (K2) or 16 (K4) consecutive instances and runs in phases with a
-// barrier between each two:
+// Each kernel therefore gives each Fp product its own thread: 3 threads
+// per K2 instance (Karatsuba: a0 b0, a1 b1, (a0 + a1)(b0 + b1)), 2 per K3
+// instance ((a0 + a1)(a0 - a1) and a0 (a1 + a1), each an output
+// coefficient as it stands) and 18 per K4 instance (the 3 of each of its 6
+// Fp2 Karatsuba products).  A thread holds two operands and the
+// accumulator (K2 53 registers, K4 60, no spills), so three 288-thread K4
+// blocks share an SM and hide each other's latency, and the launch has 3x
+// (K2), 2x (K3) or 18x (K4) the threads.  A block takes 32 (K2), 64 (K3)
+// or 16 (K4) consecutive instances and runs in phases with a barrier
+// between each two:
 //   stage    the block's span of each operand into shared memory, 16 bytes
 //            per thread, consecutive threads on consecutive bytes;
 //   product  each thread forms its operands from shared memory (pre-sums
 //            included), runs mont_mul (fp381.cuh: the CIOS product of K1)
 //            and writes the product back to shared memory;
-//   combine  the Karatsuba combines, one output Fp coefficient per thread:
-//            K2 re = t0 - t1, im = t2 - t0 - t1; K4 first forms its 6 Fp2
-//            products that way (12 coefficients), then the Fp6 combine
-//            (6 coefficients);
+//   combine  K2 and K4 only: the Karatsuba combines, one output Fp
+//            coefficient per thread: K2 re = t0 - t1, im = t2 - t0 - t1;
+//            K4 first forms its 6 Fp2 products that way (12 coefficients),
+//            then the Fp6 combine (6 coefficients);
 //   store    the outputs from shared memory, 16 bytes per thread.
-// Shared memory per block: K2 11,776 bytes, K4 23,552 (operands, then the
-// products; each combine writes over what is dead by then).  A shared row
-// is padded (Fp2 96 -> 112 bytes, Fp6 288 -> 304) so that the 16-byte
-// accesses of 8 consecutive threads fall in 32 distinct banks.  The last
-// block of a ragged launch masks its copies, products and combines; every
-// thread reaches every barrier.
+// Shared memory per block: K2 11,776 bytes, K3 14,336, K4 23,552
+// (operands, then the products; each combine writes over what is dead by
+// then).  A shared row is padded (Fp2 96 -> 112 bytes, Fp6 288 -> 304) so
+// that the 16-byte accesses of 8 consecutive threads fall in 32 distinct
+// banks.  The last block of a ragged launch masks its copies, products and
+// combines; every thread reaches every barrier.
 //
 // Bound proof of the product operands.  The pre-sum of two Fp2
 // coefficients of an Fp6 is reduced mod p (add_mod), and the third product
-// of an Fp2 Karatsuba takes the raw sum of two canonical values: every
-// operand is canonical or below 2p, which mont_mul takes.  The combines
-// are add_mod and sub_mod of canonical values, so every output is
-// canonical.
-//
-// K3 keeps one instance per thread.
+// of an Fp2 Karatsuba takes the raw sum of two canonical values; K3's
+// operands are a0 (canonical), a0 - a1 (sub_mod, canonical) and the raw
+// sums a0 + a1 and a1 + a1 of canonical values.  Every operand is
+// canonical or below 2p, which mont_mul takes.  The combines are add_mod
+// and sub_mod of canonical values, so every output is canonical.
 //
 // Layouts (int32 limbs, row-major, contiguous, 16-byte aligned): Fp2
 // (n, 2, 12), Fp6 (n, 3, 2, 12).  Operands are canonical; outputs are
@@ -127,15 +128,61 @@ fp2_mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
 }
 
 // ------------------------------------------------------------- K3
+//
+// a^2 for a = (a0, a1): re = (a0 + a1)(a0 - a1), im = a0 (a1 + a1).
 
-__global__ void __launch_bounds__(THREADS)
+#ifndef K3_INSTANCES
+#define K3_INSTANCES 64
+#endif
+constexpr int K3_ROWS = K3_INSTANCES;    // instances per block
+constexpr int K3_BLOCK = 2 * K3_ROWS;    // one thread per Fp product
+// shared layout (limbs): operands A; outputs O, padded Fp2 rows in a span
+// of their own.  Both threads of an instance read its whole operand row in
+// the product phase, so neither may write its product over that row then;
+// writing there after a barrier would hold the product in registers across
+// it, outside the phase functions.  The span costs 7 KB of shared memory.
+constexpr int K3_A = 0, K3_O = K3_ROWS * S2;
+constexpr int K3_SMEM = 2 * K3_ROWS * S2;
+constexpr int K3_PHASES = 3;
+
+// Phase `ph` of K3 for thread `tid` of block `blk`.
+__device__ __forceinline__ void fp2_sqr_phase(int ph, uint32_t* sm, const uint32_t* a,
+                                              uint32_t* out, int64_t n, int64_t blk, int tid) {
+  const int64_t row0 = blk * K3_ROWS;
+  const int rows = block_rows(n, blk, K3_ROWS);
+  if (ph == 0) {                            // stage
+    stage_in<F2, S2, K3_BLOCK>(sm + K3_A, a + row0 * F2, rows, tid);
+  } else if (ph == 1) {                     // coefficient k of instance i
+    const int k = tid / K3_ROWS, i = tid % K3_ROWS;
+    if (i < rows) {
+      const uint32_t* x = sm + K3_A + i * S2;
+      uint32_t a0[NL], y[NL];
+      ld_fp(a0, x);
+      ld_fp(y, x + NL);
+      if (k == 0) {                         // (a0 + a1)(a0 - a1)
+        uint32_t s[NL];
+        add_raw<NL>(s, a0, y);
+        sub_mod<NL>(y, a0, y);
+        mont_mul<NL>(y, s, y);
+      } else {                              // a0 (a1 + a1)
+        add_raw<NL>(y, y, y);
+        mont_mul<NL>(y, a0, y);
+      }
+      st_fp(sm + K3_O + i * S2 + k * NL, y);
+    }
+  } else {                                  // store
+    stage_out<F2, S2, K3_BLOCK>(out + row0 * F2, sm + K3_O, rows, tid);
+  }
+}
+
+__global__ void __launch_bounds__(K3_BLOCK)
 fp2_sqr_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  uint32_t x[F2], r[F2];
-  load<F2>(x, a + i * F2);
-  fp381::fp2_sqr(r, x);
-  store<F2>(out + i * F2, r);
+  __shared__ __align__(16) uint32_t sm[K3_SMEM];
+#pragma unroll
+  for (int ph = 0; ph < K3_PHASES; ++ph) {
+    fp2_sqr_phase(ph, sm, a, out, n, blockIdx.x, threadIdx.x);
+    if (ph + 1 < K3_PHASES) __syncthreads();
+  }
 }
 
 // ------------------------------------------------------------- K4
@@ -274,8 +321,8 @@ extern "C" int fp2_mul(const void* a, const void* b, void* out, int64_t n, void*
 
 extern "C" int fp2_sqr(const void* a, void* out, int64_t n, void* stream) {
   if (n > 0) {
-    fp2_sqr_kernel<<<(unsigned)blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)a, (uint32_t*)out, n);
+    fp2_sqr_kernel<<<(unsigned)((n + K3_ROWS - 1) / K3_ROWS), K3_BLOCK, 0,
+                     (cudaStream_t)stream>>>((const uint32_t*)a, (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();
 }

@@ -2,24 +2,24 @@
 
 The device functions and kernel bodies of crypto12381_tpu_torch/csrc/
 are plain C++ once the CUDA keywords are defined away, so a host C++
-compiler can build them into a small program. It runs each one-thread-
-per-instance kernel body (K1, K3, K6) once per row. K2, K4, K5 and K7 are
-block-cooperative: their threads share operands and products through
-shared memory, with barriers between phases. The program runs each of
-their blocks phase by phase, every thread of a phase before the next,
-with the block's shared memory a fresh array of junk; it runs every block
-a second time with the threads of each phase in reverse order, and fails
-if the outputs differ (threads that race within a phase) or if a write
-lands past the last row. The outputs must equal the plain PyTorch versions
-bit for bit: on canonical operands with the edge values 0, 1 and p-1; for
-K1 on pre-sums up to 2p-2; for K2 and K4 at row counts below, at and
-between multiples of a block's instances, with rows of all-(p-1)
-operands, whose pre-sums are the largest; and for the curve kernels K5-K7
-on curve points with the identity, P = Q and P = -Q among them, for K5
-and K7 also at row counts below, at and between multiples of a block,
-with those rows at both ends of the launch. The header's copies of p and
-n0' must equal params.py's. The launch code (the `<<<...>>>` wrappers)
-and the card itself are exercised only by chip_smoke.py.
+compiler can build them into a small program. It runs the one-thread-
+per-instance kernel body of K1 once per row. K2-K7 are block-cooperative:
+their threads share operands and products through shared memory, with
+barriers between phases. The program runs each of their blocks phase by
+phase, every thread of a phase before the next, with the block's shared
+memory a fresh array of junk; it runs every block a second time with the
+threads of each phase in reverse order, and fails if the outputs differ
+(threads that race within a phase) or if a write lands past the last row.
+The outputs must equal the plain PyTorch versions bit for bit: on
+canonical operands with the edge values 0, 1 and p-1; for K1 on pre-sums
+up to 2p-2; for K2-K4 at row counts below, at and between multiples of a
+block's instances, with rows of all-0, all-1 and all-(p-1) operands at
+both ends of the launch (all p-1 gives the largest pre-sums); and for the
+curve kernels K5-K7 on curve points with the identity, P = Q and P = -Q
+among them, also at row counts below, at and between multiples of a
+block, with those rows at both ends of the launch. The header's copies of
+p and n0' must equal params.py's. The launch code (the `<<<...>>>`
+wrappers) and the card itself are exercised only by chip_smoke.py.
 """
 
 import pathlib
@@ -112,13 +112,14 @@ int main(int argc, char** argv) {
   if (fread(a.data(), 4, n * 72, f) != (size_t)(n * 72)) return 1;
   if (fread(b.data(), 4, n * 72, f) != (size_t)(n * 72)) return 1;
   fclose(f);
-  std::vector<uint32_t> o1(n * 12), o2, o3(n * 24), o4;
-  std::vector<uint32_t> o5, o6(n * 36), o7;
+  std::vector<uint32_t> o1(n * 12), o2, o3, o4, o5, o6, o7;
   rows([&] { mont_mul_kernel<12>(a.data(), b.data(), o1.data(), n); }, n);
   if (!coop(o2, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
         fp2_mul_phase(ph, sm, a.data(), b.data(), out, n, blk, t); },
       n, K2_ROWS, K2_BLOCK, K2_PHASES, K2_SMEM, 24)) return 2;
-  rows([&] { fp2_sqr_kernel(a.data(), o3.data(), n); }, n);
+  if (!coop(o3, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
+        fp2_sqr_phase(ph, sm, a.data(), out, n, blk, t); },
+      n, K3_ROWS, K3_BLOCK, K3_PHASES, K3_SMEM, 24)) return 2;
   if (!coop(o4, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
         fp6_mul_phase(ph, sm, a.data(), b.data(), out, n, blk, t); },
       n, K4_ROWS, K4_BLOCK, K4_PHASES, K4_SMEM, 72)) return 2;
@@ -126,7 +127,9 @@ int main(int argc, char** argv) {
   if (!coop(o5, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
         g1_madd_phase(ph, sm, a.data(), b.data() + n * 36, out, n, blk, t); },
       n, K5_ROWS, K5_BLOCK, K5_PHASES, K5_SMEM, 36)) return 2;
-  rows([&] { g1_add_kernel(a.data(), b.data(), o6.data(), n); }, n);
+  if (!coop(o6, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
+        g1_add_phase(ph, sm, a.data(), b.data(), out, n, blk, t); },
+      n, K6_ROWS, K6_BLOCK, K6_PHASES, K6_SMEM, 36)) return 2;
   if (!coop(o7, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
         g1_dbl_phase(ph, sm, a.data(), out, n, blk, t); },
       n, K7_ROWS, K7_BLOCK, K7_PHASES, K7_SMEM, 36)) return 2;
@@ -261,59 +264,73 @@ def test_kernel_bodies_match_plain_versions(harness):
     assert FP.int_of(k7[0, 2].numpy()) == 0                   # 2 O = O
 
 
-@pytest.mark.parametrize("n", [1, 16, 33, 47, 96])
+@pytest.mark.parametrize("n", [1, 16, 33, 47, 64, 65, 96, 130])
 def test_cooperative_tower_kernels(harness, n):
-    """K2 (32 instances per block) and K4 (16) at row counts below, at,
-    between and on multiples of a block: random canonical operands, with
-    rows of all p-1 (the largest pre-sums: 2p-2 raw, p-2 reduced), all 0
-    and all 1 at the start of the launch, and rows of p-1 against 1 and
-    against p-1 at the end of each kernel's rows, so in its ragged last
-    block."""
+    """K2 (32 instances per block), K3 (64) and K4 (16) at row counts
+    below, at, between and on multiples of a block: random canonical
+    operands, with rows of all p-1 (the largest pre-sums: 2p-2 raw, p-2
+    reduced), all 0 and all 1 at the start of the launch, and rows of 0, 1
+    and p-1 against p-1, and of p-1 against 0, 1 and p-1, at the end of
+    each kernel's rows, so in its ragged last block."""
     rng = np.random.default_rng(100 + n)
     av = [int.from_bytes(rng.bytes(48), "little") % P for _ in range(6 * n)]
     bv = [int.from_bytes(rng.bytes(48), "little") % P for _ in range(6 * n)]
     tail = {n - 2: (P - 1, 1), n - 1: (P - 1, P - 1)}
     # K4 reads rows of 6 Fp values from av, bv; K2 rows of 2 from their first
-    # 2n values, whose first 9 rows are K4's first 3 (the edges at the start)
+    # 2n values, whose first 9 rows are K4's first 3 (the edges at the
+    # start), and K3 the same rows of av
     for width, edges in ((6, {0: (P - 1, P - 1), 1: (0, P - 1), 2: (1, P - 1), **tail}),
-                         (2, tail)):
+                         (2, {n - 5: (0, P - 1), n - 4: (1, P - 1), n - 3: (P - 1, 0),
+                              **tail})):
         for r, (x, y) in edges.items():
-            if r >= 0:
+            if 0 <= r < n:
                 av[width * r: width * r + width] = [x] * width
                 bv[width * r: width * r + width] = [y] * width
-    a, b, n, (_, k2, _, k4, _, _, _) = run(harness, av, bv)
-    assert torch.equal(k2, FK.fp2_mul_plain(a[: 2 * n].reshape(n, 2, 12),
-                                            b[: 2 * n].reshape(n, 2, 12)))
+    a, b, n, (_, k2, k3, k4, _, _, _) = run(harness, av, bv)
+    a2 = a[: 2 * n].reshape(n, 2, 12)
+    assert torch.equal(k2, FK.fp2_mul_plain(a2, b[: 2 * n].reshape(n, 2, 12)))
+    assert torch.equal(k3, FK.fp2_sqr_plain(a2))
     assert torch.equal(k4, FK.fp6_mul_plain(a.reshape(n, 3, 2, 12), b.reshape(n, 3, 2, 12)))
 
 
 @pytest.mark.parametrize("n", [1, 15, 16, 33, 47, 96])
 def test_cooperative_curve_kernels(harness, n):
-    """K5 (16 instances per block) and K7 (32) at row counts below, at,
-    between and on multiples of a block: P + Q and 2P for projective P
-    (random Z) and affine Q, with the rows O + B, A + A and (-A) + A at the
+    """K5, K6 (16 instances per block) and K7 (32) at row counts below,
+    at, between and on multiples of a block: P + Q and 2P for projective P
+    (random Z), affine Q (K5) and projective Q (K6, another random Z), with
+    the rows O + B, A + A, (-A) + A and O + B (K5) or O + O (K6) at the
     start of the launch and again at its end, so in its ragged last block,
     and random curve points between. Each output equals the plain version
     bit for bit and, made affine, the host's P + Q and 2P."""
     rng = np.random.default_rng(200 + n)
     r_mod = (1 << 384) % P
     k_a, k_b = (int(k) for k in rng.integers(2, 1 << 62, size=2))
-    edges = [(0, k_b), (k_a, k_a), (-k_a, k_a)]         # O + B, A + A, (-A) + A
-    mid = [(int(k), int(j)) for k, j in rng.integers(2, 1 << 62, size=(max(n - 6, 0), 2))]
-    scalars = (edges + mid + edges)[:n] if n >= 6 else edges[:n]
-    pv, qv = [], []
-    for sp, sq in scalars:                # P = [sp]G with a random Z, Q = [sq]G
-        pt, q = C.g1_mul(C.G1_GEN, sp), C.g1_mul(C.G1_GEN, sq)
+    # scalars of (P, K5's Q, K6's Q): O + B, A + A, (-A) + A, O + B or O + O
+    edges = [(0, k_b, k_b), (k_a, k_a, k_a), (-k_a, k_a, k_a), (0, k_b, 0)]
+    mid = [tuple(int(k) for k in row)
+           for row in rng.integers(2, 1 << 62, size=(max(n - 8, 0), 3))]
+    scalars = (edges + mid + edges)[:n] if n >= 8 else (edges + edges)[:n]
+
+    def proj(k):                          # [k]G with a random Z
+        pt = C.g1_mul(C.G1_GEN, k)
         z = int.from_bytes(rng.bytes(48), "little") % (P - 1) + 1
-        pv += [0, r_mod, 0] if pt is None else [pt[0] * z % P * r_mod % P,
-                                                pt[1] * z % P * r_mod % P, z * r_mod % P]
-        qv += [q[0] * r_mod % P, q[1] * r_mod % P]
-    a, b, n, (_, _, _, _, k5, _, k7) = run(harness, pv + [0] * (3 * n),
-                                           [0] * (3 * n) + qv + [0] * n)
-    p, qa = a[: 3 * n].reshape(n, 3, 12), b[3 * n: 5 * n].reshape(n, 2, 12)
+        return [0, r_mod, 0] if pt is None else [pt[0] * z % P * r_mod % P,
+                                                 pt[1] * z % P * r_mod % P, z * r_mod % P]
+
+    pv, qv, av = [], [], []
+    for sp, s5, s6 in scalars:
+        q = C.g1_mul(C.G1_GEN, s5)
+        pv += proj(sp)
+        qv += proj(s6)
+        av += [q[0] * r_mod % P, q[1] * r_mod % P]
+    a, b, n, (_, _, _, _, k5, k6, k7) = run(harness, pv + [0] * (3 * n), qv + av + [0] * n)
+    p, q = a[: 3 * n].reshape(n, 3, 12), b[: 3 * n].reshape(n, 3, 12)
+    qa = b[3 * n: 5 * n].reshape(n, 2, 12)
     assert torch.equal(k5, FK.g1_madd_plain(p, qa))
+    assert torch.equal(k6, FK.g1_add_plain(p, q))
     assert torch.equal(k7, FK.g1_dbl_plain(p))
-    want5 = [C.g1_mul(C.G1_GEN, sp + sq) for sp, sq in scalars]
-    want7 = [C.g1_mul(C.G1_GEN, 2 * sp) for sp, _ in scalars]
-    assert list(G1C.to_affine_ints(tuple(k5.unbind(-2)))) == want5
-    assert list(G1C.to_affine_ints(tuple(k7.unbind(-2)))) == want7
+    for got, want in ((k5, [sp + s5 for sp, s5, _ in scalars]),
+                      (k6, [sp + s6 for sp, _, s6 in scalars]),
+                      (k7, [2 * sp for sp, _, _ in scalars])):
+        assert list(G1C.to_affine_ints(tuple(got.unbind(-2)))) == [
+            C.g1_mul(C.G1_GEN, k) for k in want]
