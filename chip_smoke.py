@@ -64,8 +64,6 @@ B = 2048
 DISTINCT = 32
 ARGS = argparse.ArgumentParser(description="Drive the port's kernels and paths on one card.")
 ARGS.add_argument("--trace", action="store_true", help="one torch.profiler call of each path")
-ARGS.add_argument("--nvcc-define", action="append", default=[], metavar="NAME=VALUE",
-                  help="build the kernels with -DNAME=VALUE")
 G1_B = 8192                    # GLV batch, and the MSM's distinct points
 MSM_N = 1 << 16
 MSM_LANES, MSM_WINDOWS = 64, 33     # G1Vec.msm's defaults at c = 8
@@ -635,14 +633,13 @@ def main() -> None:
     smi = _smi_line()
     print(f"device: {kind} count={count} nvidia-smi: {smi}", flush=True)
 
-    _build.NVCC_FLAGS += tuple(f"-D{d}" for d in args.nvcc_define)
     t0 = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t0
     regs = {}
     for log in _build.BUILD_LOG.values():
         regs.update(_ptxas_report(log))
-    print(f"build: {build_s:.1f}s defines={args.nvcc_define} ptxas={regs}", flush=True)
+    print(f"build: {build_s:.1f}s ptxas={regs}", flush=True)
 
     kernels = phase_kernels(dev)
     by_path = {"pairing": phase_pairing(dev, args.trace)}

@@ -23,8 +23,8 @@
 // three.  At the row counts of their paths one point per thread is far
 // from that bound: the MSM's bucket step launches K5 on 2,112 rows (17
 // blocks of 128 threads on 132 SMs), its Horner loop K7 and K6 on one row,
-// and a thread that owns a point runs 11, 12 or 8 products as one
-// dependent chain (K6 then needs 166 registers).
+// and a thread that owned a point would run 11, 12 or 8 products as one
+// dependent chain (K6 took 166 registers that way).
 //
 // Each kernel therefore gives each Fp product of a round its own thread,
 // as K2 and K4 do (tower.cu): 6 threads per K5 or K6 instance, 4 per K7
@@ -249,10 +249,11 @@ g1_madd_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
 //             w = 3 t0, z3a = t1 + 12 t2, t1m = t1 - 12 t2;
 //   round 2   as K5's.
 
-#ifndef K6_INSTANCES
-#define K6_INSTANCES 16
-#endif
-constexpr int K6_ROWS = K6_INSTANCES;        // instances per block
+// 16 instances per block.  Measured on the card and not taken (PERF.md):
+// 32 instances per block, 15-19% slower at 1 and 33 rows (80 of the MSM's
+// 94 launches), 6-8% faster at 8,192 and 136,224: the loss of one GLV call
+// and one MSM call, summed, within 1% of this one's.
+constexpr int K6_ROWS = 16;                  // instances per block
 constexpr int K6_BLOCK = 6 * K6_ROWS;        // one thread per product of a round
 // shared layout (limbs): P rows, Q rows, the round-1 products T[k][i] and
 // the round-2 operands U[j][i]; then rcb_round2_phase's products over P, Q

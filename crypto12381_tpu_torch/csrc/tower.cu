@@ -20,11 +20,11 @@
 // instance ((a0 + a1)(a0 - a1) and a0 (a1 + a1), each an output
 // coefficient as it stands) and 18 per K4 instance (the 3 of each of its 6
 // Fp2 Karatsuba products).  A thread holds two operands and the
-// accumulator (K2 53 registers, K4 60, no spills), so three 288-thread K4
-// blocks share an SM and hide each other's latency, and the launch has 3x
-// (K2), 2x (K3) or 18x (K4) the threads.  A block takes 32 (K2), 64 (K3)
-// or 16 (K4) consecutive instances and runs in phases with a barrier
-// between each two:
+// accumulator (K2 53 registers, K3 56, K4 60, no spills), so three
+// 288-thread K4 blocks share an SM and hide each other's latency, and the
+// launch has 3x (K2), 2x (K3) or 18x (K4) the threads.  A block takes 32
+// (K2), 64 (K3) or 16 (K4) consecutive instances and runs in phases with a
+// barrier between each two:
 //   stage    the block's span of each operand into shared memory, 16 bytes
 //            per thread, consecutive threads on consecutive bytes;
 //   product  each thread forms its operands from shared memory (pre-sums
@@ -131,10 +131,10 @@ fp2_mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
 //
 // a^2 for a = (a0, a1): re = (a0 + a1)(a0 - a1), im = a0 (a1 + a1).
 
-#ifndef K3_INSTANCES
-#define K3_INSTANCES 64
-#endif
-constexpr int K3_ROWS = K3_INSTANCES;    // instances per block
+// 64 instances per block make the pairing's 18,432 rows 288 blocks of 128
+// threads.  Measured on the card and not taken (PERF.md): 32 instances per
+// block, within 3%.
+constexpr int K3_ROWS = 64;              // instances per block
 constexpr int K3_BLOCK = 2 * K3_ROWS;    // one thread per Fp product
 // shared layout (limbs): operands A; outputs O, padded Fp2 rows in a span
 // of their own.  Both threads of an instance read its whole operand row in
