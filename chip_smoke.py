@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels and drive its batched pairing,
-G1 scalar multiplication and G1 MSM on one CUDA card.
+G1 scalar multiplication, G1 MSM, G1 point parsing and scalar arithmetic
+on one CUDA card.
 
     python3 chip_smoke.py            # the smoke run
     python3 chip_smoke.py --trace    # and one profiled call of each path
@@ -8,17 +9,20 @@ G1 scalar multiplication and G1 MSM on one CUDA card.
 Phases, one line each; any failure raises and ends the run non-zero:
   device   card name and count, nvidia-smi's name and power limit
   build    nvcc seconds; registers, spills and shared memory per kernel
-  kernels  K1-K7 at the row counts their paths give them (K1, K3: the
-           pairing at B = 2048; K2 at each row count the pairing launches
-           it at, B to 15B, K4 at 2B and 3B; K5: one MSM bucket step, 64
-           lanes x 33 windows; K6, K7: one GLV ladder step at B = 8192;
-           K2-K7 each also at a row count that leaves its last block
-           ragged), each held bit for bit against its plain PyTorch
-           version on the card (K2-K4 with edge rows at both ends, K5-K7
-           with the identity, P = Q and P = -Q in their first and last
-           rows, checked against host points); device time of
-           both (CUDA graph replays timed with CUDA events) and the
-           kernel's time when issued eagerly from Python
+  kernels  K1-K7 at the row counts their paths give them (K1: the
+           pairing's products at 2B, its power chain x^(p-2) at 512, 2048
+           and 8192 rows, the Fr product and the Fr chain x^(r-2) at 8192;
+           K3: the pairing at B = 2048; K2 at each row count the pairing
+           launches it at, B to 15B, K4 at 2B and 3B; K5: one MSM bucket
+           step, 64 lanes x 33 windows; K6, K7: one GLV ladder step at
+           B = 8192; the chains and K2-K7 each also at a row count that
+           leaves its last block ragged), each held bit for bit against its
+           plain PyTorch version on the card (the chains, the Fr product and
+           K2-K4 with edge rows at both ends, K5-K7 with the identity,
+           P = Q and P = -Q in their first and last rows, checked against
+           host points); device time of both (CUDA graph replays timed
+           with CUDA events) and the kernel's time when issued eagerly from
+           Python.  Each chain also runs with LANES lanes per row.
   pairing  `pair_batch` at B = 2048 (32 distinct pairs, tiled): GT bytes
            against tests/vectors/reference.json, bilinearity, infinity
            masks, 4 rows recomputed on the CPU, pairings/s, launches of
@@ -27,19 +31,24 @@ Phases, one line each; any failure raises and ends the run non-zero:
   g1       `G1Vec.generator((8192,)) ** ZpVec`: 8 rows against the host
            ladder, their bytes against the host codec, 4 rows recomputed on
            the CPU, scalar multiplications/s, launches per call
+  parse    `G1Vec.parse` of those 8192 points' bytes (one square-root
+           chain) gives the points back; launches per call
   msm      `G1Vec.msm` at n = 2^16 (the g1 phase's 8192 points, affine,
            tiled; an identity row with a nonzero scalar, some zero scalars)
            against the host integer oracle [sum a_i s_i mod r]G; points/s,
            launches and torch ops per call, peak device memory
-
+  zp       `ZpVec` + - * neg inverse at 8192 rows (0, 1 and r-1 among
+           them): every row against host integers mod r, 4 rows against
+           the CPU plain path; launches per call and per operation
   rows     every kernel at each row count the paths launched it at that the
            kernels phase did not time, on random canonical operands: held
            bit for bit against its plain version, device time
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; every kernel of the path must have launched.  With --trace,
-each path's line also gives one call under torch.profiler: the summed
-device time of its kernels against the host clock, and its top kernels.
+each of the pairing, g1 and msm lines also gives one call under
+torch.profiler: the summed device time of its kernels against the host
+clock, and its top kernels.
 
 Then a JSON line of per-kernel numbers (with each kernel's device ms at
 each row count it was timed at, and per path the launch-weighted device ms
@@ -76,6 +85,8 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: 32-bit multiply-adds of one 12-limb CIOS product: 288 wide products
 #: counted twice (low and high halves) plus 12 low products for m
 MULADDS_PER_PRODUCT = 2 * (144 + 144) + 12
+#: the same for one 8-limb Fr product
+FR_MULADDS_PER_PRODUCT = 2 * (64 + 64) + 8
 #: K2 and K4's row counts per pairing row: every count the pairing launches
 #: them at; the first is the headline
 K2_ROWS_PER_PAIR = (15, 1, 2, 3, 4, 5, 6)
@@ -117,10 +128,12 @@ def _ptxas_report(log: str) -> dict:
             out.setdefault(cur, {})["smem"] = int(m.group(1))
     named = {}
     for mangled, v in out.items():
-        for k in ("mont_mul_kernel", "fp2_mul_kernel", "fp2_sqr_kernel", "fp6_mul_kernel",
+        for k in ("mont_mul_kernel", "pow_fixed_kernel", "pow_fixed_lanes_kernel",
+                  "fp2_mul_kernel", "fp2_sqr_kernel", "fp6_mul_kernel",
                   "g1_madd_kernel", "g1_add_kernel", "g1_dbl_kernel"):
             if k in mangled:
-                named[k] = v
+                limbs = re.search(r"ILi(\d+)E", mangled)
+                named[f"{k}<{limbs.group(1)}>" if limbs else k] = v
     return named
 
 
@@ -133,15 +146,45 @@ def _rand_fp(rng, n, k):
     return w.astype(np.uint32).view(np.int32)
 
 
+def _rand_fr(rng, n):
+    """(n, 1, 8) canonical Fr limbs: uniform words, top word below r's."""
+    from crypto12381_tpu_torch.params import FR_P_LIMBS
+
+    w = rng.integers(0, 1 << 32, size=(n, 1, 8), dtype=np.uint64)
+    w[..., 7] %= FR_P_LIMBS[7]
+    return w.astype(np.uint32).view(np.int32)
+
+
+def _chain_products(e: int) -> int:
+    """Products of the square-and-multiply chain of x^e (e >= 1)."""
+    return e.bit_length() - 1 + bin(e).count("1") - 1
+
+
+def _pow_lanes(F, e: int, tpi: int):
+    """x -> x^e by the chain kernel with tpi lanes per row (csrc/fp.cu
+    pow_fixed_lanes_kernel), timed beside the one-row-per-thread kernel."""
+    import torch
+    from crypto12381_tpu_torch import _build
+
+    def run(x):
+        out = torch.empty_like(x)
+        _build.launch("fp", f"{F.name}_pow_fixed_lanes{tpi}", (x, out), x.shape[0], exponent=e)
+        return out
+
+    return run
+
+
 def _edges(x, vals, last=False):
     """Put the edge values into the first rows (every component), and with
-    last=True into the last rows too (row -1 the first value)."""
+    last=True into the last rows too (row -1 the first value); x holds Fp
+    (12) or Fr (8) limbs."""
     from crypto12381_tpu_torch.fields import fp as FP
 
+    F = FP.FP_CTX if x.shape[-1] == FP.FP_CTX.limbs else FP.FR_CTX
     for r, v in enumerate(vals):
-        x[r, :, :] = FP.limbs_of(v)
+        x[r, :, :] = F.limbs_of(v)
         if last:
-            x[-1 - r, :, :] = FP.limbs_of(v)
+            x[-1 - r, :, :] = F.limbs_of(v)
     return x
 
 
@@ -224,6 +267,7 @@ def _device_ms(fn, reps: int = 20) -> float:
 
 def phase_kernels(dev):
     import torch
+    from crypto12381_tpu_torch import _build
     from crypto12381_tpu_torch.curves import g1 as G1C
     from crypto12381_tpu_torch.fields import fp as FP
     from crypto12381_tpu_torch.fields import fused as FK
@@ -242,9 +286,40 @@ def phase_kernels(dev):
     top = torch.from_numpy(FP.limbs_of(2 * P - 2)).to(dev)
     a[q] = b[q] = a[q + 1] = top                          # (2p-2)^2, (2p-2)*0
     b[q + 1] = 0
-    specs.append(("K1 mont_mul", "fp_mont_mul", "crypto12381_tpu_torch/csrc/fp.cu",
-                  "crypto12381_tpu/fields/fp32.py:354", FP.mont_mul, FP.mont_mul_plain,
-                  {n: (a, b)}, n, 1, None))
+    k1 = ("crypto12381_tpu_torch/csrc/fp.cu", "crypto12381_tpu/fields/fp32.py:354")
+    specs.append(("K1 mont_mul (Fp)", "fp_mont_mul", *k1, FP.mont_mul, FP.mont_mul_plain,
+                  {n: (a, b)}, n, MULADDS_PER_PRODUCT, None))
+    # K1's power chain, one launch per chain: the Fermat inversion x^(p-2) at
+    # the row counts of the MSM (512), the pairing (2,048) and G1Vec.parse
+    # (8,192, where the chain is x^((p+1)/4), of the same length), and at a
+    # ragged count; the Fr product and the Fr chain x^(r-2) at the zp phase's
+    # 8,192 rows and a ragged count.  Edge rows 0, 1 and m-1 at both ends.
+    # Each chain kernel is timed one row per thread and with LANES lanes per
+    # row.
+    fr = FP.FR_CTX
+    for F, e, counts, fn_c in ((FP.FP_CTX, P - 2, (B // 4, B, G1_B, B + RAGGED),
+                                "fp_pow_fixed"),
+                               (fr, fr.modulus - 2, (G1_B, G1_B + RAGGED), "fr_pow_fixed")):
+        m, tag = F.modulus, f"({F.name.capitalize()})"
+        rand = (lambda r: _rand_fp(rng, r, 1)) if F is FP.FP_CTX else (lambda r: _rand_fr(rng, r))
+        ins = {r: (torch.from_numpy(_edges(rand(r), [0, 1, m - 1], last=True)[:, 0]).to(dev),)
+               for r in counts}
+        if F is fr:
+            b_fr = {r: torch.from_numpy(_edges(_rand_fr(rng, r), [m - 1, 1, 0], last=True)[:, 0])
+                    .to(dev) for r in counts}
+            specs.append((f"K1 mont_mul {tag}", "fr_mont_mul", *k1, fr.mont_mul, fr.mont_mul_plain,
+                          {r: (ins[r][0], b_fr[r]) for r in counts}, counts[0],
+                          FR_MULADDS_PER_PRODUCT, None))
+        per = MULADDS_PER_PRODUCT if F is FP.FP_CTX else FR_MULADDS_PER_PRODUCT
+        plain = (lambda F, e: lambda x: F.pow_fixed_plain(x, e))(F, e)
+        headline = counts[1] if F is FP.FP_CTX else counts[0]
+        specs.append((f"K1 pow_fixed {tag}", fn_c, *k1,
+                      (lambda F, e: lambda x: F.pow_fixed(x, e))(F, e), plain, ins, headline,
+                      _chain_products(e) * per, None))
+        for tpi in (2, 4):
+            specs.append((f"K1 pow_fixed lanes{tpi} {tag}", f"{fn_c}_lanes{tpi}", *k1,
+                          _pow_lanes(F, e, tpi), plain, ins, headline, _chain_products(e) * per,
+                          None))
     # K2: 15 rows per pairing row in the sparse multiply, B to 6B in the
     # line coefficients and G2 steps; K3: 9 (cyclotomic square); K4: 3
     # (Fp12 product) and 2 (Fp12 square), each also at a ragged count.  Each
@@ -266,7 +341,7 @@ def phase_kernels(dev):
                 for i in range(n_in))
         specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/tower.cu",
                       f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, counts[0],
-                      prod, None))
+                      prod * MULADDS_PER_PRODUCT, None))
     # K5: one MSM bucket step (lanes x windows rows); K6, K7: one GLV ladder
     # step of the g1 phase's batch; each also at a ragged row count (blocks
     # of 16, 16 and 32 instances), with the edge rows in the last block
@@ -280,9 +355,9 @@ def phase_kernels(dev):
             ins[r], edge_want[r] = _curve_inputs(rng, name.split()[1], r, dev)
         specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/g1.cu",
                       f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, rows,
-                      prod, edge_want))
+                      prod * MULADDS_PER_PRODUCT, edge_want))
     results = []
-    for name, fn_c, src, repl, kern, plain, ins_by_rows, rows, prod, edge_want in specs:
+    for name, fn_c, src, repl, kern, plain, ins_by_rows, rows, ops_per_row, edge_want in specs:
         ms_by_rows, outs, err = {}, {}, 0.0
         for r, ins in sorted(ins_by_rows.items()):
             got = outs[r] = kern(*ins)
@@ -303,9 +378,10 @@ def phase_kernels(dev):
             ms_by_rows[r] = _device_ms(lambda: kern(*ins))
         ins, got = ins_by_rows[rows], outs[rows]
         eager_ms = _eager_ms(lambda: kern(*ins))
-        plain_ms = _device_ms(lambda: plain(*ins))
+        # a plain chain is hundreds of plain products: one per graph
+        plain_ms = _device_ms(lambda: plain(*ins),
+                              reps=1 if fn_c in _build.EXPONENT_FNS else 20)
         bytes_per_row = 4 * (sum(t.numel() for t in ins) + got.numel()) // rows
-        ops_per_row = prod * MULADDS_PER_PRODUCT
         bound_ms, bound_by = _bound(bytes_per_row, ops_per_row, rows)
         results.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
@@ -347,9 +423,9 @@ def phase_rows(dev, kernels) -> None:
         rows = sorted({r for per in ROWS_BY_PATH.values() for r in per.get(k["c_function"], {})}
                       - set(k["ms_by_rows"]))
         for r in rows:
-            ins = tuple(torch.from_numpy(_rand_fp(rng, r, int(np.prod(shape[:-1])))
-                                         .reshape((r,) + shape)).to(dev)
-                        for shape in k["row_shapes"])
+            ins = tuple(torch.from_numpy(
+                _rand_fr(rng, r) if shape == (8,) else _rand_fp(rng, r, int(np.prod(shape[:-1])))
+            ).reshape((r,) + shape).to(dev) for shape in k["row_shapes"])
             got, want = kern(*ins), plain(*ins)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
@@ -469,7 +545,8 @@ def phase_pairing(dev, trace: bool):
     f = T.pair_batch(*args)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = _path_launches("pairing", ("fp_mont_mul", "fp2_mul", "fp2_sqr", "fp6_mul"))
+    launches = _path_launches("pairing", ("fp_mont_mul", "fp_pow_fixed", "fp2_mul", "fp2_sqr",
+                                          "fp6_mul"))
 
     fc = f.cpu()
     if tuple(fc.shape) != (B, 2, 3, 2, 12):
@@ -556,10 +633,25 @@ def phase_g1(dev, trace: bool):
     rate = G1_B * len(times) / sum(times)
     ops = _op_tally(lambda: gen ** e)
     traced = _trace(lambda: gen ** e) if trace else ""
+
+    # G1Vec.parse of the batch's own bytes, counted as a path of its own:
+    # one square-root chain for the 8,192 points (none is the identity)
+    blobs = pts.serialize()
+    T.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = T.G1Vec.parse(blobs)
+    torch.cuda.synchronize()
+    parse_s = time.perf_counter() - t0
+    parse_launches = _path_launches("parse", ("fp_mont_mul", "fp_pow_fixed"))
+    if not bool((back == pts).all()):
+        raise SystemExit("g1: G1Vec.parse does not give back the serialized points")
     print(f"g1: B={G1_B} checks={checks} first_s={first_s:.3f} "
           f"call_s={[round(t, 4) for t in times]} scalar_muls_per_s={rate:.1f} "
           f"launches_per_call={launches} {ops} {traced}", flush=True)
-    return pts, a, launches
+    print(f"parse: B={G1_B} round_trip=True parse_s={parse_s:.4f} "
+          f"launches_per_call={parse_launches} launch_rows={ROWS_BY_PATH['parse']}", flush=True)
+    return pts, a, launches, parse_launches
 
 
 def phase_msm(dev, pts, a, trace: bool):
@@ -595,7 +687,8 @@ def phase_msm(dev, pts, a, trace: bool):
     res = vec.msm(e)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = _path_launches("msm", ("fp_mont_mul", "g1_madd", "g1_add", "g1_dbl"))
+    launches = _path_launches("msm", ("fp_mont_mul", "fp_pow_fixed", "g1_madd", "g1_add",
+                                      "g1_dbl"))
     got = G1C.to_affine_ints(res.p)
     if got != expect:
         raise SystemExit(f"msm: result {got} != host oracle {expect}")
@@ -615,6 +708,53 @@ def phase_msm(dev, pts, a, trace: bool):
           f"call_s={[round(t, 4) for t in times]} points_per_s={rate:.1f} "
           f"launches_per_call={launches} {ops} max_memory_allocated={peak} {traced}",
           flush=True)
+    return launches
+
+
+def phase_zp(dev):
+    """ZpVec + - * neg inverse at G1_B rows (K1's Fr instance): every row
+    against host integers mod r, 4 rows against the CPU plain path."""
+    import torch
+
+    import crypto12381_tpu_torch as T
+    from crypto12381_tpu_torch.params import R
+
+    rng = np.random.default_rng(SEED + 5)
+    a = [0, 1, R - 1] + [int.from_bytes(rng.bytes(32), "big") % R for _ in range(G1_B - 6)]
+    a += [R - 1, 1, 0]
+    b = [int.from_bytes(rng.bytes(32), "big") % R for _ in range(G1_B - 3)] + [R - 1, 1, 0]
+    A, Bv = T.ZpVec.from_ints(a), T.ZpVec.from_ints(b)
+    ops = {"add": lambda x, y: x + y, "sub": lambda x, y: x - y, "mul": lambda x, y: x * y,
+           "neg": lambda x, y: -x, "inverse": lambda x, y: x.inverse()}
+    host = {"add": lambda x, y: (x + y) % R, "sub": lambda x, y: (x - y) % R,
+            "mul": lambda x, y: x * y % R, "neg": lambda x, y: -x % R,
+            "inverse": lambda x, y: pow(x, R - 2, R)}
+
+    T.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = {k: f(A, Bv) for k, f in ops.items()}
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = _path_launches("zp", ("fr_mont_mul", "fr_pow_fixed"))
+
+    A4, B4 = T.ZpVec.from_ints(a[:4], device="cpu"), T.ZpVec.from_ints(b[:4], device="cpu")
+    checks = {}
+    for k, out in outs.items():
+        got = out.to_ints()
+        checks[k] = (tuple(out.std.shape) == (G1_B, 18)
+                     and all(int(g) == host[k](x, y) for g, x, y in zip(got, a, b))
+                     and torch.equal(ops[k](A4, B4).std, out.std[:4].cpu()))
+    if not all(checks.values()):
+        raise SystemExit(f"zp: checks failed: {checks}")
+    per_op = {}
+    for k, f in ops.items():
+        T.reset_launches()
+        f(A, Bv)
+        per_op[k] = {fn: n for fn, n in T.LAUNCHES.items() if n}
+    torch.cuda.synchronize()
+    print(f"zp: B={G1_B} checks={checks} first_s={first_s:.4f} launches_per_call={launches} "
+          f"launches_per_op={per_op}", flush=True)
     return launches
 
 
@@ -643,8 +783,9 @@ def main() -> None:
 
     kernels = phase_kernels(dev)
     by_path = {"pairing": phase_pairing(dev, args.trace)}
-    pts, a, by_path["g1"] = phase_g1(dev, args.trace)
+    pts, a, by_path["g1"], by_path["parse"] = phase_g1(dev, args.trace)
     by_path["msm"] = phase_msm(dev, pts, a, args.trace)
+    by_path["zp"] = phase_zp(dev)
     phase_rows(dev, kernels)
     for k in kernels:
         fn = k.pop("c_function")

@@ -6,8 +6,10 @@ library with a plain C interface, in a directory under the checkout's
 All sources compile in parallel, one `nvcc` each.  Nothing here runs when
 the module is imported.
 
-Every C entry point takes its tensors' device pointers, the row count and a
-CUDA stream, launches on that stream, and returns `cudaGetLastError()`;
+Every C entry point takes its tensors' device pointers (a power chain then
+also a public exponent: a host pointer to its words and its bit length),
+the row count and a CUDA stream, launches on that stream, and returns
+`cudaGetLastError()`;
 `launch` raises if that is not 0 and otherwise adds one to the kernel's
 launch count in `LAUNCHES`, and to its count at that row count in
 `LAUNCH_ROWS`.
@@ -31,11 +33,18 @@ _BUILD_ROOT = _PKG.parent / "build" / "crypto12381_tpu_torch"
 
 #: library name -> (source file, {C function: number of tensor pointers})
 _LIBS_SPEC = {
-    "fp": ("fp.cu", {"fp_mont_mul": 3}),
+    "fp": ("fp.cu", {"fp_mont_mul": 3, "fr_mont_mul": 3, "fp_pow_fixed": 2, "fr_pow_fixed": 2,
+                     "fp_pow_fixed_lanes2": 2, "fr_pow_fixed_lanes2": 2,
+                     "fp_pow_fixed_lanes4": 2, "fr_pow_fixed_lanes4": 2}),
     "tower": ("tower.cu", {"fp2_mul": 3, "fp2_sqr": 2, "fp6_mul": 3}),
     "curve": ("g1.cu", {"g1_madd": 3, "g1_add": 3, "g1_dbl": 2}),
 }
 _HEADERS = ("fp381.cuh",)
+#: C functions that take a public exponent after their tensors
+EXPONENT_FNS = frozenset({"fp_pow_fixed", "fr_pow_fixed", "fp_pow_fixed_lanes2",
+                          "fr_pow_fixed_lanes2", "fp_pow_fixed_lanes4", "fr_pow_fixed_lanes4"})
+#: 32-bit words of that exponent (csrc/fp.cu EXP_WORDS)
+EXP_WORDS = 12
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -114,27 +123,46 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()[name]))
         for fn, n_ptr in _LIBS_SPEC[name][1].items():
             f = getattr(lib, fn)
-            f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int64, ctypes.c_void_p]
+            exp = [ctypes.c_void_p, ctypes.c_int] if fn in EXPONENT_FNS else []
+            f.argtypes = [ctypes.c_void_p] * n_ptr + exp + [ctypes.c_int64, ctypes.c_void_p]
             f.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
 
 
-def launch(lib_name: str, fn: str, tensors, n: int) -> None:
+def _exponent_args(fn: str, exponent) -> list:
+    """The exponent arguments of `fn`: [] for a kernel that takes none, else
+    a host array of e's EXP_WORDS words and e's bit length (1 <= e < 2^384)."""
+    if (exponent is not None) != (fn in EXPONENT_FNS):
+        raise ValueError(f"{fn}: an exponent is {'' if fn in EXPONENT_FNS else 'not '}expected")
+    if exponent is None:
+        return []
+    e = int(exponent)
+    if not 0 < e < 1 << (32 * EXP_WORDS):
+        raise ValueError(f"{fn}: exponent out of range [1, 2^{32 * EXP_WORDS})")
+    words = (ctypes.c_uint32 * EXP_WORDS)(*[(e >> (32 * k)) & 0xFFFFFFFF
+                                             for k in range(EXP_WORDS)])
+    return [ctypes.cast(words, ctypes.c_void_p), e.bit_length()]
+
+
+def launch(lib_name: str, fn: str, tensors, n: int, exponent: int | None = None) -> None:
     """Launch `fn` over n rows on the current stream of the tensors' card.
     tensors: contiguous, 16-byte aligned int32 CUDA tensors on one device
     (inputs, then the output), n rows each; rows may differ in width between
-    tensors (a mixed add reads a projective and an affine point)."""
+    tensors (a mixed add reads a projective and an affine point).
+    exponent: the public exponent of a power chain (EXPONENT_FNS), shared
+    by every row; the kernel gets it by value at the launch."""
     dev = tensors[0].device
     for t in tensors:
         if (t.device != dev or dev.type != "cuda" or t.dtype != torch.int32
                 or not t.is_contiguous() or t.numel() % max(n, 1) or t.data_ptr() % 16):
             raise ValueError(f"{fn}: needs contiguous, 16-byte aligned int32 tensors of "
                              f"{n} rows on one CUDA device")
+    exp = _exponent_args(fn, exponent)
     f = getattr(library(lib_name), fn)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = f(*[t.data_ptr() for t in tensors], n, stream)
+        rc = f(*[t.data_ptr() for t in tensors], *exp, n, stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
     LAUNCHES[fn] += 1

@@ -7,9 +7,12 @@ the batched curve code:
   * ``G1Vec ** ZpVec``    -> the GLV ladder over the whole batch (K6, K7)
   * ``G1Vec.msm(ZpVec)``  -> the scan Pippenger (K5, K6, K7), n < 2^17
   * ``G1Vec * G1Vec``     -> the group operation (K6)
+  * ``ZpVec + - * neg``, ``ZpVec.inverse()`` -> arithmetic mod r on the Fr
+    instance of K1 (``*``: two Fr products; inverse: one power chain)
 
 Scalars keep the JAX package's layout: (..., 18) int32 standard-domain
-limbs of 16 bits.  Host constructors put their tensors on the CUDA card by
+limbs of 16 bits; arithmetic packs them into 8 limbs of 32 bits on the
+device and back.  Host constructors put their tensors on the CUDA card by
 default and raise without one; `device="cpu"` runs the plain versions.
 Host <-> device crossings happen at construction and at serialize, with
 the byte codecs of compat/codec.py.
@@ -32,6 +35,7 @@ __all__ = ["ZpVec", "G1Vec"]
 
 #: Fr scalars: 18 limbs of 16 bits (the JAX package's Fr layout)
 FR_LIMBS = 18
+FR = FP.FR_CTX
 #: from this size on, the JAX package's G1Vec.msm takes msm/rounds.py
 ROUNDS_MSM_MIN = 1 << 17
 
@@ -49,8 +53,11 @@ def _device(device) -> torch.device:
 class ZpVec:
     """A batch of scalars mod r: (..., 18) int32 standard-domain limbs.
 
-    Construction and bytes only; arithmetic mod r waits for the Fr instance
-    of the Montgomery kernel."""
+    Arithmetic is exact mod r, canonical in and out, on the Fr field of
+    fields/fp.py: + - and neg in plain PyTorch, * as REDC(REDC(a b) R^2)
+    (two `fr_mont_mul` launches), inverse as the Fermat chain a^(r-2) in the
+    Montgomery domain (to_mont, one `fr_pow_fixed` launch, from_mont);
+    inverse(0) = 0."""
 
     __slots__ = ("std",)
 
@@ -95,6 +102,39 @@ class ZpVec:
         out[:, MODBYTES - 1 - 2 * k] = host & 0xFF
         out[:, MODBYTES - 2 - 2 * k] = (host >> 8) & 0xFF
         return [bytes(r) for r in out]
+
+    # -- arithmetic (canonical standard-domain in, canonical out) ---------
+
+    def limbs32(self) -> torch.Tensor:
+        """The values as (..., 8) int32 limbs of 32 bits (the Fr kernels'
+        layout), on the device."""
+        w = self.std[..., :16].to(torch.int64)
+        v = w[..., 0::2] | (w[..., 1::2] << 16)
+        return (v - ((v >> 31) << 32)).to(torch.int32)
+
+    @classmethod
+    def from_limbs32(cls, x: torch.Tensor) -> "ZpVec":
+        u = x.to(torch.int64) & 0xFFFFFFFF
+        w = torch.stack([u & 0xFFFF, u >> 16], -1).reshape(*x.shape[:-1], 16)
+        pad = torch.zeros(*x.shape[:-1], FR_LIMBS - 16, dtype=torch.int64, device=x.device)
+        return cls(torch.cat([w, pad], -1).to(torch.int32))
+
+    def __add__(self, other: "ZpVec") -> "ZpVec":
+        return ZpVec.from_limbs32(FR.add(self.limbs32(), other.limbs32()))
+
+    def __sub__(self, other: "ZpVec") -> "ZpVec":
+        return ZpVec.from_limbs32(FR.sub(self.limbs32(), other.limbs32()))
+
+    def __neg__(self) -> "ZpVec":
+        return ZpVec.from_limbs32(FR.neg(self.limbs32()))
+
+    def __mul__(self, other: "ZpVec") -> "ZpVec":
+        a, b = torch.broadcast_tensors(self.limbs32(), other.limbs32())
+        r2 = torch.from_numpy(FR.limbs_of(FR.r2_mod)).to(a.device).expand_as(a)
+        return ZpVec.from_limbs32(FR.mont_mul(FR.mont_mul(a, b), r2))
+
+    def inverse(self) -> "ZpVec":
+        return ZpVec.from_limbs32(FR.from_mont(FR.inv(FR.to_mont(self.limbs32()))))
 
     def __eq__(self, other) -> torch.Tensor:  # type: ignore[override]
         return torch.all(self.std == other.std, dim=-1)

@@ -1,15 +1,22 @@
-// Device arithmetic for the BLS12-381 base field on 32-bit limbs.
+// Device arithmetic for the BLS12-381 base field Fp and scalar field Fr
+// on 32-bit limbs.
 //
-// An element is 12 little-endian uint32 limbs of its Montgomery form
+// An Fp element is 12 little-endian uint32 limbs of its Montgomery form
 // x * 2^384 mod p, canonical (0 <= v < p) at every function boundary.  An
-// operand of mont_mul may also be the raw sum of two canonical values
+// operand of mont_mul<12> may also be the raw sum of two canonical values
 // (below 2p < 2^382): then a*b < 4p^2, and (a*b + m*p) / 2^384 < 2p, so one
 // conditional subtraction gives the canonical product.
 //
+// An Fr element is 8 limbs of x * 2^256 mod r, and mont_mul<8> takes
+// canonical operands only.  There is no room for pre-sums: 4r > 2^256, and
+// for a, b < 2r the reduced product (a*b + m*r) / 2^256 can reach about
+// 2.8r, past one conditional subtraction.  For a, b < r it is below
+// r^2 / 2^256 + r < 2r, since r < 2^256, and 2r < 2^256 keeps it in 8
+// limbs with a zero top word.  So add_raw never feeds the Fr product.
+//
 // mont_mul is the CIOS (coarsely integrated operand scanning) Montgomery
-// product with 64-bit accumulators, a template over the limb count so the
-// scalar field (8 limbs) can share it.  Every loop is unrolled; the limbs
-// live in registers.
+// product with 64-bit accumulators, a template over the limb count that
+// selects the field.  Every loop is unrolled; the limbs live in registers.
 
 #pragma once
 
@@ -27,6 +34,15 @@ __constant__ uint32_t FP_P[NL] = {
 // -p^-1 mod 2^32
 constexpr uint32_t FP_N0 = 0xfffcfffdu;
 
+constexpr int FR_NL = 8;
+
+__constant__ uint32_t FR_R[FR_NL] = {
+    0x00000001u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u,
+    0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
+
+// -r^-1 mod 2^32 (r = 1 mod 2^32)
+constexpr uint32_t FR_N0 = 0xffffffffu;
+
 // Modulus traits: the limb count selects the field.
 template <int N>
 struct Field;
@@ -35,6 +51,12 @@ template <>
 struct Field<NL> {
   static __device__ __forceinline__ uint32_t p(int j) { return FP_P[j]; }
   static constexpr uint32_t n0 = FP_N0;
+};
+
+template <>
+struct Field<FR_NL> {
+  static __device__ __forceinline__ uint32_t p(int j) { return FR_R[j]; }
+  static constexpr uint32_t n0 = FR_N0;
 };
 
 // r = t - p if t >= p (t given as N limbs plus a top word), else t.
@@ -53,7 +75,8 @@ __device__ __forceinline__ void cond_sub_p(uint32_t* r, const uint32_t* t, uint3
   for (int j = 0; j < N; ++j) r[j] = keep ? t[j] : d[j];
 }
 
-// r = a * b * 2^(-32N) mod p, canonical.  a, b < 2p.  r may alias a or b.
+// r = a * b * 2^(-32N) mod p, canonical.  a, b < 2p for Fp, canonical for
+// Fr.  r may alias a or b.
 template <int N>
 __device__ __forceinline__ void mont_mul(uint32_t* r, const uint32_t* a, const uint32_t* b) {
   uint32_t t[N + 2];

@@ -4,10 +4,11 @@ The curve constants are the standard, publicly specified BLS12-381 values
 (IETF pairing-friendly-curves / RFC 9380), the same integers as the JAX
 package's `crypto12381_tpu/params.py`.
 
-Field elements in this package are 12 little-endian 32-bit limbs in
-Montgomery form with R = 2^384 (see fields/fp.py).  The plain PyTorch
-versions of the kernels work on 24 words of 16 bits with the same R, so
-both give the same canonical limbs.
+Fp elements in this package are 12 little-endian 32-bit limbs in
+Montgomery form with R = 2^384, and Fr elements in the kernels' arithmetic
+are 8 limbs with R = 2^256 (see fields/fp.py).  The plain PyTorch versions
+of the kernels work on 24 (Fp) or 16 (Fr) words of 16 bits with the same
+R, so both give the same canonical limbs.
 """
 
 from __future__ import annotations
@@ -78,3 +79,31 @@ P_WORDS16 = [(P >> (16 * i)) & 0xFFFF for i in range(WORDS16)]
 N0_16 = (-pow(P, -1, 1 << 16)) % (1 << 16)
 
 assert 4 * P < MONT_R, "sums of two canonical values must fit 12 limbs"
+
+# ---------------------------------------------------------------------------
+# Montgomery constants of the scalar field Fr, R = 2^256
+# ---------------------------------------------------------------------------
+
+FR_LIMBS32 = 8
+FR_R_BITS = FR_LIMBS32 * LIMB_BITS    # 256
+FR_MONT_R = 1 << FR_R_BITS
+
+#: r's limbs, little-endian.
+FR_P_LIMBS = [(R >> (LIMB_BITS * i)) & LIMB_MASK for i in range(FR_LIMBS32)]
+#: n0' = -r^-1 mod 2^32 (r = 1 mod 2^32, so it is 2^32 - 1).
+FR_N0 = (-pow(R, -1, 1 << 32)) % (1 << 32)
+FR_R_MOD = FR_MONT_R % R
+FR_R2_MOD = (FR_MONT_R * FR_MONT_R) % R
+FR_R_INV = pow(FR_MONT_R, -1, R)
+
+FR_WORDS16 = 16
+FR_P_WORDS16 = [(R >> (16 * i)) & 0xFFFF for i in range(FR_WORDS16)]
+FR_N0_16 = (-pow(R, -1, 1 << 16)) % (1 << 16)
+
+# Fp's operands may be raw sums below 2p because 4p < 2^384.  Fr has no
+# such room: 4r > 2^256, and for a, b < 2r the reduced product can reach
+# about 2.8r, past one conditional subtraction.  For a, b < r it stays
+# below (r^2 + 2^256 r) / 2^256 < 2r, which needs only r < 2^256; the Fr
+# product takes canonical operands only, and 2r < R keeps the CIOS top
+# word 0.
+assert 2 * R < FR_MONT_R, "the Fr product's result below 2r must fit 8 limbs"

@@ -55,6 +55,7 @@ SHIM = """#pragma once
 #define __device__
 #define __forceinline__ inline
 #define __constant__
+#define __grid_constant__
 #define __launch_bounds__(x)
 #define __restrict__
 #define __shared__ static
@@ -68,7 +69,11 @@ typedef void* cudaStream_t;
 MAIN = r"""
 #include <algorithm>
 #include <cstdio>
+#include <cstring>
+#include <functional>
+#include <ucontext.h>
 #include <vector>
+// A one-row-per-thread kernel over n threads (n may run past the rows).
 template <class K> void rows(K k, int64_t n) {
   for (int64_t i = 0; i < n; ++i) {
     blockIdx.x = (unsigned)(i / THREADS); threadIdx.x = (unsigned)(i % THREADS); k();
@@ -104,7 +109,117 @@ bool coop(std::vector<uint32_t>& o, Ph phase, int64_t n, int per, int threads, i
   o.assign(f.begin(), f.begin() + n * width);
   return true;
 }
+// Lockstep lanes: the TPI lanes of a group run as coroutines on this
+// thread, one after another in a fixed order (forward or reversed), each
+// up to its next lane_get or lane_ballot.  That call deposits the lane's
+// word and yields; it returns once every lane of the group has deposited
+// (two slot buffers, by round parity, so a lane that runs ahead into the
+// next round does not overwrite a word not yet read).
+namespace lockstep {
+constexpr int MAX = 16, STACK = 1 << 18;
+ucontext_t sched, ctx[MAX];
+int tpi, cur, rounds[MAX];
+bool done[MAX];
+uint32_t slot[2][MAX];
+std::function<void(int)> body;
+std::vector<char> stacks(MAX * STACK);
+void entry() { body(cur); done[cur] = true; }
+int trade(uint32_t v) {
+  const int me = cur, r = rounds[me]++;
+  slot[r & 1][me] = v;
+  swapcontext(&ctx[me], &sched);
+  return r & 1;
+}
+// Runs body(lane) for the lanes of the group whose lane 0 is thread t0 of
+// the grid, with blockIdx and threadIdx set to the lane's before each of
+// its turns; false if the lanes made different numbers of lane calls.
+bool group(int lanes, int64_t t0, bool reverse, std::function<void(int)> b) {
+  tpi = lanes;
+  body = b;
+  for (int k = 0; k < tpi; ++k) {
+    done[k] = false;
+    rounds[k] = 0;
+    getcontext(&ctx[k]);
+    ctx[k].uc_stack.ss_sp = stacks.data() + k * STACK;
+    ctx[k].uc_stack.ss_size = STACK;
+    ctx[k].uc_link = &sched;
+    makecontext(&ctx[k], entry, 0);
+  }
+  for (;;) {
+    for (int q = 0; q < tpi; ++q) {
+      cur = reverse ? tpi - 1 - q : q;
+      if (done[cur]) continue;
+      blockIdx.x = (unsigned)((t0 + cur) / THREADS);
+      threadIdx.x = (unsigned)((t0 + cur) % THREADS);
+      swapcontext(&sched, &ctx[cur]);
+    }
+    const int n_done = (int)std::count(done, done + tpi, true);
+    if (n_done == tpi) return true;
+    if (n_done) return false;
+  }
+}
+}  // namespace lockstep
+uint32_t lane_get_host(uint32_t v, int src) {
+  return lockstep::slot[lockstep::trade(v)][src % lockstep::tpi];
+}
+uint32_t lane_ballot_host(bool pred) {
+  const int b = lockstep::trade(pred);
+  uint32_t m = 0;
+  for (int k = 0; k < lockstep::tpi; ++k) m |= (lockstep::slot[b][k] & 1u) << k;
+  return m;
+}
+// The chain kernels on n rows of N limbs: one row per thread over the whole
+// grid, then TPI lanes per row over the whole grid in both lane orders;
+// outputs get a guard after the last row.
+template <int N>
+int chains(const char* in, const char* outp) {
+  FILE* f = fopen(in, "rb");
+  int64_t n;
+  Exponent e;
+  if (fread(&n, 8, 1, f) != 1 || fread(e.w, 4, EXP_WORDS, f) != (size_t)EXP_WORDS ||
+      fread(&e.bits, 4, 1, f) != 1) return 1;
+  std::vector<uint32_t> x(n * N), y(n * N);
+  if (fread(x.data(), 4, n * N, f) != (size_t)(n * N)) return 1;
+  if (fread(y.data(), 4, n * N, f) != (size_t)(n * N)) return 1;
+  fclose(f);
+  std::vector<uint32_t> one(n * N + GUARD, 0xa5a5a5a5u), mul(n * N + GUARD, 0xa5a5a5a5u);
+  rows([&] { pow_fixed_kernel<N>(x.data(), one.data(), e, n); }, blocks_for(n) * THREADS);
+  rows([&] { mont_mul_kernel<N>(x.data(), y.data(), mul.data(), n); }, blocks_for(n) * THREADS);
+  std::vector<uint32_t> lanes[4];
+  for (int v = 0; v < 4; ++v) {
+    const int tpi = v < 2 ? 4 : 2;
+    const bool rev = v & 1;
+    lanes[v].assign(n * N + GUARD, 0xa5a5a5a5u);
+    const int64_t threads = blocks_for(n * tpi) * THREADS;
+    for (int64_t g = 0; g < threads; g += tpi) {
+      if (!lockstep::group(tpi, g, rev, [&](int) {
+            if (tpi == 4) pow_fixed_lanes_kernel<N, 4>(x.data(), lanes[v].data(), e, n);
+            else pow_fixed_lanes_kernel<N, 2>(x.data(), lanes[v].data(), e, n);
+          })) {
+        fprintf(stderr, "lanes disagree on their lane calls\n");
+        return 2;
+      }
+    }
+  }
+  if (lanes[0] != lanes[1] || lanes[2] != lanes[3] || lanes[0] != lanes[2]) {
+    fprintf(stderr, "lane order or count changes the result\n");
+    return 2;
+  }
+  for (auto* o : {&one, &mul, &lanes[0], &lanes[2]})
+    if (std::any_of(o->begin() + n * N, o->end(), [](uint32_t w) { return w != 0xa5a5a5a5u; })) {
+      fprintf(stderr, "write past the last row\n");
+      return 2;
+    }
+  FILE* g = fopen(outp, "wb");
+  fwrite(one.data(), 4, n * N, g);
+  fwrite(lanes[0].data(), 4, n * N, g);
+  fwrite(mul.data(), 4, n * N, g);
+  fclose(g);
+  return 0;
+}
 int main(int argc, char** argv) {
+  if (argc == 5 && !strcmp(argv[1], "chain"))
+    return argv[2][0] == '8' ? chains<8>(argv[3], argv[4]) : chains<12>(argv[3], argv[4]);
   FILE* f = fopen(argv[1], "rb");
   int64_t n;
   if (fread(&n, 8, 1, f) != 1) return 1;
@@ -189,12 +304,32 @@ def rand_ints(seed, k, bound):
 
 
 def header_constants():
-    """p's limbs and n0' as written in fp381.cuh."""
+    """p's and r's limbs and n0' as written in fp381.cuh."""
     text = (CSRC / "fp381.cuh").read_text()
-    body = re.search(r"FP_P\[NL\] = \{([^}]*)\}", text).group(1)
-    limbs = [int(w.strip().rstrip("u"), 16) for w in body.split(",")]
-    n0 = int(re.search(r"FP_N0 = (0x[0-9a-f]+)u", text).group(1), 16)
-    return limbs, n0
+    out = []
+    for arr, n0 in (("FP_P\\[NL\\]", "FP_N0"), ("FR_R\\[FR_NL\\]", "FR_N0")):
+        body = re.search(arr + r" = \{([^}]*)\}", text).group(1)
+        limbs = [int(w.strip().rstrip("u"), 16) for w in body.split(",")]
+        out.append((limbs, int(re.search(n0 + r" = (0x[0-9a-f]+)u", text).group(1), 16)))
+    return tuple(out)
+
+
+def run_chain(harness, F, e, xv, yv):
+    """The chain kernels of the field F on the host: x^e one row per thread
+    and with LANES lanes per row (both lane orders), and REDC(x y), for
+    Montgomery-form values xv, yv (the raw limb values)."""
+    d, exe = harness
+    n = len(xv)
+    x = np.stack([F.limbs_of(v) for v in xv])
+    y = np.stack([F.limbs_of(v) for v in yv])
+    words = np.array([(e >> (32 * k)) & 0xFFFFFFFF for k in range(12)], np.uint32)
+    with open(d / "chain.bin", "wb") as f:
+        f.write(np.int64(n).tobytes() + words.tobytes() + np.int32(e.bit_length()).tobytes()
+                + x.tobytes() + y.tobytes())
+    subprocess.run([str(exe), "chain", str(F.limbs), str(d / "chain.bin"), str(d / "chain.out")],
+                   check=True, timeout=600)
+    o = torch.from_numpy(np.fromfile(d / "chain.out", np.int32)).reshape(3, n, F.limbs)
+    return torch.from_numpy(x), torch.from_numpy(y), o[0], o[1], o[2]
 
 
 def curve_inputs(n):
@@ -233,8 +368,10 @@ def curve_inputs(n):
 def test_kernel_bodies_match_plain_versions(harness):
     from crypto12381_tpu_torch import params
 
-    assert header_constants() == (params.P_LIMBS, params.N0)
+    assert header_constants() == ((params.P_LIMBS, params.N0),
+                                  (params.FR_P_LIMBS, params.FR_N0))
     assert params.N0 * P % (1 << 32) == (1 << 32) - 1       # n0' = -p^-1 mod 2^32
+    assert params.FR_N0 * params.R % (1 << 32) == (1 << 32) - 1
     n = 40
     for presum in (False, True):
         edge = [0, 1, P - 1] + ([2 * P - 2, P] if presum else [])
@@ -334,3 +471,30 @@ def test_cooperative_curve_kernels(harness, n):
                       (k7, [2 * sp for sp, _, _ in scalars])):
         assert list(G1C.to_affine_ints(tuple(got.unbind(-2)))) == [
             C.g1_mul(C.G1_GEN, k) for k in want]
+
+
+@pytest.mark.parametrize("field,exponent", [("fp", "p-2"), ("fp", "(p+1)/4"), ("fr", "r-2")])
+def test_chain_kernels(harness, field, exponent):
+    """The power chain of one launch, x^e for the Fermat inverse (Fp, Fr)
+    and the square root (Fp), one row per thread and with LANES lanes per
+    row (both lane orders, a guard after the output), and the product of
+    the same field, on 37 rows: the last block ragged for 128 rows per
+    block and for 32, with rows of 0, 1 and m - 1 at both ends and random
+    canonical values between.  Each equals the plain version bit for bit
+    and the host's integers."""
+    F = FP.FP_CTX if field == "fp" else FP.FR_CTX
+    m = F.modulus
+    e = {"p-2": m - 2, "(p+1)/4": (m + 1) // 4, "r-2": m - 2}[exponent]
+    edge = [0, 1, m - 1]
+    seed = 300 + len(exponent) + F.limbs
+    xv = edge + rand_ints(seed, 31, m) + edge[::-1]
+    yv = edge[::-1] + rand_ints(seed + 1, 31, m) + edge
+    x, y, one, lanes, mul = run_chain(harness, F, e, xv, yv)
+    want = F.pow_fixed_plain(x, e)
+    assert torch.equal(one, want)
+    assert torch.equal(lanes, want)
+    r_inv, r_mod = F.r_inv, F.r_mod
+    assert [F.int_of(r) for r in one.numpy()] == [
+        pow(v * r_inv % m, e, m) * r_mod % m for v in xv]
+    assert torch.equal(mul, F.mont_mul_plain(x, y))
+    assert [F.int_of(r) for r in mul.numpy()] == [a * b * r_inv % m for a, b in zip(xv, yv)]
