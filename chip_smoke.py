@@ -22,7 +22,7 @@ Phases, one line each; any failure raises and ends the run non-zero:
            P = Q and P = -Q in their first and last rows, checked against
            host points); device time of both (CUDA graph replays timed
            with CUDA events) and the kernel's time when issued eagerly from
-           Python.  Each chain also runs with LANES lanes per row.
+           Python
   pairing  `pair_batch` at B = 2048 (32 distinct pairs, tiled): GT bytes
            against tests/vectors/reference.json, bilinearity, infinity
            masks, 4 rows recomputed on the CPU, pairings/s, launches of
@@ -128,8 +128,7 @@ def _ptxas_report(log: str) -> dict:
             out.setdefault(cur, {})["smem"] = int(m.group(1))
     named = {}
     for mangled, v in out.items():
-        for k in ("mont_mul_kernel", "pow_fixed_kernel", "pow_fixed_lanes_kernel",
-                  "fp2_mul_kernel", "fp2_sqr_kernel", "fp6_mul_kernel",
+        for k in ("mont_mul_kernel", "pow_fixed_kernel", "fp2_mul_kernel", "fp2_sqr_kernel", "fp6_mul_kernel",
                   "g1_madd_kernel", "g1_add_kernel", "g1_dbl_kernel"):
             if k in mangled:
                 limbs = re.search(r"ILi(\d+)E", mangled)
@@ -158,20 +157,6 @@ def _rand_fr(rng, n):
 def _chain_products(e: int) -> int:
     """Products of the square-and-multiply chain of x^e (e >= 1)."""
     return e.bit_length() - 1 + bin(e).count("1") - 1
-
-
-def _pow_lanes(F, e: int, tpi: int):
-    """x -> x^e by the chain kernel with tpi lanes per row (csrc/fp.cu
-    pow_fixed_lanes_kernel), timed beside the one-row-per-thread kernel."""
-    import torch
-    from crypto12381_tpu_torch import _build
-
-    def run(x):
-        out = torch.empty_like(x)
-        _build.launch("fp", f"{F.name}_pow_fixed_lanes{tpi}", (x, out), x.shape[0], exponent=e)
-        return out
-
-    return run
 
 
 def _edges(x, vals, last=False):
@@ -294,8 +279,6 @@ def phase_kernels(dev):
     # (8,192, where the chain is x^((p+1)/4), of the same length), and at a
     # ragged count; the Fr product and the Fr chain x^(r-2) at the zp phase's
     # 8,192 rows and a ragged count.  Edge rows 0, 1 and m-1 at both ends.
-    # Each chain kernel is timed one row per thread and with LANES lanes per
-    # row.
     fr = FP.FR_CTX
     for F, e, counts, fn_c in ((FP.FP_CTX, P - 2, (B // 4, B, G1_B, B + RAGGED),
                                 "fp_pow_fixed"),
@@ -316,10 +299,6 @@ def phase_kernels(dev):
         specs.append((f"K1 pow_fixed {tag}", fn_c, *k1,
                       (lambda F, e: lambda x: F.pow_fixed(x, e))(F, e), plain, ins, headline,
                       _chain_products(e) * per, None))
-        for tpi in (2, 4):
-            specs.append((f"K1 pow_fixed lanes{tpi} {tag}", f"{fn_c}_lanes{tpi}", *k1,
-                          _pow_lanes(F, e, tpi), plain, ins, headline, _chain_products(e) * per,
-                          None))
     # K2: 15 rows per pairing row in the sparse multiply, B to 6B in the
     # line coefficients and G2 steps; K3: 9 (cyclotomic square); K4: 3
     # (Fp12 product) and 2 (Fp12 square), each also at a ragged count.  Each

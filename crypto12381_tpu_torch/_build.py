@@ -33,16 +33,13 @@ _BUILD_ROOT = _PKG.parent / "build" / "crypto12381_tpu_torch"
 
 #: library name -> (source file, {C function: number of tensor pointers})
 _LIBS_SPEC = {
-    "fp": ("fp.cu", {"fp_mont_mul": 3, "fr_mont_mul": 3, "fp_pow_fixed": 2, "fr_pow_fixed": 2,
-                     "fp_pow_fixed_lanes2": 2, "fr_pow_fixed_lanes2": 2,
-                     "fp_pow_fixed_lanes4": 2, "fr_pow_fixed_lanes4": 2}),
+    "fp": ("fp.cu", {"fp_mont_mul": 3, "fr_mont_mul": 3, "fp_pow_fixed": 2, "fr_pow_fixed": 2}),
     "tower": ("tower.cu", {"fp2_mul": 3, "fp2_sqr": 2, "fp6_mul": 3}),
     "curve": ("g1.cu", {"g1_madd": 3, "g1_add": 3, "g1_dbl": 2}),
 }
 _HEADERS = ("fp381.cuh",)
 #: C functions that take a public exponent after their tensors
-EXPONENT_FNS = frozenset({"fp_pow_fixed", "fr_pow_fixed", "fp_pow_fixed_lanes2",
-                          "fr_pow_fixed_lanes2", "fp_pow_fixed_lanes4", "fr_pow_fixed_lanes4"})
+EXPONENT_FNS = frozenset({"fp_pow_fixed", "fr_pow_fixed"})
 #: 32-bit words of that exponent (csrc/fp.cu EXP_WORDS)
 EXP_WORDS = 12
 NVCC_FLAGS = (

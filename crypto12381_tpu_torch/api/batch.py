@@ -54,10 +54,10 @@ class ZpVec:
     """A batch of scalars mod r: (..., 18) int32 standard-domain limbs.
 
     Arithmetic is exact mod r, canonical in and out, on the Fr field of
-    fields/fp.py: + - and neg in plain PyTorch, * as REDC(REDC(a b) R^2)
-    (two `fr_mont_mul` launches), inverse as the Fermat chain a^(r-2) in the
-    Montgomery domain (to_mont, one `fr_pow_fixed` launch, from_mont);
-    inverse(0) = 0."""
+    fields/fp.py: + - and neg in plain PyTorch, * as to_mont(REDC(a b)) =
+    a b (two `fr_mont_mul` launches), inverse as the Fermat chain a^(r-2)
+    in the Montgomery domain (to_mont, one `fr_pow_fixed` launch,
+    from_mont); inverse(0) = 0."""
 
     __slots__ = ("std",)
 
@@ -129,9 +129,7 @@ class ZpVec:
         return ZpVec.from_limbs32(FR.neg(self.limbs32()))
 
     def __mul__(self, other: "ZpVec") -> "ZpVec":
-        a, b = torch.broadcast_tensors(self.limbs32(), other.limbs32())
-        r2 = torch.from_numpy(FR.limbs_of(FR.r2_mod)).to(a.device).expand_as(a)
-        return ZpVec.from_limbs32(FR.mont_mul(FR.mont_mul(a, b), r2))
+        return ZpVec.from_limbs32(FR.to_mont(FR.mont_mul(self.limbs32(), other.limbs32())))
 
     def inverse(self) -> "ZpVec":
         return ZpVec.from_limbs32(FR.from_mont(FR.inv(FR.to_mont(self.limbs32()))))

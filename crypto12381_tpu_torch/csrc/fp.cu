@@ -23,14 +23,13 @@
 // only on set bits; the exponent is a kernel parameter, so the branch is
 // uniform over the warp.  A row is a chain of dependent products (608 for
 // p - 2, 417 for r - 2), so the time is each row's latency through the
-// chain, not the card's throughput; acc and x stay in registers.
-//
-// pow_fixed_lanes_kernel: the same chain with TPI lanes per row, each lane
-// holding N / TPI limbs (the lane-cooperative product of NVlabs' CGBN):
-// b_i and m are broadcast by warp shuffles, each lane multiply-adds its
-// limbs and keeps the carry out of its top limb lazily, and the carries and
-// the final conditional subtraction are resolved across lanes with ballots
-// (generate/propagate flags, as fields/fp.py `_chain`).
+// chain, not the card's throughput (at 2,048 rows the products would take
+// 0.044 ms at the card's integer rate); acc and x stay in registers.  A
+// lane-cooperative chain (2 or 4 lanes per row, each holding N / TPI limbs,
+// b_i and m broadcast by warp shuffles and carries resolved by ballots, as
+// NVlabs' CGBN does) was slower on an H100 at 512 to 8,192 rows: the
+// shuffles on each step's dependent path cost more than the shorter rows
+// save (PERF.md, PR 6).
 
 #include "fp381.cuh"
 
@@ -78,160 +77,6 @@ pow_fixed_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
   store<N>(out + i * N, acc);
 }
 
-// ------------------------------------------------------ lane groups
-//
-// The TPI lanes of a row (TPI a power of two, at most 16) trade words only
-// through these two calls, made by every lane of the group in the same
-// order.  A host build (the test harness) supplies them.
-
-template <int TPI>
-__device__ __forceinline__ unsigned group_base() {
-  return threadIdx.x & 31u & ~(unsigned)(TPI - 1);
-}
-
-#ifdef __CUDACC__
-// v of lane src of this group.
-template <int TPI>
-__device__ __forceinline__ uint32_t lane_get(uint32_t v, int src) {
-  return __shfl_sync(((1u << TPI) - 1) << group_base<TPI>(), v, src, TPI);
-}
-
-// Bit k: pred of lane k of this group.
-template <int TPI>
-__device__ __forceinline__ uint32_t lane_ballot(bool pred) {
-  const unsigned mask = ((1u << TPI) - 1) << group_base<TPI>();
-  return (__ballot_sync(mask, pred) & mask) >> group_base<TPI>();
-}
-#else
-uint32_t lane_get_host(uint32_t v, int src);
-uint32_t lane_ballot_host(bool pred);
-template <int TPI>
-inline uint32_t lane_get(uint32_t v, int src) { return lane_get_host(v, src); }
-template <int TPI>
-inline uint32_t lane_ballot(bool pred) { return lane_ballot_host(pred); }
-#endif
-
-// Carry (or borrow) into each lane from per-lane generate and propagate
-// flags: bit k of the result is the carry into lane k, bit TPI the carry
-// out of the top lane.
-template <int TPI>
-__device__ __forceinline__ uint32_t lane_carries(bool gen, bool prop) {
-  const uint32_t g = lane_ballot<TPI>(gen);
-  const uint32_t x = g | lane_ballot<TPI>(prop);
-  return (x + g) ^ x ^ g;
-}
-
-// r = a * b * 2^(-32N) mod p, canonical, with a, b, r, pl (the modulus)
-// split over the group: lane k holds limbs [kL, kL + L).  Same operand
-// bounds as mont_mul<N>.  r may alias a or b.
-//
-// t is the CIOS accumulator; hi holds the carries owed to the word above
-// the lane's top limb (the next lane's limb 0), so no carry crosses lanes
-// inside the loop.  hi < 4 between steps: it gains two carries below 2^32
-// and the next lane's word, and keeps only what is above one word.
-template <int N, int TPI>
-__device__ __forceinline__ void mont_mul_lanes(uint32_t* r, const uint32_t* a, const uint32_t* b,
-                                               const uint32_t* pl, int lane) {
-  constexpr int L = N / TPI;
-  static_assert(L * TPI == N && TPI <= 16, "TPI must divide the limb count");
-  uint32_t t[L], ball[N];
-#pragma unroll
-  for (int j = 0; j < L; ++j) t[j] = 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i) ball[i] = lane_get<TPI>(b[i % L], i / L);  // all of b, up front
-  uint64_t hi = 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const uint32_t bi = ball[i];
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < L; ++j) {
-      c += (uint64_t)a[j] * bi + t[j];
-      t[j] = (uint32_t)c;
-      c >>= 32;
-    }
-    hi += c;
-    const uint32_t m = lane_get<TPI>(t[0] * Field<N>::n0, 0);
-    c = 0;
-#pragma unroll
-    for (int j = 0; j < L; ++j) {
-      c += (uint64_t)m * pl[j] + t[j];
-      t[j] = (uint32_t)c;
-      c >>= 32;
-    }
-    hi += c;
-    // divide by 2^32: lane 0's limb 0 is now 0 and drops out
-    const uint32_t up = lane_get<TPI>(t[0], (lane + 1) & (TPI - 1));
-#pragma unroll
-    for (int j = 0; j + 1 < L; ++j) t[j] = t[j + 1];
-    hi += lane == TPI - 1 ? 0u : up;
-    t[L - 1] = (uint32_t)hi;
-    hi >>= 32;
-  }
-  // the owed carries into the next lane, then the carries across lanes
-  const uint32_t owed = lane_get<TPI>((uint32_t)hi, (lane + TPI - 1) & (TPI - 1));
-  uint64_t c = lane == 0 ? 0u : owed;
-  bool ones = true;
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    c += t[j];
-    t[j] = (uint32_t)c;
-    c >>= 32;
-    ones = ones && t[j] == 0xffffffffu;
-  }
-  c = (lane_carries<TPI>(c != 0, ones) >> lane) & 1u;
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    c += t[j];
-    t[j] = (uint32_t)c;
-    c >>= 32;
-  }
-  // t < 2p: subtract p unless that borrows out of the top lane
-  uint32_t d[L];
-  uint64_t bw = 0;
-  bool zero = true;
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    const uint64_t s = (uint64_t)t[j] - pl[j] - bw;
-    d[j] = (uint32_t)s;
-    bw = (s >> 32) & 1u;
-    zero = zero && d[j] == 0;
-  }
-  const uint32_t borrows = lane_carries<TPI>(bw != 0, zero);
-  bw = (borrows >> lane) & 1u;
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    const uint64_t s = (uint64_t)d[j] - bw;
-    d[j] = (uint32_t)s;
-    bw = (s >> 32) & 1u;
-  }
-  const bool keep = (borrows >> TPI) & 1u;
-#pragma unroll
-  for (int j = 0; j < L; ++j) r[j] = keep ? t[j] : d[j];
-}
-
-
-template <int N, int TPI>
-__global__ void __launch_bounds__(THREADS)
-pow_fixed_lanes_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-                       const __grid_constant__ Exponent e, int64_t n) {
-  constexpr int L = N / TPI;
-  const int64_t row = ((int64_t)blockIdx.x * THREADS + threadIdx.x) / TPI;
-  const int lane = (int)(threadIdx.x % TPI);
-  if (row >= n) return;  // the whole group: THREADS is a multiple of TPI
-  uint32_t pl[L], xv[L], acc[L];
-#pragma unroll
-  for (int j = 0; j < L; ++j) pl[j] = Field<N>::p(lane * L + j);
-  load<L>(xv, x + row * N + lane * L);
-  load<L>(acc, x + row * N + lane * L);
-#pragma unroll 1
-  for (int k = e.bits - 2; k >= 0; --k) {
-    mont_mul_lanes<N, TPI>(acc, acc, acc, pl, lane);
-    if (exp_bit(e, k)) mont_mul_lanes<N, TPI>(acc, acc, xv, pl, lane);
-  }
-  store<L>(out + row * N + lane * L, acc);
-}
-
 inline Exponent exponent_of(const uint32_t* words, int bits) {
   Exponent e;
   for (int k = 0; k < EXP_WORDS; ++k) e.w[k] = words[k];
@@ -271,46 +116,6 @@ extern "C" int fr_pow_fixed(const void* x, void* out, const uint32_t* words, int
   if (n > 0) {
     pow_fixed_kernel<FR_NL><<<(unsigned)blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)x, (uint32_t*)out, exponent_of(words, bits), n);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int fp_pow_fixed_lanes2(const void* x, void* out, const uint32_t* words, int bits,
-                                    int64_t n, void* stream) {
-  if (n > 0) {
-    pow_fixed_lanes_kernel<NL, 2>
-        <<<(unsigned)blocks_for(n * 2), THREADS, 0, (cudaStream_t)stream>>>(
-            (const uint32_t*)x, (uint32_t*)out, exponent_of(words, bits), n);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int fr_pow_fixed_lanes2(const void* x, void* out, const uint32_t* words, int bits,
-                                    int64_t n, void* stream) {
-  if (n > 0) {
-    pow_fixed_lanes_kernel<FR_NL, 2>
-        <<<(unsigned)blocks_for(n * 2), THREADS, 0, (cudaStream_t)stream>>>(
-            (const uint32_t*)x, (uint32_t*)out, exponent_of(words, bits), n);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int fp_pow_fixed_lanes4(const void* x, void* out, const uint32_t* words, int bits,
-                                    int64_t n, void* stream) {
-  if (n > 0) {
-    pow_fixed_lanes_kernel<NL, 4>
-        <<<(unsigned)blocks_for(n * 4), THREADS, 0, (cudaStream_t)stream>>>(
-            (const uint32_t*)x, (uint32_t*)out, exponent_of(words, bits), n);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int fr_pow_fixed_lanes4(const void* x, void* out, const uint32_t* words, int bits,
-                                    int64_t n, void* stream) {
-  if (n > 0) {
-    pow_fixed_lanes_kernel<FR_NL, 4>
-        <<<(unsigned)blocks_for(n * 4), THREADS, 0, (cudaStream_t)stream>>>(
-            (const uint32_t*)x, (uint32_t*)out, exponent_of(words, bits), n);
   }
   return (int)cudaGetLastError();
 }

@@ -113,9 +113,6 @@ class Field:
         self.p_limbs = [(modulus >> (32 * i)) & _M32 for i in range(limbs)]
         self.p_words16 = [(modulus >> (16 * i)) & 0xFFFF for i in range(2 * limbs)]
 
-    def __repr__(self) -> str:
-        return f"Field({self.name}, {self.limbs} limbs)"
-
     def _p(self, device) -> torch.Tensor:
         return _const((self.name, "p"), self.p_limbs, device)
 

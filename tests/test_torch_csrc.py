@@ -3,7 +3,8 @@
 The device functions and kernel bodies of crypto12381_tpu_torch/csrc/
 are plain C++ once the CUDA keywords are defined away, so a host C++
 compiler can build them into a small program. It runs the one-thread-
-per-instance kernel body of K1 once per row. K2-K7 are block-cooperative:
+per-row kernel bodies of K1 (the Fp and Fr products and the power chain
+x^e of one launch) once per thread. K2-K7 are block-cooperative:
 their threads share operands and products through shared memory, with
 barriers between phases. The program runs each of their blocks phase by
 phase, every thread of a phase before the next, with the block's shared
@@ -12,14 +13,17 @@ threads of each phase in reverse order, and fails if the outputs differ
 (threads that race within a phase) or if a write lands past the last row.
 The outputs must equal the plain PyTorch versions bit for bit: on
 canonical operands with the edge values 0, 1 and p-1; for K1 on pre-sums
-up to 2p-2; for K2-K4 at row counts below, at and between multiples of a
-block's instances, with rows of all-0, all-1 and all-(p-1) operands at
-both ends of the launch (all p-1 gives the largest pre-sums); and for the
-curve kernels K5-K7 on curve points with the identity, P = Q and P = -Q
-among them, also at row counts below, at and between multiples of a
-block, with those rows at both ends of the launch. The header's copies of
-p and n0' must equal params.py's. The launch code (the `<<<...>>>`
-wrappers) and the card itself are exercised only by chip_smoke.py.
+up to 2p-2; for the chains x^(p-2), x^((p+1)/4) and x^(r-2) and the Fr
+product over a whole grid with a ragged last block and edge rows at both
+ends, with a guard after the output; for K2-K4 at row counts below, at
+and between multiples of a block's instances, with rows of all-0, all-1
+and all-(p-1) operands at both ends of the launch (all p-1 gives the
+largest pre-sums); and for the curve kernels K5-K7 on curve points with
+the identity, P = Q and P = -Q among them, also at row counts below, at
+and between multiples of a block, with those rows at both ends of the
+launch. The header's copies of p, r and their n0' must equal params.py's.
+The launch code (the `<<<...>>>` wrappers) and the card itself are
+exercised only by chip_smoke.py.
 """
 
 import pathlib
@@ -70,8 +74,6 @@ MAIN = r"""
 #include <algorithm>
 #include <cstdio>
 #include <cstring>
-#include <functional>
-#include <ucontext.h>
 #include <vector>
 // A one-row-per-thread kernel over n threads (n may run past the rows).
 template <class K> void rows(K k, int64_t n) {
@@ -109,68 +111,8 @@ bool coop(std::vector<uint32_t>& o, Ph phase, int64_t n, int per, int threads, i
   o.assign(f.begin(), f.begin() + n * width);
   return true;
 }
-// Lockstep lanes: the TPI lanes of a group run as coroutines on this
-// thread, one after another in a fixed order (forward or reversed), each
-// up to its next lane_get or lane_ballot.  That call deposits the lane's
-// word and yields; it returns once every lane of the group has deposited
-// (two slot buffers, by round parity, so a lane that runs ahead into the
-// next round does not overwrite a word not yet read).
-namespace lockstep {
-constexpr int MAX = 16, STACK = 1 << 18;
-ucontext_t sched, ctx[MAX];
-int tpi, cur, rounds[MAX];
-bool done[MAX];
-uint32_t slot[2][MAX];
-std::function<void(int)> body;
-std::vector<char> stacks(MAX * STACK);
-void entry() { body(cur); done[cur] = true; }
-int trade(uint32_t v) {
-  const int me = cur, r = rounds[me]++;
-  slot[r & 1][me] = v;
-  swapcontext(&ctx[me], &sched);
-  return r & 1;
-}
-// Runs body(lane) for the lanes of the group whose lane 0 is thread t0 of
-// the grid, with blockIdx and threadIdx set to the lane's before each of
-// its turns; false if the lanes made different numbers of lane calls.
-bool group(int lanes, int64_t t0, bool reverse, std::function<void(int)> b) {
-  tpi = lanes;
-  body = b;
-  for (int k = 0; k < tpi; ++k) {
-    done[k] = false;
-    rounds[k] = 0;
-    getcontext(&ctx[k]);
-    ctx[k].uc_stack.ss_sp = stacks.data() + k * STACK;
-    ctx[k].uc_stack.ss_size = STACK;
-    ctx[k].uc_link = &sched;
-    makecontext(&ctx[k], entry, 0);
-  }
-  for (;;) {
-    for (int q = 0; q < tpi; ++q) {
-      cur = reverse ? tpi - 1 - q : q;
-      if (done[cur]) continue;
-      blockIdx.x = (unsigned)((t0 + cur) / THREADS);
-      threadIdx.x = (unsigned)((t0 + cur) % THREADS);
-      swapcontext(&sched, &ctx[cur]);
-    }
-    const int n_done = (int)std::count(done, done + tpi, true);
-    if (n_done == tpi) return true;
-    if (n_done) return false;
-  }
-}
-}  // namespace lockstep
-uint32_t lane_get_host(uint32_t v, int src) {
-  return lockstep::slot[lockstep::trade(v)][src % lockstep::tpi];
-}
-uint32_t lane_ballot_host(bool pred) {
-  const int b = lockstep::trade(pred);
-  uint32_t m = 0;
-  for (int k = 0; k < lockstep::tpi; ++k) m |= (lockstep::slot[b][k] & 1u) << k;
-  return m;
-}
-// The chain kernels on n rows of N limbs: one row per thread over the whole
-// grid, then TPI lanes per row over the whole grid in both lane orders;
-// outputs get a guard after the last row.
+// The chain kernel x^e and the product of an N-limb field on n rows, one
+// row per thread over the whole grid, with a guard after each output.
 template <int N>
 int chains(const char* in, const char* outp) {
   FILE* f = fopen(in, "rb");
@@ -182,37 +124,16 @@ int chains(const char* in, const char* outp) {
   if (fread(x.data(), 4, n * N, f) != (size_t)(n * N)) return 1;
   if (fread(y.data(), 4, n * N, f) != (size_t)(n * N)) return 1;
   fclose(f);
-  std::vector<uint32_t> one(n * N + GUARD, 0xa5a5a5a5u), mul(n * N + GUARD, 0xa5a5a5a5u);
-  rows([&] { pow_fixed_kernel<N>(x.data(), one.data(), e, n); }, blocks_for(n) * THREADS);
+  std::vector<uint32_t> pw(n * N + GUARD, 0xa5a5a5a5u), mul(n * N + GUARD, 0xa5a5a5a5u);
+  rows([&] { pow_fixed_kernel<N>(x.data(), pw.data(), e, n); }, blocks_for(n) * THREADS);
   rows([&] { mont_mul_kernel<N>(x.data(), y.data(), mul.data(), n); }, blocks_for(n) * THREADS);
-  std::vector<uint32_t> lanes[4];
-  for (int v = 0; v < 4; ++v) {
-    const int tpi = v < 2 ? 4 : 2;
-    const bool rev = v & 1;
-    lanes[v].assign(n * N + GUARD, 0xa5a5a5a5u);
-    const int64_t threads = blocks_for(n * tpi) * THREADS;
-    for (int64_t g = 0; g < threads; g += tpi) {
-      if (!lockstep::group(tpi, g, rev, [&](int) {
-            if (tpi == 4) pow_fixed_lanes_kernel<N, 4>(x.data(), lanes[v].data(), e, n);
-            else pow_fixed_lanes_kernel<N, 2>(x.data(), lanes[v].data(), e, n);
-          })) {
-        fprintf(stderr, "lanes disagree on their lane calls\n");
-        return 2;
-      }
-    }
-  }
-  if (lanes[0] != lanes[1] || lanes[2] != lanes[3] || lanes[0] != lanes[2]) {
-    fprintf(stderr, "lane order or count changes the result\n");
-    return 2;
-  }
-  for (auto* o : {&one, &mul, &lanes[0], &lanes[2]})
+  for (auto* o : {&pw, &mul})
     if (std::any_of(o->begin() + n * N, o->end(), [](uint32_t w) { return w != 0xa5a5a5a5u; })) {
       fprintf(stderr, "write past the last row\n");
       return 2;
     }
   FILE* g = fopen(outp, "wb");
-  fwrite(one.data(), 4, n * N, g);
-  fwrite(lanes[0].data(), 4, n * N, g);
+  fwrite(pw.data(), 4, n * N, g);
   fwrite(mul.data(), 4, n * N, g);
   fclose(g);
   return 0;
@@ -315,9 +236,8 @@ def header_constants():
 
 
 def run_chain(harness, F, e, xv, yv):
-    """The chain kernels of the field F on the host: x^e one row per thread
-    and with LANES lanes per row (both lane orders), and REDC(x y), for
-    Montgomery-form values xv, yv (the raw limb values)."""
+    """The chain kernel x^e and the product REDC(x y) of the field F on the
+    host, for Montgomery-form values xv, yv (the raw limb values)."""
     d, exe = harness
     n = len(xv)
     x = np.stack([F.limbs_of(v) for v in xv])
@@ -328,8 +248,8 @@ def run_chain(harness, F, e, xv, yv):
                 + x.tobytes() + y.tobytes())
     subprocess.run([str(exe), "chain", str(F.limbs), str(d / "chain.bin"), str(d / "chain.out")],
                    check=True, timeout=600)
-    o = torch.from_numpy(np.fromfile(d / "chain.out", np.int32)).reshape(3, n, F.limbs)
-    return torch.from_numpy(x), torch.from_numpy(y), o[0], o[1], o[2]
+    o = torch.from_numpy(np.fromfile(d / "chain.out", np.int32)).reshape(2, n, F.limbs)
+    return torch.from_numpy(x), torch.from_numpy(y), o[0], o[1]
 
 
 def curve_inputs(n):
@@ -476,10 +396,9 @@ def test_cooperative_curve_kernels(harness, n):
 @pytest.mark.parametrize("field,exponent", [("fp", "p-2"), ("fp", "(p+1)/4"), ("fr", "r-2")])
 def test_chain_kernels(harness, field, exponent):
     """The power chain of one launch, x^e for the Fermat inverse (Fp, Fr)
-    and the square root (Fp), one row per thread and with LANES lanes per
-    row (both lane orders, a guard after the output), and the product of
-    the same field, on 37 rows: the last block ragged for 128 rows per
-    block and for 32, with rows of 0, 1 and m - 1 at both ends and random
+    and the square root (Fp), and the product of the same field, run over
+    the whole grid with a guard after the output, on 37 rows (a ragged
+    last block), with rows of 0, 1 and m - 1 at both ends and random
     canonical values between.  Each equals the plain version bit for bit
     and the host's integers."""
     F = FP.FP_CTX if field == "fp" else FP.FR_CTX
@@ -489,12 +408,10 @@ def test_chain_kernels(harness, field, exponent):
     seed = 300 + len(exponent) + F.limbs
     xv = edge + rand_ints(seed, 31, m) + edge[::-1]
     yv = edge[::-1] + rand_ints(seed + 1, 31, m) + edge
-    x, y, one, lanes, mul = run_chain(harness, F, e, xv, yv)
-    want = F.pow_fixed_plain(x, e)
-    assert torch.equal(one, want)
-    assert torch.equal(lanes, want)
+    x, y, pw, mul = run_chain(harness, F, e, xv, yv)
+    assert torch.equal(pw, F.pow_fixed_plain(x, e))
     r_inv, r_mod = F.r_inv, F.r_mod
-    assert [F.int_of(r) for r in one.numpy()] == [
+    assert [F.int_of(r) for r in pw.numpy()] == [
         pow(v * r_inv % m, e, m) * r_mod % m for v in xv]
     assert torch.equal(mul, F.mont_mul_plain(x, y))
     assert [F.int_of(r) for r in mul.numpy()] == [a * b * r_inv % m for a, b in zip(xv, yv)]

@@ -112,10 +112,40 @@ def _check_from_int_to_int_and_jax_roundtrip():
     assert torch.equal(port_of(back), t)
 
 
+def _check_pow_chains_match_jax():
+    """The plain chain pow_fixed_plain at the exponents of the inverse
+    (p-2), the square root ((p+1)/4), Euler's criterion ((p-1)/2) and the
+    shared inverse/root chain ((p-3)/4) against host integers, and the
+    root's against fp32.pow_fixed (the inverse's is held against fp32.inv
+    above); inv and sqrt against those chains; is_qr and invsqrt (the last
+    two chains) against fp32.is_qr and fp32.invsqrt and host integers.
+    Rows 0, 1, p-1, a square and random values; on the CPU the wrappers
+    run the plain chain."""
+    vals = EDGE + [4] + rand_ints(11, 4)
+    a = FP.from_int(vals)
+    ja = jax_of(a)
+    chains = {}
+    for e in (P - 2, (P + 1) // 4, (P - 1) // 2, (P - 3) // 4):
+        chains[e] = FP.pow_fixed_plain(a, e)
+        assert list(FP.to_int(chains[e])) == [pow(v, e, P) for v in vals]
+    assert torch.equal(chains[(P + 1) // 4], port_of(F8.pow_fixed(CTX, ja, (P + 1) // 4)))
+    assert torch.equal(FP.inv(a), chains[P - 2])
+    assert torch.equal(FP.sqrt(a), chains[(P + 1) // 4])
+    qr = FP.is_qr(a)
+    assert qr.tolist() == np.asarray(F8.is_qr(CTX, ja)).tolist()
+    assert qr.tolist() == [pow(v, (P - 1) // 2, P) in (0, 1) for v in vals]
+    inv_, root = FP.invsqrt(a)
+    j_inv, j_root = F8.invsqrt(CTX, ja)
+    assert torch.equal(inv_, port_of(j_inv)) and torch.equal(root, port_of(j_root))
+    assert torch.equal(inv_, chains[P - 2])
+    assert torch.equal(FP.mont_mul(root, root)[qr], a[qr])
+
+
 def test_fp_layer_matches_jax():
     """One test for the file's checks (the tier-1 run's worker schedule
     depends on the number of tests collected)."""
     _check_mont_mul_plain_matches_jax()
+    _check_pow_chains_match_jax()
     _check_add_sub_neg_inv_match_jax()
     _check_eq_is_zero_mul_small_add_raw()
     _check_from_int_to_int_and_jax_roundtrip()
