@@ -11,7 +11,8 @@ Phases, one line each; any failure raises and ends the run non-zero:
   build    nvcc seconds; registers, spills and shared memory per kernel
   kernels  K1-K7 at the row counts their paths give them (K1: the
            pairing's products at 2B, its power chain x^(p-2) at 512, 2048
-           and 8192 rows, the Fr product and the Fr chain x^(r-2) at 8192;
+           and 8192 rows, x^((p+1)/4) (G1Vec.parse's square root) at 8192,
+           the Fr product and the Fr chain x^(r-2) at 8192;
            K3: the pairing at B = 2048; K2 at each row count the pairing
            launches it at, B to 15B, K4 at 2B and 3B; K5: one MSM bucket
            step, 64 lanes x 33 windows; K6, K7: one GLV ladder step at
@@ -22,7 +23,9 @@ Phases, one line each; any failure raises and ends the run non-zero:
            P = Q and P = -Q in their first and last rows, checked against
            host points); device time of both (CUDA graph replays timed
            with CUDA events) and the kernel's time when issued eagerly from
-           Python
+           Python.  A chain's bound counts the least work of x^e: the
+           sliding-window chain with the fewest multiply-adds, squarings at
+           their own count
   pairing  `pair_batch` at B = 2048 (32 distinct pairs, tiled): GT bytes
            against tests/vectors/reference.json, bilinearity, infinity
            masks, 4 rows recomputed on the CPU, pairings/s, launches of
@@ -52,7 +55,9 @@ clock, and its top kernels.
 
 Then a JSON line of per-kernel numbers (with each kernel's device ms at
 each row count it was timed at, and per path the launch-weighted device ms
-and bound of one call, every launch at its own measured row count),
+and bound of one call, every launch at its own measured row count; a
+power chain has an entry per exponent, and a path's chain launches count
+only under the entry of their exponent),
 nvidia-smi's line, and as the last line {"ok": true, "device": {...}}.
 Imports nothing of the JAX package.
 """
@@ -87,6 +92,11 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 MULADDS_PER_PRODUCT = 2 * (144 + 144) + 12
 #: the same for one 8-limb Fr product
 FR_MULADDS_PER_PRODUCT = 2 * (64 + 64) + 8
+#: 32-bit multiply-adds of one Montgomery squaring: the 78 (Fp) or 36 (Fr)
+#: distinct wide products of a*a and the reduction's 144 or 64, each counted
+#: twice, plus the low products for m
+SQR_MULADDS = 2 * (78 + 144) + 12
+FR_SQR_MULADDS = 2 * (36 + 64) + 8
 #: K2 and K4's row counts per pairing row: every count the pairing launches
 #: them at; the first is the headline
 K2_ROWS_PER_PAIR = (15, 1, 2, 3, 4, 5, 6)
@@ -96,6 +106,8 @@ K4_ROWS_PER_PAIR = (3, 2)
 RAGGED = 7
 #: kernel -> launches per path and row count, read right after each path
 ROWS_BY_PATH: dict[str, dict[str, dict[int, int]]] = {}
+#: power chain -> launches per path and (row count, exponent), read alike
+EXPS_BY_PATH: dict[str, dict[str, dict[tuple[int, int], int]]] = {}
 #: aten ops that only make a view (no kernel launch)
 _VIEW_OPS = {"select", "slice", "unsqueeze", "view", "expand", "unbind", "alias",
              "as_strided", "_unsafe_view", "t", "transpose", "permute", "squeeze",
@@ -154,9 +166,32 @@ def _rand_fr(rng, n):
     return w.astype(np.uint32).view(np.int32)
 
 
-def _chain_products(e: int) -> int:
-    """Products of the square-and-multiply chain of x^e (e >= 1)."""
-    return e.bit_length() - 1 + bin(e).count("1") - 1
+def _sliding_window(e: int, w: int) -> tuple[int, int]:
+    """(squarings, products) of x^e (e >= 1) by a sliding window of w bits:
+    the odd powers x^3, x^5, ... up to the largest window, from x and x^2,
+    then a squaring per bit after the first window and a product per later
+    window."""
+    bits, i, sq, mul, top = bin(e)[2:], 0, 0, 0, 1
+    while i < len(bits):
+        if bits[i] == "0":
+            sq, i = sq + 1, i + 1
+            continue
+        j = min(i + w, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        if i:
+            sq, mul = sq + j - i, mul + 1
+        top, i = max(top, int(bits[i:j], 2)), j
+    return (sq + 1, mul + (top - 1) // 2) if top > 1 else (sq, mul)
+
+
+def _least_chain(e: int, sqr_ops: int, mul_ops: int) -> dict:
+    """The least work of x^e: of the sliding windows of 1 to 8 bits, the
+    one whose squarings and products take the fewest 32-bit multiply-adds.
+    The kernel's own chain (binary, a product per set bit) does more."""
+    return min(({"window": w, "squarings": sq, "products": m, "ops": sq * sqr_ops + m * mul_ops}
+                for w in range(1, 9) for sq, m in [_sliding_window(e, w)]),
+               key=lambda c: c["ops"])
 
 
 def _edges(x, vals, last=False):
@@ -273,32 +308,38 @@ def phase_kernels(dev):
     b[q + 1] = 0
     k1 = ("crypto12381_tpu_torch/csrc/fp.cu", "crypto12381_tpu/fields/fp32.py:354")
     specs.append(("K1 mont_mul (Fp)", "fp_mont_mul", *k1, FP.mont_mul, FP.mont_mul_plain,
-                  {n: (a, b)}, n, MULADDS_PER_PRODUCT, None))
-    # K1's power chain, one launch per chain: the Fermat inversion x^(p-2) at
-    # the row counts of the MSM (512), the pairing (2,048) and G1Vec.parse
-    # (8,192, where the chain is x^((p+1)/4), of the same length), and at a
-    # ragged count; the Fr product and the Fr chain x^(r-2) at the zp phase's
-    # 8,192 rows and a ragged count.  Edge rows 0, 1 and m-1 at both ends.
+                  {n: (a, b)}, n, MULADDS_PER_PRODUCT, None, None))
+
+    def field_rows(F, r, vals):
+        """r random canonical rows of F, the values vals at both ends."""
+        x = _rand_fp(rng, r, 1) if F is FP.FP_CTX else _rand_fr(rng, r)
+        return torch.from_numpy(_edges(x, vals, last=True)[:, 0]).to(dev)
+
+    # The Fr product at the zp phase's 8,192 rows and a ragged count.  K1's
+    # power chain, one launch per chain, an entry per exponent: the Fermat
+    # inversion x^(p-2) at the row counts of the MSM (512) and the pairing
+    # (2,048) and at 8,192, the square root x^((p+1)/4) of G1Vec.parse at
+    # 8,192 and the Fr inversion x^(r-2) of the zp phase at 8,192, each also
+    # at a ragged count.  Edge rows 0, 1 and m-1 at both ends.
     fr = FP.FR_CTX
-    for F, e, counts, fn_c in ((FP.FP_CTX, P - 2, (B // 4, B, G1_B, B + RAGGED),
-                                "fp_pow_fixed"),
-                               (fr, fr.modulus - 2, (G1_B, G1_B + RAGGED), "fr_pow_fixed")):
-        m, tag = F.modulus, f"({F.name.capitalize()})"
-        rand = (lambda r: _rand_fp(rng, r, 1)) if F is FP.FP_CTX else (lambda r: _rand_fr(rng, r))
-        ins = {r: (torch.from_numpy(_edges(rand(r), [0, 1, m - 1], last=True)[:, 0]).to(dev),)
-               for r in counts}
-        if F is fr:
-            b_fr = {r: torch.from_numpy(_edges(_rand_fr(rng, r), [m - 1, 1, 0], last=True)[:, 0])
-                    .to(dev) for r in counts}
-            specs.append((f"K1 mont_mul {tag}", "fr_mont_mul", *k1, fr.mont_mul, fr.mont_mul_plain,
-                          {r: (ins[r][0], b_fr[r]) for r in counts}, counts[0],
-                          FR_MULADDS_PER_PRODUCT, None))
-        per = MULADDS_PER_PRODUCT if F is FP.FP_CTX else FR_MULADDS_PER_PRODUCT
-        plain = (lambda F, e: lambda x: F.pow_fixed_plain(x, e))(F, e)
-        headline = counts[1] if F is FP.FP_CTX else counts[0]
-        specs.append((f"K1 pow_fixed {tag}", fn_c, *k1,
-                      (lambda F, e: lambda x: F.pow_fixed(x, e))(F, e), plain, ins, headline,
-                      _chain_products(e) * per, None))
+    r_edge = [0, 1, fr.modulus - 1]
+    fr_counts = (G1_B, G1_B + RAGGED)
+    specs.append(("K1 mont_mul (Fr)", "fr_mont_mul", *k1, fr.mont_mul, fr.mont_mul_plain,
+                  {r: (field_rows(fr, r, r_edge), field_rows(fr, r, r_edge[::-1]))
+                   for r in fr_counts}, G1_B, FR_MULADDS_PER_PRODUCT, None, None))
+    for F, label, e, counts, headline in (
+        (FP.FP_CTX, "p-2", P - 2, (B // 4, B, G1_B, B + RAGGED), B),
+        (FP.FP_CTX, "(p+1)/4", (P + 1) // 4, (G1_B, G1_B + RAGGED), G1_B),
+        (fr, "r-2", fr.modulus - 2, fr_counts, G1_B),
+    ):
+        costs = ((SQR_MULADDS, MULADDS_PER_PRODUCT) if F is FP.FP_CTX
+                 else (FR_SQR_MULADDS, FR_MULADDS_PER_PRODUCT))
+        least = _least_chain(e, *costs)
+        specs.append((f"K1 pow_fixed ({F.name.capitalize()}) x^({label})", f"{F.name}_pow_fixed",
+                      *k1, (lambda F, e: lambda x: F.pow_fixed(x, e))(F, e),
+                      (lambda F, e: lambda x: F.pow_fixed_plain(x, e))(F, e),
+                      {r: (field_rows(F, r, [0, 1, F.modulus - 1]),) for r in counts}, headline,
+                      least.pop("ops"), None, (e, least)))
     # K2: 15 rows per pairing row in the sparse multiply, B to 6B in the
     # line coefficients and G2 steps; K3: 9 (cyclotomic square); K4: 3
     # (Fp12 product) and 2 (Fp12 square), each also at a ragged count.  Each
@@ -320,7 +361,7 @@ def phase_kernels(dev):
                 for i in range(n_in))
         specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/tower.cu",
                       f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, counts[0],
-                      prod * MULADDS_PER_PRODUCT, None))
+                      prod * MULADDS_PER_PRODUCT, None, None))
     # K5: one MSM bucket step (lanes x windows rows); K6, K7: one GLV ladder
     # step of the g1 phase's batch; each also at a ragged row count (blocks
     # of 16, 16 and 32 instances), with the edge rows in the last block
@@ -334,9 +375,10 @@ def phase_kernels(dev):
             ins[r], edge_want[r] = _curve_inputs(rng, name.split()[1], r, dev)
         specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/g1.cu",
                       f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, rows,
-                      prod * MULADDS_PER_PRODUCT, edge_want))
+                      prod * MULADDS_PER_PRODUCT, edge_want, None))
     results = []
-    for name, fn_c, src, repl, kern, plain, ins_by_rows, rows, ops_per_row, edge_want in specs:
+    for (name, fn_c, src, repl, kern, plain, ins_by_rows, rows, ops_per_row, edge_want,
+         chain) in specs:
         ms_by_rows, outs, err = {}, {}, 0.0
         for r, ins in sorted(ins_by_rows.items()):
             got = outs[r] = kern(*ins)
@@ -369,10 +411,13 @@ def phase_kernels(dev):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "bytes_per_row": bytes_per_row, "ops_per_row": ops_per_row,
             "fns": (kern, plain), "row_shapes": [tuple(t.shape[1:]) for t in ins],
+            "exponent": chain and chain[0],
+            **({"least_chain": chain[1]} if chain else {}),
         })
     line = "; ".join(
         f"{r['name']} rows={r['rows']} equal=True ms={r['ms']:.6f} eager_ms={r['eager_ms']:.6f} "
         f"plain_ms={r['plain_ms']:.6f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']})"
+        + (f" least_chain={r['least_chain']}" if "least_chain" in r else "")
         + (f" ms_by_rows={ {k: round(v, 6) for k, v in r['ms_by_rows'].items()} }"
            if len(r["ms_by_rows"]) > 1 else "")
         for r in results)
@@ -399,7 +444,7 @@ def phase_rows(dev, kernels) -> None:
     done = []
     for k in kernels:
         kern, plain = k["fns"]
-        rows = sorted({r for per in ROWS_BY_PATH.values() for r in per.get(k["c_function"], {})}
+        rows = sorted({r for per in _launch_rows(k).values() for r in per}
                       - set(k["ms_by_rows"]))
         for r in rows:
             ins = tuple(torch.from_numpy(
@@ -413,6 +458,33 @@ def phase_rows(dev, kernels) -> None:
         k["ms_by_rows"] = dict(sorted(k["ms_by_rows"].items()))
         done.append(f"{k['name']} timed_rows={rows}")
     print(f"rows: equal=True {'; '.join(done)}", flush=True)
+
+
+def _launch_rows(k: dict) -> dict:
+    """Per path, the kernel's launches in one call by row count; a power
+    chain's only those at its own exponent."""
+    fn, e = k["c_function"], k["exponent"]
+    if e is None:
+        return {path: rows[fn] for path, rows in ROWS_BY_PATH.items() if fn in rows}
+    out = {}
+    for path, chains in EXPS_BY_PATH.items():
+        rows = {r: c for (r, ee), c in sorted(chains.get(fn, {}).items()) if ee == e}
+        if rows:
+            out[path] = rows
+    return out
+
+
+def _check_chains_timed(kernels) -> None:
+    """Fails if a path launched a power chain at an exponent that has no
+    entry in the kernels phase (then it was never held against its plain
+    version, nor timed)."""
+    have = {(k["c_function"], k["exponent"]) for k in kernels}
+    for path, chains in EXPS_BY_PATH.items():
+        for fn, counts in chains.items():
+            for _, e in counts:
+                if (fn, e) not in have:
+                    raise SystemExit(f"{path}: {fn} launched at an exponent the kernels phase "
+                                     f"did not check: {e:#x}")
 
 
 def _weighted(k: dict) -> None:
@@ -432,7 +504,8 @@ def _weighted(k: dict) -> None:
 
 def _path_launches(path: str, kernels) -> dict:
     """The launch counts since the last reset (and, in ROWS_BY_PATH, per
-    row count); fails if a kernel of the path never launched."""
+    row count; in EXPS_BY_PATH, a power chain's per row count and
+    exponent); fails if a kernel of the path never launched."""
     import crypto12381_tpu_torch as T
 
     launches = {k: T.LAUNCHES[k] for k in kernels}
@@ -440,6 +513,8 @@ def _path_launches(path: str, kernels) -> dict:
     if missing:
         raise SystemExit(f"{path}: kernels never launched on the path: {missing}")
     ROWS_BY_PATH[path] = {k: dict(sorted(T.LAUNCH_ROWS[k].items())) for k in kernels}
+    EXPS_BY_PATH[path] = {k: dict(T.LAUNCH_EXPONENTS[k]) for k in kernels
+                          if k in T.LAUNCH_EXPONENTS}
     return launches
 
 
@@ -565,7 +640,6 @@ def phase_pairing(dev, trace: bool):
           f"{ {k: ROWS_BY_PATH['pairing'][k] for k in ('fp2_mul', 'fp6_mul')} } "
           f"{ops} max_memory_allocated={peak} {traced}",
           flush=True)
-    return launches
 
 
 def phase_g1(dev, trace: bool):
@@ -630,7 +704,7 @@ def phase_g1(dev, trace: bool):
           f"launches_per_call={launches} {ops} {traced}", flush=True)
     print(f"parse: B={G1_B} round_trip=True parse_s={parse_s:.4f} "
           f"launches_per_call={parse_launches} launch_rows={ROWS_BY_PATH['parse']}", flush=True)
-    return pts, a, launches, parse_launches
+    return pts, a
 
 
 def phase_msm(dev, pts, a, trace: bool):
@@ -687,7 +761,6 @@ def phase_msm(dev, pts, a, trace: bool):
           f"call_s={[round(t, 4) for t in times]} points_per_s={rate:.1f} "
           f"launches_per_call={launches} {ops} max_memory_allocated={peak} {traced}",
           flush=True)
-    return launches
 
 
 def phase_zp(dev):
@@ -734,7 +807,6 @@ def phase_zp(dev):
     torch.cuda.synchronize()
     print(f"zp: B={G1_B} checks={checks} first_s={first_s:.4f} launches_per_call={launches} "
           f"launches_per_op={per_op}", flush=True)
-    return launches
 
 
 def main() -> None:
@@ -761,19 +833,20 @@ def main() -> None:
     print(f"build: {build_s:.1f}s ptxas={regs}", flush=True)
 
     kernels = phase_kernels(dev)
-    by_path = {"pairing": phase_pairing(dev, args.trace)}
-    pts, a, by_path["g1"], by_path["parse"] = phase_g1(dev, args.trace)
-    by_path["msm"] = phase_msm(dev, pts, a, args.trace)
-    by_path["zp"] = phase_zp(dev)
+    phase_pairing(dev, args.trace)
+    pts, a = phase_g1(dev, args.trace)
+    phase_msm(dev, pts, a, args.trace)
+    phase_zp(dev)
+    _check_chains_timed(kernels)
     phase_rows(dev, kernels)
     for k in kernels:
-        fn = k.pop("c_function")
-        k["launches_by_path"] = {path: n[fn] for path, n in by_path.items() if fn in n}
+        k["launch_rows_by_path"] = _launch_rows(k)
+        k["launches_by_path"] = {path: sum(rows.values())
+                                 for path, rows in k["launch_rows_by_path"].items()}
         k["launches"] = sum(k["launches_by_path"].values())
-        k["launch_rows_by_path"] = {path: rows[fn] for path, rows in ROWS_BY_PATH.items()
-                                    if fn in rows}
         _weighted(k)
-        for key in ("rows", "bytes_per_row", "ops_per_row", "fns", "row_shapes"):
+        for key in ("c_function", "exponent", "rows", "bytes_per_row", "ops_per_row", "fns",
+                    "row_shapes"):
             k.pop(key)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -12,10 +12,10 @@ kernel, a CPU tensor runs the kernel's plain PyTorch version.
     acc = pts.msm(ZpVec.from_ints(more_scalars))              # Pippenger
 """
 
-from ._build import LAUNCH_ROWS, LAUNCHES, reset_launches
+from ._build import LAUNCH_EXPONENTS, LAUNCH_ROWS, LAUNCHES, reset_launches
 from .api.batch import G1Vec, ZpVec
 from .msm.pippenger import msm_g1
 from .pairing.pairing import pair_batch, pairing_affine
 
-__all__ = ["LAUNCHES", "LAUNCH_ROWS", "G1Vec", "ZpVec", "msm_g1", "pair_batch",
-           "pairing_affine", "reset_launches"]
+__all__ = ["LAUNCHES", "LAUNCH_EXPONENTS", "LAUNCH_ROWS", "G1Vec", "ZpVec", "msm_g1",
+           "pair_batch", "pairing_affine", "reset_launches"]

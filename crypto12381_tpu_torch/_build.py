@@ -11,8 +11,9 @@ also a public exponent: a host pointer to its words and its bit length),
 the row count and a CUDA stream, launches on that stream, and returns
 `cudaGetLastError()`;
 `launch` raises if that is not 0 and otherwise adds one to the kernel's
-launch count in `LAUNCHES`, and to its count at that row count in
-`LAUNCH_ROWS`.
+launch count in `LAUNCHES`, to its count at that row count in
+`LAUNCH_ROWS`, and for a power chain to its count at that row count and
+exponent in `LAUNCH_EXPONENTS`.
 """
 
 from __future__ import annotations
@@ -40,8 +41,6 @@ _LIBS_SPEC = {
 _HEADERS = ("fp381.cuh",)
 #: C functions that take a public exponent after their tensors
 EXPONENT_FNS = frozenset({"fp_pow_fixed", "fr_pow_fixed"})
-#: 32-bit words of that exponent (csrc/fp.cu EXP_WORDS)
-EXP_WORDS = 12
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -51,6 +50,8 @@ NVCC_FLAGS = (
 LAUNCHES = {fn: 0 for _, fns in _LIBS_SPEC.values() for fn in fns}
 #: launches per C function and row count, counted by `launch`
 LAUNCH_ROWS = {fn: collections.Counter() for fn in LAUNCHES}
+#: launches per power-chain function and (row count, exponent), counted by `launch`
+LAUNCH_EXPONENTS = {fn: collections.Counter() for fn in EXPONENT_FNS}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 #: library name -> nvcc's output (ptxas register and spill report)
@@ -61,6 +62,8 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
         LAUNCH_ROWS[k].clear()
+    for c in LAUNCH_EXPONENTS.values():
+        c.clear()
 
 
 def _nvcc() -> str:
@@ -129,16 +132,18 @@ def library(name: str) -> ctypes.CDLL:
 
 def _exponent_args(fn: str, exponent) -> list:
     """The exponent arguments of `fn`: [] for a kernel that takes none, else
-    a host array of e's EXP_WORDS words and e's bit length (1 <= e < 2^384)."""
+    a host array of e's (bits + 31) // 32 words and e's bit length.  The C
+    entry point alone holds the largest length it takes and refuses a
+    longer e (csrc/fp.cu `exponent_of`)."""
     if (exponent is not None) != (fn in EXPONENT_FNS):
         raise ValueError(f"{fn}: an exponent is {'' if fn in EXPONENT_FNS else 'not '}expected")
     if exponent is None:
         return []
     e = int(exponent)
-    if not 0 < e < 1 << (32 * EXP_WORDS):
-        raise ValueError(f"{fn}: exponent out of range [1, 2^{32 * EXP_WORDS})")
-    words = (ctypes.c_uint32 * EXP_WORDS)(*[(e >> (32 * k)) & 0xFFFFFFFF
-                                             for k in range(EXP_WORDS)])
+    if e < 1:
+        raise ValueError(f"{fn}: the exponent must be at least 1")
+    n_words = (e.bit_length() + 31) // 32
+    words = (ctypes.c_uint32 * n_words)(*[(e >> (32 * k)) & 0xFFFFFFFF for k in range(n_words)])
     return [ctypes.cast(words, ctypes.c_void_p), e.bit_length()]
 
 
@@ -164,3 +169,5 @@ def launch(lib_name: str, fn: str, tensors, n: int, exponent: int | None = None)
         raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
     LAUNCHES[fn] += 1
     LAUNCH_ROWS[fn][n] += 1
+    if exponent is not None:
+        LAUNCH_EXPONENTS[fn][(n, int(exponent))] += 1

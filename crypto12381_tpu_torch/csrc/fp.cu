@@ -23,8 +23,9 @@
 // only on set bits; the exponent is a kernel parameter, so the branch is
 // uniform over the warp.  A row is a chain of dependent products (608 for
 // p - 2, 417 for r - 2), so the time is each row's latency through the
-// chain, not the card's throughput (at 2,048 rows the products would take
-// 0.044 ms at the card's integer rate); acc and x stay in registers.  A
+// chain, not the card's throughput (at 2,048 rows the least work of
+// x^(p-2), a 5-bit sliding window of 378 squarings and 82 products, would
+// take 0.027 ms at the card's integer rate); acc and x stay in registers.  A
 // lane-cooperative chain (2 or 4 lanes per row, each holding N / TPI limbs,
 // b_i and m broadcast by warp shuffles and carries resolved by ballots, as
 // NVlabs' CGBN does) was slower on an H100 at 512 to 8,192 rows: the
@@ -48,8 +49,9 @@ mont_mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
   store<N>(out + i * N, x);
 }
 
-// A public exponent e >= 1 of up to 384 bits: little-endian words and the
-// bit length.
+// A public exponent 1 <= e < 2^(32 EXP_WORDS): little-endian words and the
+// bit length.  Only this file fixes the limit: the host passes e's bit
+// length and (bits + 31) / 32 words, and `exponent_of` refuses a longer e.
 constexpr int EXP_WORDS = 12;
 struct Exponent {
   uint32_t w[EXP_WORDS];
@@ -77,11 +79,13 @@ pow_fixed_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
   store<N>(out + i * N, acc);
 }
 
-inline Exponent exponent_of(const uint32_t* words, int bits) {
-  Exponent e;
-  for (int k = 0; k < EXP_WORDS; ++k) e.w[k] = words[k];
-  e.bits = bits;
-  return e;
+// e from its bit length and its (bits + 31) / 32 host words; false if the
+// bit length is outside [1, 32 EXP_WORDS].
+inline bool exponent_of(const uint32_t* words, int bits, Exponent* e) {
+  if (bits < 1 || bits > 32 * EXP_WORDS) return false;
+  for (int k = 0; k < EXP_WORDS; ++k) e->w[k] = k < (bits + 31) / 32 ? words[k] : 0u;
+  e->bits = bits;
+  return true;
 }
 
 extern "C" int fp_mont_mul(const void* a, const void* b, void* out, int64_t n, void* stream) {
@@ -100,22 +104,27 @@ extern "C" int fr_mont_mul(const void* a, const void* b, void* out, int64_t n, v
   return (int)cudaGetLastError();
 }
 
-// x, out: (n, N) rows; words: EXP_WORDS host words of e >= 1; bits: e's bit
-// length.
+// x, out: (n, N) rows; words: the (bits + 31) / 32 host words of e >= 1;
+// bits: e's bit length.  An e past the limit launches nothing and returns
+// cudaErrorInvalidValue.
 extern "C" int fp_pow_fixed(const void* x, void* out, const uint32_t* words, int bits, int64_t n,
                             void* stream) {
+  Exponent e;
+  if (!exponent_of(words, bits, &e)) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     pow_fixed_kernel<NL><<<(unsigned)blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)x, (uint32_t*)out, exponent_of(words, bits), n);
+        (const uint32_t*)x, (uint32_t*)out, e, n);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int fr_pow_fixed(const void* x, void* out, const uint32_t* words, int bits, int64_t n,
                             void* stream) {
+  Exponent e;
+  if (!exponent_of(words, bits, &e)) return (int)cudaErrorInvalidValue;
   if (n > 0) {
     pow_fixed_kernel<FR_NL><<<(unsigned)blocks_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)x, (uint32_t*)out, exponent_of(words, bits), n);
+        (const uint32_t*)x, (uint32_t*)out, e, n);
   }
   return (int)cudaGetLastError();
 }

@@ -14,11 +14,12 @@ threads of each phase in reverse order, and fails if the outputs differ
 The outputs must equal the plain PyTorch versions bit for bit: on
 canonical operands with the edge values 0, 1 and p-1; for K1 on pre-sums
 up to 2p-2; for the chains x^(p-2), x^((p+1)/4) and x^(r-2) and the Fr
-product over a whole grid with a ragged last block and edge rows at both
-ends, with a guard after the output; for K2-K4 at row counts below, at
-and between multiples of a block's instances, with rows of all-0, all-1
-and all-(p-1) operands at both ends of the launch (all p-1 gives the
-largest pre-sums); and for the curve kernels K5-K7 on curve points with
+product over a whole grid (one ragged block, and full blocks before a
+ragged one) with edge rows at both ends and a guard after the output,
+the exponent passed as the C entry points pass it; for K2-K4 at row
+counts below, at and between multiples of a block's instances, with rows
+of all-0, all-1 and all-(p-1) operands at both ends of the launch (all
+p-1 gives the largest pre-sums); and for the curve kernels K5-K7 on curve points with
 the identity, P = Q and P = -Q among them, also at row counts below, at
 and between multiples of a block, with those rows at both ends of the
 launch. The header's copies of p, r and their n0' must equal params.py's.
@@ -112,14 +113,22 @@ bool coop(std::vector<uint32_t>& o, Ph phase, int64_t n, int per, int threads, i
   return true;
 }
 // The chain kernel x^e and the product of an N-limb field on n rows, one
-// row per thread over the whole grid, with a guard after each output.
+// row per thread over the whole grid, with a guard after each output.  The
+// exponent comes as the C entry points get it: its bit length, then its
+// (bits + 31) / 32 words; `exponent_of` must refuse the lengths 0 and
+// 32 EXP_WORDS + 1.
 template <int N>
 int chains(const char* in, const char* outp) {
   FILE* f = fopen(in, "rb");
   int64_t n;
+  int bits;
   Exponent e;
-  if (fread(&n, 8, 1, f) != 1 || fread(e.w, 4, EXP_WORDS, f) != (size_t)EXP_WORDS ||
-      fread(&e.bits, 4, 1, f) != 1) return 1;
+  if (fread(&n, 8, 1, f) != 1 || fread(&bits, 4, 1, f) != 1 || bits < 1) return 1;
+  std::vector<uint32_t> words((bits + 31) / 32);
+  if (fread(words.data(), 4, words.size(), f) != words.size()) return 1;
+  if (exponent_of(words.data(), 0, &e) || exponent_of(words.data(), 32 * EXP_WORDS + 1, &e) ||
+      !exponent_of(words.data(), bits, &e))
+    return 3;
   std::vector<uint32_t> x(n * N), y(n * N);
   if (fread(x.data(), 4, n * N, f) != (size_t)(n * N)) return 1;
   if (fread(y.data(), 4, n * N, f) != (size_t)(n * N)) return 1;
@@ -242,9 +251,10 @@ def run_chain(harness, F, e, xv, yv):
     n = len(xv)
     x = np.stack([F.limbs_of(v) for v in xv])
     y = np.stack([F.limbs_of(v) for v in yv])
-    words = np.array([(e >> (32 * k)) & 0xFFFFFFFF for k in range(12)], np.uint32)
+    words = np.array([(e >> (32 * k)) & 0xFFFFFFFF for k in range((e.bit_length() + 31) // 32)],
+                     np.uint32)
     with open(d / "chain.bin", "wb") as f:
-        f.write(np.int64(n).tobytes() + words.tobytes() + np.int32(e.bit_length()).tobytes()
+        f.write(np.int64(n).tobytes() + np.int32(e.bit_length()).tobytes() + words.tobytes()
                 + x.tobytes() + y.tobytes())
     subprocess.run([str(exe), "chain", str(F.limbs), str(d / "chain.bin"), str(d / "chain.out")],
                    check=True, timeout=600)
@@ -393,21 +403,23 @@ def test_cooperative_curve_kernels(harness, n):
             C.g1_mul(C.G1_GEN, k) for k in want]
 
 
+@pytest.mark.parametrize("n", [37, 261])
 @pytest.mark.parametrize("field,exponent", [("fp", "p-2"), ("fp", "(p+1)/4"), ("fr", "r-2")])
-def test_chain_kernels(harness, field, exponent):
+def test_chain_kernels(harness, field, exponent, n):
     """The power chain of one launch, x^e for the Fermat inverse (Fp, Fr)
     and the square root (Fp), and the product of the same field, run over
-    the whole grid with a guard after the output, on 37 rows (a ragged
-    last block), with rows of 0, 1 and m - 1 at both ends and random
-    canonical values between.  Each equals the plain version bit for bit
-    and the host's integers."""
+    the whole grid with a guard after the output: 37 rows (one ragged
+    block of 128 threads) and 261 (two full blocks and a ragged one), with
+    rows of 0, 1 and m - 1 at both ends and random canonical values
+    between.  Each equals the plain version bit for bit and the host's
+    integers."""
     F = FP.FP_CTX if field == "fp" else FP.FR_CTX
     m = F.modulus
     e = {"p-2": m - 2, "(p+1)/4": (m + 1) // 4, "r-2": m - 2}[exponent]
     edge = [0, 1, m - 1]
-    seed = 300 + len(exponent) + F.limbs
-    xv = edge + rand_ints(seed, 31, m) + edge[::-1]
-    yv = edge[::-1] + rand_ints(seed + 1, 31, m) + edge
+    seed = 300 + len(exponent) + F.limbs + n
+    xv = edge + rand_ints(seed, n - 6, m) + edge[::-1]
+    yv = edge[::-1] + rand_ints(seed + 1, n - 6, m) + edge
     x, y, pw, mul = run_chain(harness, F, e, xv, yv)
     assert torch.equal(pw, F.pow_fixed_plain(x, e))
     r_inv, r_mod = F.r_inv, F.r_mod
