@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels and drive its batched pairing,
-G1 scalar multiplication, G1 MSM, G1 point parsing and scalar arithmetic
-on one CUDA card.
+G1 scalar multiplication, G1 MSM, G1 point parsing, scalar arithmetic and
+Pointcheval-Sanders batch signing and verification on one CUDA card.
 
     python3 chip_smoke.py            # the smoke run
     python3 chip_smoke.py --trace    # and one profiled call of each path
@@ -10,8 +10,9 @@ Phases, one line each; any failure raises and ends the run non-zero:
   device   card name and count, nvidia-smi's name and power limit
   build    nvcc seconds; registers, spills and shared memory per kernel
   kernels  K1-K7 at the row counts their paths give them (K1: the
-           pairing's products at 2B, its power chain x^(p-2) at 512, 2048
-           and 8192 rows, x^((p+1)/4) (G1Vec.parse's square root) at 8192,
+           pairing's products at 2B, its power chain x^(p-2) at 512, 1024
+           (PS signing's affine), 2048 and 8192 rows, x^((p+1)/4)
+           (G1Vec.parse's square root) at 512 (PS verification) and 8192,
            the Fr product and the Fr chain x^(r-2) at 8192;
            K3: the pairing at B = 2048; K2 at each row count the pairing
            launches it at, B to 15B, K4 at 2B and 3B; K5: one MSM bucket
@@ -43,21 +44,32 @@ Phases, one line each; any failure raises and ends the run non-zero:
   zp       `ZpVec` + - * neg inverse at 8192 rows (0, 1 and r-1 among
            them): every row against host integers mod r, 4 rows against
            the CPU plain path; launches per call and per operation
+  ps       PS on the card: the flow of tests/vectors/ps_flow.json (seed
+           "seed", B = 1) byte for byte; then the JAX bench's configuration
+           (seed "bench-ps", B = 512 messages b"bench-%06d"): `sign_batch`
+           (the counted first call, then 3 timed ones on the same stream),
+           8 signatures' s2 against the host ladder s1^(x + y m), 4 against
+           the CPU path; `verify_batch` of the 512 (counted, then 3 timed),
+           rotated messages (all rejected), one swapped s2 (that row
+           rejected), an x off the curve (raises); signs/s, verifies/s,
+           first-call seconds, peak device memory, launches per sign and per
+           verify call, and the torch ops of one verify call
   rows     every kernel at each row count the paths launched it at that the
            kernels phase did not time, on random canonical operands: held
            bit for bit against its plain version, device time
 
 Each path runs with the launch counts set to 0 just before it and read
-just after; every kernel of the path must have launched.  With --trace,
-each of the pairing, g1 and msm lines also gives one call under
+just after; every kernel of the path must have launched (PS signing and
+verification are two paths).  With --trace, each of the pairing, g1, msm
+and ps lines also gives one call (ps: one verify call) under
 torch.profiler: the summed device time of its kernels against the host
 clock, and its top kernels.
 
-Then a JSON line of per-kernel numbers (with each kernel's device ms at
-each row count it was timed at, and per path the launch-weighted device ms
-and bound of one call, every launch at its own measured row count; a
-power chain has an entry per exponent, and a path's chain launches count
-only under the entry of their exponent),
+Then the wall seconds of each phase, a JSON line of per-kernel numbers
+(with each kernel's device ms at each row count it was timed at, and per
+path the launch-weighted device ms and bound of one call, every launch at
+its own measured row count; a power chain has an entry per exponent, and
+a path's chain launches count only under the entry of their exponent),
 nvidia-smi's line, and as the last line {"ok": true, "device": {...}}.
 Imports nothing of the JAX package.
 """
@@ -79,6 +91,7 @@ DISTINCT = 32
 ARGS = argparse.ArgumentParser(description="Drive the port's kernels and paths on one card.")
 ARGS.add_argument("--trace", action="store_true", help="one torch.profiler call of each path")
 G1_B = 8192                    # GLV batch, and the MSM's distinct points
+PS_B = 512                     # the JAX bench's PS batch (bench.py:228-268)
 MSM_N = 1 << 16
 MSM_LANES, MSM_WINDOWS = 64, 33     # G1Vec.msm's defaults at c = 8
 SEED = 20261016
@@ -320,7 +333,9 @@ def phase_kernels(dev):
     # inversion x^(p-2) at the row counts of the MSM (512) and the pairing
     # (2,048) and at 8,192, the square root x^((p+1)/4) of G1Vec.parse at
     # 8,192 and the Fr inversion x^(r-2) of the zp phase at 8,192, each also
-    # at a ragged count.  Edge rows 0, 1 and m-1 at both ends.
+    # at a ragged count; and the PS phase's chains, x^(p-2) at 1,024 (the
+    # affine of sign's 2B-row ladder) and x^((p+1)/4) at 512 (verify's
+    # parse), each with a ragged count.  Edge rows 0, 1 and m-1 at both ends.
     fr = FP.FR_CTX
     r_edge = [0, 1, fr.modulus - 1]
     fr_counts = (G1_B, G1_B + RAGGED)
@@ -328,8 +343,8 @@ def phase_kernels(dev):
                   {r: (field_rows(fr, r, r_edge), field_rows(fr, r, r_edge[::-1]))
                    for r in fr_counts}, G1_B, FR_MULADDS_PER_PRODUCT, None, None))
     for F, label, e, counts, headline in (
-        (FP.FP_CTX, "p-2", P - 2, (B // 4, B, G1_B, B + RAGGED), B),
-        (FP.FP_CTX, "(p+1)/4", (P + 1) // 4, (G1_B, G1_B + RAGGED), G1_B),
+        (FP.FP_CTX, "p-2", P - 2, (B // 4, 2 * PS_B, B, G1_B, B + RAGGED, 2 * PS_B + RAGGED), B),
+        (FP.FP_CTX, "(p+1)/4", (P + 1) // 4, (PS_B, G1_B, PS_B + RAGGED, G1_B + RAGGED), G1_B),
         (fr, "r-2", fr.modulus - 2, fr_counts, G1_B),
     ):
         costs = ((SQR_MULADDS, MULADDS_PER_PRODUCT) if F is FP.FP_CTX
@@ -809,6 +824,143 @@ def phase_zp(dev):
           f"launches_per_op={per_op}", flush=True)
 
 
+def _off_curve_x() -> bytes:
+    """A 49-byte G1 encoding whose x is not on the curve (the host codec
+    refuses it): the least such x from 1 up."""
+    from crypto12381_tpu_torch.compat import codec
+
+    x = 1
+    while True:
+        blob = b"\x02" + codec.int_to_bytes(x)
+        try:
+            codec.g1_parse(blob)
+        except ValueError:
+            return blob
+        x += 1
+
+
+def phase_ps(dev, trace: bool):
+    """PS batch signing and verification (K1-K4, K6, K7): the ps_flow.json
+    vector, then the JAX bench's configuration at PS_B messages, with its
+    checks and rejections; signing and verifying are two counted paths."""
+    import torch
+
+    import crypto12381_tpu_torch as T
+    from crypto12381_tpu_torch.api.sets import Zp, hash_, parse
+    from crypto12381_tpu_torch.compat import codec
+    from crypto12381_tpu_torch.compat.csprng import create_random_engine
+    from crypto12381_tpu_torch.host import curve as C
+
+    vec = json.loads((pathlib.Path(__file__).resolve().parent / "tests" / "vectors"
+                      / "ps_flow.json").read_text())
+    r = create_random_engine("seed")
+    keys = T.key_gen(r)
+    msg = b"\x00" * 47 + b"\x17"
+    sig = T.sign_batch(keys.sk, [msg], r)[0]
+    rand_sig = T.randomnize(sig, r)
+    flow = {
+        "keys": (keys.pk.hex() == vec["g2"] + vec["X2"] + vec["Y2"]
+                 and keys.sk.hex() == vec["sk"]),
+        "signature": sig.hex() == vec["signature"],
+        "signature_rand": rand_sig.hex() == vec["signature_rand"],
+        "verify": T.verify_batch(keys.pk, [msg], [rand_sig]).tolist() == [vec["verify"]],
+    }
+    if not all(flow.values()):
+        raise SystemExit(f"ps: the ps_flow.json vector failed: {flow}")
+
+    r = create_random_engine("bench-ps")
+    keys = T.key_gen(r)
+    msgs = [b"bench-%06d" % i for i in range(PS_B)]
+
+    T.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sigs = T.sign_batch(keys.sk, msgs, r)
+    torch.cuda.synchronize()
+    sign_first_s = time.perf_counter() - t0
+    sign_launches = _path_launches("ps_sign", ("fp_mont_mul", "fp_pow_fixed", "g1_add", "g1_dbl"))
+
+    # s2 = s1^(x + y m) by the host ladder and codec, for 8 rows; 4 rows
+    # again on the CPU path, from the same seed
+    x, y = (z.value for z in parse(Zp ** 2, keys.sk))
+    rows = [0, 1, 2, 3, PS_B // 2, PS_B // 2 + 1, PS_B - 2, PS_B - 1]
+    host = [codec.g1_serialize(C.g1_mul(codec.g1_parse(sigs[i][:49]),
+                                        x + y * hash_(msgs[i]).to(Zp).value)) for i in rows]
+    t0 = time.perf_counter()
+    r_cpu = create_random_engine("bench-ps")
+    keys_cpu = T.key_gen(r_cpu)
+    checks = {
+        "host_rows": [sigs[i][49:] for i in rows] == host,
+        "cpu_rows": T.sign_batch(keys_cpu.sk, msgs[:4], r_cpu, device="cpu") == sigs[:4],
+    }
+    if not all(checks.values()):
+        raise SystemExit(f"ps: sign checks failed: {checks}")
+    sign_checks_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    sign_times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        T.sign_batch(keys.sk, msgs, r)
+        torch.cuda.synchronize()
+        sign_times.append(time.perf_counter() - t0)
+    sign_peak = torch.cuda.max_memory_allocated()
+
+    T.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ok = T.verify_batch(keys.pk, msgs, sigs)
+    torch.cuda.synchronize()
+    verify_first_s = time.perf_counter() - t0
+    verify_launches = _path_launches("ps_verify", ("fp_mont_mul", "fp_pow_fixed", "fp2_mul",
+                                                   "fp2_sqr", "fp6_mul", "g1_add", "g1_dbl"))
+    checks["verified"] = int(ok.sum())
+    if ok.shape != (PS_B,) or checks["verified"] != PS_B:
+        raise SystemExit(f"ps: {checks['verified']} of {PS_B} signatures verified")
+    torch.cuda.reset_peak_memory_stats()
+    verify_times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        T.verify_batch(keys.pk, msgs, sigs)
+        torch.cuda.synchronize()
+        verify_times.append(time.perf_counter() - t0)
+    verify_peak = torch.cuda.max_memory_allocated()
+
+    # rejections: rotated messages, one swapped s2, an x off the curve
+    t0 = time.perf_counter()
+    checks["rotated_rejected"] = not T.verify_batch(keys.pk, msgs[1:] + msgs[:1], sigs).any()
+    swapped, j = list(sigs), PS_B // 2
+    swapped[j] = sigs[j][:49] + sigs[j + 1][49:]
+    got = T.verify_batch(keys.pk, msgs, swapped)
+    checks["swapped_s2_rejected"] = not got[j] and bool(np.delete(got, j).all())
+    off = list(sigs)
+    off[3] = _off_curve_x() + sigs[3][49:]
+    try:
+        T.verify_batch(keys.pk, msgs, off)
+        checks["off_curve_raises"] = False
+    except ValueError as e:
+        checks["off_curve_raises"] = "not on curve" in str(e)
+    if not all(checks.values()):
+        raise SystemExit(f"ps: checks failed: {checks}")
+    rejections_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ops = _op_tally(lambda: T.verify_batch(keys.pk, msgs, sigs))
+    tally_s = time.perf_counter() - t0
+    traced = _trace(lambda: T.verify_batch(keys.pk, msgs, sigs)) if trace else ""
+    rows_of = {p: {k: ROWS_BY_PATH[p][k] for k in ("fp2_mul", "fp6_mul") if k in ROWS_BY_PATH[p]}
+               for p in ("ps_sign", "ps_verify")}
+    print(f"ps: B={PS_B} flow={flow} checks={checks} sign_first_s={sign_first_s:.3f} "
+          f"sign_call_s={[round(t, 4) for t in sign_times]} "
+          f"signs_per_s={PS_B * len(sign_times) / sum(sign_times):.1f} "
+          f"verify_first_s={verify_first_s:.3f} "
+          f"verify_call_s={[round(t, 4) for t in verify_times]} "
+          f"verifies_per_s={PS_B * len(verify_times) / sum(verify_times):.1f} "
+          f"sign_max_memory_allocated={sign_peak} verify_max_memory_allocated={verify_peak} "
+          f"launches_per_sign_call={sign_launches} launches_per_verify_call={verify_launches} "
+          f"launch_rows={rows_of} verify_{ops} sign_checks_s={sign_checks_s:.1f} "
+          f"rejections_s={rejections_s:.1f} op_tally_s={tally_s:.1f} {traced}", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -832,13 +984,23 @@ def main() -> None:
         regs.update(_ptxas_report(log))
     print(f"build: {build_s:.1f}s ptxas={regs}", flush=True)
 
-    kernels = phase_kernels(dev)
-    phase_pairing(dev, args.trace)
-    pts, a = phase_g1(dev, args.trace)
-    phase_msm(dev, pts, a, args.trace)
-    phase_zp(dev)
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    kernels = timed("kernels", phase_kernels, dev)
+    timed("pairing", phase_pairing, dev, args.trace)
+    pts, a = timed("g1", phase_g1, dev, args.trace)
+    timed("msm", phase_msm, dev, pts, a, args.trace)
+    timed("zp", phase_zp, dev)
+    timed("ps", phase_ps, dev, args.trace)
     _check_chains_timed(kernels)
-    phase_rows(dev, kernels)
+    timed("rows", phase_rows, dev, kernels)
+    print(f"phases_s: {phase_s}", flush=True)
     for k in kernels:
         k["launch_rows_by_path"] = _launch_rows(k)
         k["launches_by_path"] = {path: sum(rows.values())

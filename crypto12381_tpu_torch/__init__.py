@@ -10,12 +10,20 @@ kernel, a CPU tensor runs the kernel's plain PyTorch version.
     gt = pair_batch(g1_points, g2_points, device="cpu")
     pts = G1Vec.generator((n,)) ** ZpVec.from_ints(scalars)   # GLV ladder
     acc = pts.msm(ZpVec.from_ints(more_scalars))              # Pippenger
+
+    from crypto12381_tpu_torch.api.sets import create_random_engine
+    rng = create_random_engine("seed")                        # MIRACL's CSPRNG
+    keys = key_gen(rng)                                       # PS, on the host
+    sigs = sign_batch(keys.sk, messages, rng)                 # one GLV call
+    ok = verify_batch(keys.pk, messages, sigs)                # (B,) bool
 """
 
 from ._build import LAUNCH_EXPONENTS, LAUNCH_ROWS, LAUNCHES, reset_launches
-from .api.batch import G1Vec, ZpVec
+from .api.batch import G1Vec, G2Vec, GTVec, ZpVec, pair_prod_fixed
 from .msm.pippenger import msm_g1
 from .pairing.pairing import pair_batch, pairing_affine
+from .schemes.ps import key_gen, randomnize, sign_batch, verify_batch
 
-__all__ = ["LAUNCHES", "LAUNCH_EXPONENTS", "LAUNCH_ROWS", "G1Vec", "ZpVec", "msm_g1",
-           "pair_batch", "pairing_affine", "reset_launches"]
+__all__ = ["LAUNCHES", "LAUNCH_EXPONENTS", "LAUNCH_ROWS", "G1Vec", "G2Vec", "GTVec", "ZpVec",
+           "key_gen", "msm_g1", "pair_batch", "pair_prod_fixed", "pairing_affine",
+           "randomnize", "reset_launches", "sign_batch", "verify_batch"]

@@ -1,14 +1,18 @@
-"""Batched G1 and scalar vectors: the paper notation over device tensors.
+"""Batched G1, G2, GT and scalar vectors: the paper notation over device
+tensors.
 
-Counterpart of the JAX package's `api/batch.py` for G1 and Zp: a vector of
-elements is ONE tensor (leading batch dims), and the operators lower to
-the batched curve code:
+Counterpart of the JAX package's `api/batch.py` for G1, Zp, the fixed G2
+points of a verify and its GT verdicts: a vector of elements is ONE tensor
+(leading batch dims), and the operators lower to the batched curve code:
 
   * ``G1Vec ** ZpVec``    -> the GLV ladder over the whole batch (K6, K7)
   * ``G1Vec.msm(ZpVec)``  -> the scan Pippenger (K5, K6, K7), n < 2^17
   * ``G1Vec * G1Vec``     -> the group operation (K6)
   * ``ZpVec + - * neg``, ``ZpVec.inverse()`` -> arithmetic mod r on the Fr
     instance of K1 (``*``: two Fr products; inverse: one power chain)
+  * ``pair_prod_fixed((P1, Q1), ...)`` -> prod_i e(P_i, Q_i) with every Q_i
+    a fixed G2 point: precomputed lines, one shared Miller loop, one final
+    exponentiation (K1-K4)
 
 Scalars keep the JAX package's layout: (..., 18) int32 standard-domain
 limbs of 16 bits; arithmetic packs them into 8 limbs of 32 bits on the
@@ -25,13 +29,17 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
+from ..compat import codec
 from ..curves import g1 as G1C
+from ..curves import g2 as G2C
 from ..curves import weierstrass as W
 from ..fields import fp as FP
+from ..fields import tower as TW
 from ..msm import pippenger as MSM
-from ..params import B_G1, MODBYTES, R
+from ..pairing import pairing as PAIR
+from ..params import B_G1, LIMBS, MODBYTES, R
 
-__all__ = ["ZpVec", "G1Vec"]
+__all__ = ["ZpVec", "G1Vec", "G2Vec", "GTVec", "pair_prod_fixed"]
 
 #: Fr scalars: 18 limbs of 16 bits (the JAX package's Fr layout)
 FR_LIMBS = 18
@@ -40,12 +48,14 @@ FR = FP.FR_CTX
 ROUNDS_MSM_MIN = 1 << 17
 
 
-def _device(device) -> torch.device:
+def _device(device, what: str = "point and scalar vectors are built") -> torch.device:
+    """The device asked for; by default the CUDA card, and without one an
+    error that names `what` runs there."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "G1Vec and ZpVec are built on a CUDA card by default and none is "
-                "present; pass device='cpu' to run the plain versions")
+                f"{what} on a CUDA card by default and none is present; pass "
+                "device='cpu' to run the plain versions")
         device = "cuda"
     return torch.device(device)
 
@@ -194,10 +204,15 @@ class _PointVec:
         msm for the product of powers)."""
         return type(self)(_tree_product(self._mod.ops(), self.p, axis))
 
+    @property
+    def shape(self):
+        return self.p[0].shape[:-self._mod.ops().elem_ndim]
+
     def affine(self):
-        """(x, y, inf_mask) in Montgomery form."""
+        """(x, y, inf_mask) in Montgomery form; the mask has the batch
+        shape (Z = 0 over the whole coordinate, Fp for G1, Fp2 for G2)."""
         if self.z_is_one:
-            return self.p[0], self.p[1], FP.is_zero(self.p[2])
+            return self.p[0], self.p[1], self._mod.ops().is_zero(self.p[2])
         return self._mod.to_affine(self.p)
 
 
@@ -276,3 +291,77 @@ class G1Vec(_PointVec):
                 "there, which is not ported yet")
         lanes = min(lanes, 1 << max(0, (n - 1).bit_length() - 1)) or 1
         return G1Vec(MSM.msm_g1(self.p, scalars.std, c=c or 8, lanes=lanes))
+
+
+class G2Vec(_PointVec):
+    """Batched G2 points; PS's verify takes its public-key points as
+    batch-free G2Vec.  The group operations of G2 are not ported yet."""
+
+    _mod = G2C
+
+    @classmethod
+    def generator(cls, batch=(), device=None) -> "G2Vec":
+        return cls(G2C.generator(batch, _device(device)), z_is_one=True)
+
+    @classmethod
+    def identity(cls, batch=(), device=None) -> "G2Vec":
+        return cls(G2C.identity(batch, _device(device)), z_is_one=True)
+
+    @classmethod
+    def from_affine(cls, pts: Sequence, device=None) -> "G2Vec":
+        """Host affine points: ((xr, xi), (yr, yi)) int tuples, or None for
+        infinity."""
+        dev = _device(device)
+        xs = [(0, 0) if p is None else p[0] for p in pts]
+        ys = [(1, 0) if p is None else p[1] for p in pts]
+        zs = [(0, 0) if p is None else (1, 0) for p in pts]
+        return cls(tuple(FP.from_int([[int(c) for c in v] for v in vals], dev)
+                         for vals in (xs, ys, zs)), z_is_one=True)
+
+    @classmethod
+    def parse(cls, blobs: Iterable[bytes], device=None) -> "G2Vec":
+        """97-byte points through the host codec; raises on an x off the
+        twist, as codec.g2_parse does."""
+        return cls.from_affine([codec.g2_parse(bytes(b)) for b in blobs], device)
+
+
+class GTVec:
+    """A batch of GT elements: (..., 2, 3, 2, 12) Fp12 tensors."""
+
+    __slots__ = ("f",)
+
+    def __init__(self, f: torch.Tensor):
+        self.f = f
+
+    @classmethod
+    def one(cls, batch=(), device=None) -> "GTVec":
+        return cls(TW.fp12_one(batch, _device(device)))
+
+    def __eq__(self, other) -> torch.Tensor:  # type: ignore[override]
+        return TW.fp12_eq(self.f, other.f)
+
+    def is_one(self) -> torch.Tensor:
+        return TW.fp12_is_one(self.f)
+
+
+def pair_prod_fixed(*pairs: tuple) -> GTVec:
+    """prod_i e(P_i, Q_i) over the argument pairs (G1Vec, G2Vec), where every
+    Q_i is ONE fixed point (batch shape () or (1,)) and the P_i share a
+    batch shape.  The lines of all the Q_i are precomputed in one
+    batch-free pass, the batch runs one shared Miller loop with no G2
+    arithmetic, and one final exponentiation.  A pair whose P or Q is the
+    identity contributes 1."""
+    p_aff = [a.affine() for a, _ in pairs]
+    px = torch.stack([p[0] for p in p_aff])
+    py = torch.stack([p[1] for p in p_aff])
+    q_aff = []
+    for _, b in pairs:
+        if b.shape not in ((), (1,)):
+            raise ValueError("pair_prod_fixed needs batch-free G2 operands")
+        q_aff.append(b.affine())
+    qx = torch.stack([q[0].reshape(2, LIMBS) for q in q_aff])
+    qy = torch.stack([q[1].reshape(2, LIMBS) for q in q_aff])
+    q_inf = torch.stack([q[2].reshape(()) for q in q_aff])
+    inf = torch.stack([p[2] for p in p_aff]) | q_inf.reshape((-1,) + (1,) * (px.dim() - 2))
+    lines = PAIR.precompute_g2_lines((qx, qy))
+    return GTVec(PAIR.final_exp(PAIR.multi_miller_precomp((px, py), lines, inf)))

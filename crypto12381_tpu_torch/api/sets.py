@@ -1,0 +1,136 @@
+"""The reference's set notation for a protocol's host edges, as far as
+the PS scheme uses it.
+
+Counterpart of the JAX package's `api/sets.py`: the group tags `Zp`,
+`G1` and `G2`, where `~S` excludes the identity and `S ** n` is a
+cartesian power; `select_in` draws elements from the CSPRNG in the
+reference's order; `parse` and `serialize` read and write their
+concatenated bytes; `hash_(...)` is an incremental SHA3-512 whose
+`.to(Zp)` is the digest mod r.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass
+
+from ..compat.csprng import RandomEngine, create_random_engine
+from ..params import MODBYTES
+from .elements import G1Element, G1Pow, G2Element, ZpNumber
+
+__all__ = ["Zp", "G1", "G2", "Set", "CartesianPower", "select_in", "parse",
+           "serialize", "hash_", "HashState", "create_random_engine"]
+
+
+@dataclass(frozen=True)
+class Set:
+    """A group tag: `~S` excludes the identity, `S ** n` is the cartesian
+    power."""
+
+    name: str
+    serialized_size: int
+    star: bool = False
+
+    def __invert__(self) -> "Set":
+        return Set(self.name, self.serialized_size, star=True)
+
+    def __pow__(self, n: int) -> "CartesianPower":
+        return CartesianPower(self, n)
+
+    def __repr__(self):
+        return ("*" if self.star else "") + self.name
+
+
+@dataclass(frozen=True)
+class CartesianPower:
+    base: Set
+    exponent: int
+
+    def __invert__(self) -> "CartesianPower":
+        # ~Zp ** 2 parses as ~(Zp ** 2): star the base set
+        return CartesianPower(~self.base, self.exponent)
+
+
+Zp = Set("Zp", MODBYTES)
+G1 = Set("G1", 1 + MODBYTES)
+G2 = Set("G2", 1 + 2 * MODBYTES)
+
+_PARSERS = {"Zp": ZpNumber.parse, "G1": G1Element.parse, "G2": G2Element.parse}
+
+
+def _select_one(s: Set, rng: RandomEngine):
+    if s.name == "Zp":
+        return ZpNumber.select_nonzero(rng) if s.star else ZpNumber.select(rng)
+    if s.star and s.name == "G1":
+        return G1Pow.select_except1(rng)
+    if s.star and s.name == "G2":
+        return G2Element.select_except1(rng)
+    raise ValueError(f"cannot select in {s}")
+
+
+def select_in(s, rng: RandomEngine):
+    """One random element of a set, or a tuple of them for a cartesian
+    power, drawn in order."""
+    if isinstance(s, CartesianPower):
+        return tuple(_select_one(s.base, rng) for _ in range(s.exponent))
+    return _select_one(s, rng)
+
+
+def parse(*args):
+    """parse(SetA, SetB, ..., data): the elements in order, one element for
+    a single set; raises if data has the wrong length or an element does
+    not parse."""
+    *sets, data = args
+    flat = []
+    for s in sets:
+        flat.extend([s.base] * s.exponent if isinstance(s, CartesianPower) else [s])
+    data = bytes(data)
+    total = sum(s.serialized_size for s in flat)
+    if len(data) != total:
+        raise ValueError(f"parse: need {total} bytes, got {len(data)}")
+    out, off = [], 0
+    for s in flat:
+        out.append(_PARSERS[s.name](data[off:off + s.serialized_size]))
+        off += s.serialized_size
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def serialize(*elems) -> bytes:
+    """The elements' bytes, concatenated (lists and tuples flattened)."""
+    out = bytearray()
+    for e in elems:
+        out += serialize(*e) if isinstance(e, (list, tuple)) else e.serialize()
+    return bytes(out)
+
+
+class HashState:
+    """SHA3-512 over raw bytes and the serialized bytes of elements."""
+
+    def __init__(self, *args):
+        self._h = hashlib.sha3_512()
+        for a in args:
+            self.update(a)
+
+    def update(self, a) -> "HashState":
+        if isinstance(a, (bytes, bytearray, memoryview)):
+            self._h.update(bytes(a))
+        elif hasattr(a, "serialize"):
+            self._h.update(a.serialize())
+        elif isinstance(a, (list, tuple)):
+            for e in a:
+                self.update(e)
+        else:
+            raise TypeError(f"cannot hash {type(a)}")
+        return self
+
+    def digest(self) -> bytes:
+        return self._h.digest()
+
+    def to(self, s: Set):
+        if s.name == "Zp":
+            return ZpNumber.from_hash(self.digest())
+        raise ValueError(f"hash .to({s}) is not ported")
+
+
+def hash_(*args) -> HashState:
+    return HashState(*args)

@@ -3,6 +3,9 @@
   Zp : 48-byte big-endian integer.
   G1 : 49 bytes = prefix 0x02 (y even) / 0x03 (y odd) + x as 48-byte
        big-endian; the point at infinity is 0x02 and 48 zero bytes.
+  G2 : 97 bytes = prefix 0x02 / 0x03 (fp2_sign of y) + x.imag + x.real,
+       each 48-byte big-endian; the point at infinity is 0x02 and 96 zero
+       bytes.
   GT : 576 bytes = FP12_toOctet order c,b,a over the reference's Fp4 tower,
        i.e. w-basis Fp2 coefficients in the order C5,C2,C4,C1,C3,C0, each as
        imag|real 48-byte big-endian integers.
@@ -14,7 +17,7 @@ api/batch.py agrees with these).
 from __future__ import annotations
 
 from ..host import field as F
-from ..params import B_G1, MODBYTES, P, R
+from ..params import B_G1, B_G2, MODBYTES, P, R
 
 #: Fp2 coefficient order C5,C2,C4,C1,C3,C0 (FP12_toOctet writes FP4 c, b, a;
 #: each FP4 writes FP2 b, a; each FP2 writes Fp imag, real).
@@ -64,6 +67,29 @@ def g1_parse(b: bytes):
         raise ValueError("x not on curve")
     if (y & 1) != (prefix & 1):
         y = (-y) % P
+    return (x, y)
+
+
+# ------------------------------------------------------------------ G2
+
+
+def g2_serialize(pt) -> bytes:
+    """Affine ((xr, xi), (yr, yi)) ints, or None for the point at infinity."""
+    if pt is None:
+        return bytes([0x02]) + int_to_bytes(0) * 2
+    (xr, xi), y = pt
+    return bytes([0x03 if F.fp2_sign(y) else 0x02]) + int_to_bytes(xi) + int_to_bytes(xr)
+
+
+def g2_parse(b: bytes):
+    """The y of the prefix's sign on the twist y^2 = x^3 + 4(1 + i);
+    raises if x is not on it."""
+    x = (int_from_bytes(b[49:97]), int_from_bytes(b[1:49]))
+    y = F.fp2_sqrt(F.fp2_add(F.fp2_mul(F.fp2_sqr(x), x), B_G2))
+    if y is None:
+        raise ValueError("x not on twist")
+    if F.fp2_sign(y) != (b[0] & 1):
+        y = F.fp2_neg(y)
     return (x, y)
 
 

@@ -1,8 +1,8 @@
 """Batched G2 = E'(Fp2): y^2 = x^3 + 4(1+i) (M-type twist).
 
 Counterpart of the JAX package's `curves/g2.py` for what the pairing
-needs: the ops table, the generator, affine input, doubling and mixed
-addition.
+and G2Vec need: the ops table, the generator and the identity, affine
+input, doubling and mixed addition.
 """
 
 from __future__ import annotations
@@ -36,6 +36,12 @@ def ops() -> W.FieldOps:
         sub=TW.fp2_sub,
         mul_many=TW.fp2_mul_many,
         b3_const=_b3,
+        neg=TW.fp2_neg,
+        is_zero=TW.fp2_is_zero,
+        eq=TW.fp2_eq,
+        zero=TW.fp2_zero,
+        one=TW.fp2_one,
+        elem_ndim=2,
     )
 
 
@@ -47,6 +53,10 @@ def generator(batch=(), device="cpu"):
     x = _fp2_from_ints(G2_GEN_X, device)
     y = _fp2_from_ints(G2_GEN_Y, device)
     return (x.expand(*batch, 2, -1), y.expand(*batch, 2, -1), TW.fp2_one(batch, device))
+
+
+def identity(batch=(), device="cpu"):
+    return W.identity(ops(), batch, device)
 
 
 def from_affine_fp2(x_pair, y_pair, device="cpu"):

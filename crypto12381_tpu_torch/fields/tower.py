@@ -75,6 +75,10 @@ def fp2_eq(a, b):
     return torch.all(a == b, dim=-1).all(-1)
 
 
+def fp2_is_zero(a):
+    return torch.all(a == 0, dim=-1).all(-1)
+
+
 def fp2_zero(batch=(), device="cpu"):
     return FP.zero(tuple(batch) + (2,), device)
 

@@ -2,8 +2,9 @@
 
 The few integer operations the port needs outside its tensors: the Fp
 square root of the G1 codec, the Fp2 arithmetic behind the G2 ladders of
-host/curve.py and the Frobenius constants of fields/tower.py, and the
-w-basis view of Fp12 used by the GT codec.
+host/curve.py and the Frobenius constants of fields/tower.py, the Fp2
+square root and sign of the G2 codec, and the w-basis view of Fp12 used
+by the GT codec.
 
 Representations:
   Fp   : int in [0, p)
@@ -59,6 +60,41 @@ def fp2_inv(x):
 
 def fp2_is_zero(x):
     return x[0] % P == 0 and x[1] % P == 0
+
+
+def fp2_sign(x):
+    """MIRACL's FP2_sign: the parity of the real part, or of the imaginary
+    part when the real part is 0."""
+    return (x[1] if x[0] % P == 0 else x[0]) & 1
+
+
+def fp2_sqrt(x):
+    """The square root of x whose fp2_sign is 0 (MIRACL's FP2_sqrt with its
+    sign fix), or None if x is not a square."""
+    a, b = x[0] % P, x[1] % P
+    if b == 0:
+        r = fp_sqrt(a)
+        if r is not None:
+            cand = (r, 0)
+        else:
+            r = fp_sqrt(-a)                   # sqrt(a) = sqrt(-a) i
+            if r is None:
+                return None
+            cand = (0, r)
+    else:
+        s = fp_sqrt(a * a + b * b)            # the norm's root
+        if s is None:
+            return None
+        half = pow(2, -1, P)
+        t = fp_sqrt((a + s) * half)
+        if t is None:
+            t = fp_sqrt((a - s) * half)
+            if t is None:
+                return None
+        cand = (t, b * pow(2 * t, -1, P) % P)
+    if fp2_sign(cand) == 1:
+        cand = fp2_neg(cand)
+    return cand if fp2_sqr(cand) == (a, b) else None
 
 
 def fp2_pow(x, k: int):

@@ -127,6 +127,82 @@ def miller_loop(p_aff, q_aff):
 
 
 # ---------------------------------------------------------------------------
+# Fixed-G2 precomputed lines
+# ---------------------------------------------------------------------------
+# A scheme's verify pairs against fixed public-key G2 points: the Miller
+# loop's G2 arithmetic (the line coefficients and the double/add steps)
+# depends on Q alone, so for a fixed Q it runs once, batch-free, and the
+# batch's loop only evaluates the lines at its G1 points (the batched
+# analogue of MIRACL's PAIR_precomp / PAIR_another_pc).
+
+
+def precompute_g2_lines(q_aff):
+    """The Miller line coefficients of fixed G2 points Q.
+
+    q_aff: affine (X, Y) Fp2 tensors (..., 2, 12): one point, or a few
+    fixed points as one batch (pair_prod_fixed passes all of its Q at
+    once, one pass through the digit schedule).  Returns (dbl, add): two
+    (n_digits, 3, ..., 2, 12) tensors, per digit step the tangent line's
+    (AA, BB, CC) and, where the digit is nonzero, the chord line's (zeros
+    elsewhere), the JAX package's layout."""
+    Px, Py = q_aff
+    batch, dev = Px.shape[:-2], Px.device
+    NPy = TW.fp2_neg(Py)
+    A = (Px, Py, TW.fp2_one(batch, dev))
+    none = torch.zeros((3,) + tuple(batch) + (2, LIMBS), dtype=torch.int32, device=dev)
+    dbl, add = [], []
+    for d in _digits():
+        dbl.append(torch.stack(_line_dbl_coeffs(A)))
+        A = G2.double(A)
+        if d:
+            pay = Py if d > 0 else NPy
+            add.append(torch.stack(_line_add_coeffs(A, (Px, pay))))
+            A = G2.madd(A, (Px, pay))
+        else:
+            add.append(none)
+    return torch.stack(dbl), torch.stack(add)
+
+
+def _absorb(f, coeffs, qx, qy, inf):
+    """f times k precomputed lines, each evaluated at its pair's G1 points:
+    coeffs (3, k, 2, 12); qx, qy (k, batch..., 12); inf (k, batch...) or
+    None, a masked pair's line being 1.  The k evaluations are one K1
+    launch; the k sparse products one K2 launch each."""
+    k, nb = qx.shape[0], qx.dim() - 2
+    aa, bb, cc = (c.reshape((k,) + (1,) * nb + (2, LIMBS)) for c in coeffs)
+    t = FP.mont_mul(torch.stack([aa, cc]), torch.stack([qy, qx])[..., None, :])
+    c0, c3, c5 = t[0], bb.expand_as(t[0]), t[1]
+    if inf is not None:
+        m = inf[..., None, None]
+        c0 = torch.where(m, TW.fp2_one((), f.device), c0)
+        c3 = torch.where(m, 0, c3)
+        c5 = torch.where(m, 0, c5)
+    for i in range(k):
+        f = _mul_sparse(f, (c0[i], c3[i], c5[i]))
+    return f
+
+
+def multi_miller_precomp(p_affs, lines, inf=None):
+    """prod_i Miller(P_i, Q_i) for k fixed Q_i, with ONE shared squaring
+    chain: per digit step the accumulator squares once and absorbs each
+    pair's precomputed line evaluated at P_i; no G2 arithmetic in the loop.
+
+    p_affs: G1 affine (x, y), tensors (k, batch..., 12);
+    lines: precompute_g2_lines of the k points Q_i as one batch;
+    inf: optional (k, batch...) bool, a flagged pair contributes exactly 1.
+    Returns the product after the negative-x conjugation."""
+    qx, qy = p_affs
+    dbl, add = lines
+    f = TW.fp12_one(qx.shape[1:-1], qx.device)
+    for j, d in enumerate(_digits()):
+        f = TW.fp12_sqr(f)
+        f = _absorb(f, dbl[j], qx, qy, inf)
+        if d:
+            f = _absorb(f, add[j], qx, qy, inf)
+    return TW.fp12_conj(f)
+
+
+# ---------------------------------------------------------------------------
 # Final exponentiation
 # ---------------------------------------------------------------------------
 

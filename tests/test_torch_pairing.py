@@ -176,17 +176,24 @@ def _check_pair_batch_needs_a_card_by_default():
 
 
 def _check_port_imports_no_jax():
+    """Every module of the port, found by walking the package, and
+    chip_smoke import neither JAX nor the JAX package."""
     code = (
-        "import sys, crypto12381_tpu_torch, crypto12381_tpu_torch.convert, "
-        "crypto12381_tpu_torch.compat.codec, crypto12381_tpu_torch.api.batch, "
-        "crypto12381_tpu_torch.curves.g1, crypto12381_tpu_torch.curves.endo, "
-        "crypto12381_tpu_torch.msm.pippenger, crypto12381_tpu_torch.ops.scalar_decomp, "
-        "chip_smoke; "
-        "print('jax' in sys.modules, 'crypto12381_tpu' in sys.modules)")
+        "import importlib, pkgutil, sys, chip_smoke, crypto12381_tpu_torch as T\n"
+        "names = [m.name for m in pkgutil.walk_packages(T.__path__, T.__name__ + '.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "print('jax' in sys.modules, 'crypto12381_tpu' in sys.modules, ','.join(names))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["False", "False"]
+    jax_loaded, pkg_loaded, names = out.stdout.split()
+    assert (jax_loaded, pkg_loaded) == ("False", "False")
+    names = set(names.split(","))
+    for mod in ("convert", "compat.codec", "compat.csprng", "api.batch", "api.sets",
+                "api.elements", "curves.g1", "curves.endo", "msm.pippenger",
+                "ops.scalar_decomp", "pairing.pairing", "schemes.ps"):
+        assert "crypto12381_tpu_torch." + mod in names, mod
 
 
 def _check_chip_smoke_fails_without_card_or_package(tmp_path):
