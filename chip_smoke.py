@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels and drive its batched pairing,
-G1 scalar multiplication, G1 MSM, G1 point parsing, scalar arithmetic and
-Pointcheval-Sanders batch signing and verification on one CUDA card.
+G1 scalar multiplication, G1 MSM, G1 point parsing, scalar arithmetic,
+Pointcheval-Sanders, BBS and BBS+ batch signing and verification, and
+Shamir secret sharing on one CUDA card.
 
     python3 chip_smoke.py            # the smoke run
     python3 chip_smoke.py --trace    # and one profiled call of each path
@@ -54,14 +55,40 @@ Phases, one line each; any failure raises and ends the run non-zero:
            rejected), an x off the curve (raises); signs/s, verifies/s,
            first-call seconds, peak device memory, launches per sign and per
            verify call, and the torch ops of one verify call
+  bbs      BBS on the card: the flow of tests/vectors/bbs_flow.json (seed
+           "seed", B = 1) byte for byte; then seed "bench-bbs", setup(16),
+           B = 512 messages of 112 bytes (4 Zp blocks), the last one of a
+           single block: `sign_batch` (the counted first call, then 3
+           timed ones on the same stream), 4 signatures against the CPU
+           path and the host signer, 8 rows' A^(gamma + x) = g1 prod
+           h_i^m_i in host integers; `verify_batch` of the 512 (counted,
+           then 2 timed), one call with the first half's messages rotated
+           (all rejected) and a swapped x in the valid second half (that
+           row alone rejected), an A off the curve (raises); signs/s,
+           verifies/s, first-call seconds, peak device memory, launches of
+           each kernel per call and by row count, the torch ops of one
+           verify call (the rejections' call)
+  bbs_plus BBS+ likewise (seed "bench-bbs-plus", raw 112-byte messages,
+           the last one b"bench-bbs-plus-short"; the host equation with
+           h0^r)
+  sss      Shamir on the card: the flow of tests/vectors/sss_flow.json
+           byte for byte; then seed "bench-sss", `share_batch` at
+           t = 1,000, n = 10,000 (counted, then 3 timed), 8 shares against
+           the host polynomial; `reconstruct_batch` from 1,000 shares at
+           indices spread over 1..10,000 (counted, then 3 timed) gives the
+           secret back, 999 of them do not, and on a 16-share subset it
+           equals the host reconstruction; shares/s, reconstructs/s,
+           first-call seconds, peak device memory, launches per call and
+           by row count, the torch ops of one reconstruct call
   rows     every kernel at each row count the paths launched it at that the
            kernels phase did not time, on random canonical operands: held
            bit for bit against its plain version, device time
 
 Each path runs with the launch counts set to 0 just before it and read
-just after; every kernel of the path must have launched (PS signing and
-verification are two paths).  With --trace, each of the pairing, g1, msm
-and ps lines also gives one call (ps: one verify call) under
+just after; every kernel of the path must have launched (a scheme's
+signing and verification, Shamir's sharing and reconstruction, are two
+paths each).  With --trace, each of the pairing, g1, msm, ps, bbs and
+bbs_plus lines also gives one call (the schemes: one verify call) under
 torch.profiler: the summed device time of its kernels against the host
 clock, and its top kernels.
 
@@ -92,6 +119,9 @@ ARGS = argparse.ArgumentParser(description="Drive the port's kernels and paths o
 ARGS.add_argument("--trace", action="store_true", help="one torch.profiler call of each path")
 G1_B = 8192                    # GLV batch, and the MSM's distinct points
 PS_B = 512                     # the JAX bench's PS batch (bench.py:228-268)
+BBS_B = 512                    # BBS and BBS+ batches: 112-byte messages, 4 Zp blocks
+BBS_MSG_BYTES = 112
+SSS_T, SSS_N = 1000, 10_000    # Shamir: 10,000 shares (BASELINE.json), threshold 1,000
 MSM_N = 1 << 16
 MSM_LANES, MSM_WINDOWS = 64, 33     # G1Vec.msm's defaults at c = 8
 SEED = 20261016
@@ -961,6 +991,227 @@ def phase_ps(dev, trace: bool):
           f"rejections_s={rejections_s:.1f} op_tally_s={tally_s:.1f} {traced}", flush=True)
 
 
+def _timed_calls(fn, reps: int) -> list[float]:
+    """Host seconds of reps calls of fn, each ended by a synchronize."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times
+
+
+def _counted(path: str, kernels, fn):
+    """One call of fn with the launch counts set to 0 just before it and
+    read just after: (result, host seconds, launches per kernel)."""
+    import torch
+
+    import crypto12381_tpu_torch as T
+
+    T.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _path_launches(path, kernels)
+
+
+def phase_bbs(dev, name: str, trace: bool):
+    """BBS or BBS+ batch signing and verification (K1-K4, K6, K7): the flow
+    vector, then BBS_B messages of 4 Zp blocks (the last one a single
+    block, so that short messages pad with h^0), with their checks and
+    rejections; signing and verifying are two counted paths."""
+    import torch
+
+    import crypto12381_tpu_torch as T
+    from crypto12381_tpu_torch.api.sets import G1, Zp, create_random_engine, encode_to, parse
+    from crypto12381_tpu_torch.host import curve as C
+
+    mod, plus = getattr(T, name), name == "bbs_plus"
+    vec = json.loads((pathlib.Path(__file__).resolve().parent / "tests" / "vectors"
+                      / f"{name}_flow.json").read_text())
+
+    def blocks(m):
+        """A message's exponents: encoded Zp blocks as ints."""
+        return [z.value for z in encode_to(Zp, m)]
+
+    def keyed(seed):
+        r = create_random_engine(seed)
+        pp = mod.setup(16, r)
+        return r, pp, mod.key_gen(pp, r)
+
+    r, pp, keys = keyed("seed")
+    raw = b"Hello, BBS+!" if plus else b"Hello, BBS!"
+    msg = raw if plus else mod.encode_message(raw)
+    sig = mod.sign_batch(pp, keys.sk, [msg], r)[0]
+    flow = {
+        "pp": ((pp.g1_g2_h0 if plus else pp.g1_g2).hex() == vec["g1"] + vec["g2"]
+               + vec.get("h0", "") and [h.hex() for h in pp.h] == vec["h"]),
+        "keys": (keys.sk.hex(), keys.pk.hex()) == (vec["sk"], vec["pk"]),
+        "signature": sig.hex() == (vec["signature_A"] + vec["signature_x"]
+                                   + vec.get("signature_r", "")),
+        "verify": mod.verify_batch(pp, keys.pk, [msg], [sig]).tolist() == [vec["verify"]],
+    }
+    if not all(flow.values()):
+        raise SystemExit(f"{name}: the {name}_flow.json vector failed: {flow}")
+
+    seed = b"bench-bbs-plus" if plus else b"bench-bbs"
+    r, pp, keys = keyed(seed)
+    raws = ([((seed + b"-%06d" % i) * 7)[:BBS_MSG_BYTES] for i in range(BBS_B - 1)]
+            + [seed + b"-short"])
+    msgs = raws if plus else [mod.encode_message(m) for m in raws]
+    sign_kernels = ("fp_mont_mul", "fp_pow_fixed", "g1_add", "g1_dbl")
+    sigs, sign_first_s, sign_launches = _counted(
+        f"{name}_sign", sign_kernels, lambda: mod.sign_batch(pp, keys.sk, msgs, r))
+
+    # 4 signatures again on the CPU path and by the host signer, from the
+    # same seed; 8 rows' A^(gamma + x) = g1 (h0^r) prod h_i^m_i in host
+    # integers
+    t0 = time.perf_counter()
+    r_cpu, pp_cpu, keys_cpu = keyed(seed)
+    r_host, pp_host, keys_host = keyed(seed)
+    checks = {
+        "cpu_rows": mod.sign_batch(pp_cpu, keys_cpu.sk, msgs[:4], r_cpu, device="cpu") == sigs[:4],
+        "host_sign": [mod.sign(pp_host, keys_host.sk, m, r_host) for m in msgs[:4]] == sigs[:4],
+    }
+    g1 = parse(G1, pp.g1_g2_h0[:49] if plus else pp.g1_g2[:49]).pt
+    bases = ([parse(G1, pp.g1_g2_h0[146:]).pt] if plus else []) + [parse(G1, h).pt for h in pp.h]
+    gamma = parse(Zp, keys.sk).value
+    rows = [0, 1, 2, 3, BBS_B // 2, BBS_B // 2 + 1, BBS_B - 2, BBS_B - 1]
+    eq_ok = []
+    for i in rows:
+        A, x = parse(G1, sigs[i][:49]).pt, parse(Zp, sigs[i][49:97]).value
+        exps = ([parse(Zp, sigs[i][97:]).value] if plus else []) + blocks(raws[i])
+        eq_ok.append(C.g1_mul(A, gamma + x) == C.g1_add(g1, C.g1_msm(bases, exps)))
+    checks["host_equation_rows"] = all(eq_ok)
+    if not all(checks.values()):
+        raise SystemExit(f"{name}: sign checks failed: {checks}")
+    sign_checks_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    sign_times = _timed_calls(lambda: mod.sign_batch(pp, keys.sk, msgs, r), 3)
+    sign_peak = torch.cuda.max_memory_allocated()
+
+    verify_kernels = ("fp_mont_mul", "fp_pow_fixed", "fp2_mul", "fp2_sqr", "fp6_mul",
+                      "g1_add", "g1_dbl")
+    ok, verify_first_s, verify_launches = _counted(
+        f"{name}_verify", verify_kernels, lambda: mod.verify_batch(pp, keys.pk, msgs, sigs))
+    checks["verified"] = int(ok.sum())
+    if ok.shape != (BBS_B,) or checks["verified"] != BBS_B:
+        raise SystemExit(f"{name}: {checks['verified']} of {BBS_B} signatures verified")
+    torch.cuda.reset_peak_memory_stats()
+    verify_times = _timed_calls(lambda: mod.verify_batch(pp, keys.pk, msgs, sigs), 2)
+    verify_peak = torch.cuda.max_memory_allocated()
+
+    # rejections in one call, whose torch ops are tallied (a verify call's
+    # ops do not depend on the verdicts): the first half's messages rotated
+    # among themselves (every row rejected), and in the valid second half
+    # one row's x swapped with the next row's (that row alone rejected);
+    # then an A whose x is off the curve raises
+    t0 = time.perf_counter()
+    half, j = BBS_B // 2, BBS_B // 2 + 5
+    bad_msgs = msgs[1:half] + msgs[:1] + msgs[half:]
+    bad = list(sigs)
+    bad[j] = sigs[j][:49] + sigs[j + 1][49:97] + sigs[j][97:]
+    out = []
+    ops = _op_tally(lambda: out.append(mod.verify_batch(pp, keys.pk, bad_msgs, bad)))
+    got = out[0]
+    checks["rotated_rejected"] = not got[:half].any()
+    checks["swapped_x_rejected"] = not got[j] and bool(np.delete(got[half:], j - half).all())
+    off = list(sigs)
+    off[3] = _off_curve_x() + sigs[3][49:]
+    try:
+        mod.verify_batch(pp, keys.pk, msgs, off)
+        checks["off_curve_raises"] = False
+    except ValueError as e:
+        checks["off_curve_raises"] = "not on curve" in str(e)
+    if not all(checks.values()):
+        raise SystemExit(f"{name}: checks failed: {checks}")
+    rejections_s = time.perf_counter() - t0
+    traced = _trace(lambda: mod.verify_batch(pp, keys.pk, msgs, sigs)) if trace else ""
+    launch_rows = {p: ROWS_BY_PATH[p] for p in (f"{name}_sign", f"{name}_verify")}
+    print(f"{name}: B={BBS_B} blocks={len(blocks(raws[0]))} flow={flow} checks={checks} "
+          f"sign_first_s={sign_first_s:.3f} sign_call_s={[round(t, 4) for t in sign_times]} "
+          f"signs_per_s={BBS_B * len(sign_times) / sum(sign_times):.1f} "
+          f"verify_first_s={verify_first_s:.3f} "
+          f"verify_call_s={[round(t, 4) for t in verify_times]} "
+          f"verifies_per_s={BBS_B * len(verify_times) / sum(verify_times):.1f} "
+          f"sign_max_memory_allocated={sign_peak} verify_max_memory_allocated={verify_peak} "
+          f"launches_per_sign_call={sign_launches} launches_per_verify_call={verify_launches} "
+          f"launch_rows={launch_rows} verify_{ops} sign_checks_s={sign_checks_s:.1f} "
+          f"rejections_and_op_tally_s={rejections_s:.1f} {traced}", flush=True)
+
+
+def phase_sss(dev):
+    """Shamir sharing and reconstruction (K1's Fr product and chain): the
+    sss_flow.json vector, then SSS_N shares at threshold SSS_T and the
+    secret back from SSS_T of them spread over 1..SSS_N; sharing and
+    reconstructing are two counted paths."""
+    import torch
+
+    import crypto12381_tpu_torch as T
+    from crypto12381_tpu_torch.api.sets import Zp, create_random_engine, polynomial, select_in
+
+    sss = T.sss
+    vec = json.loads((pathlib.Path(__file__).resolve().parent / "tests" / "vectors"
+                      / "sss_flow.json").read_text())
+    r = create_random_engine("seed")
+    secret = select_in(Zp, r).serialize()
+    shares = sss.share_batch(4, 6, secret, r)
+    rec = sss.reconstruct_batch([1, 3, 4, 6], [shares[i - 1] for i in (1, 3, 4, 6)])
+    flow = {"secret": secret.hex() == vec["secret"],
+            "shares": [s.hex() for s in shares] == vec["shares"],
+            "reconstructed": rec.hex() == vec["reconstructed"] and (rec == secret) == vec["match"]}
+    if not all(flow.values()):
+        raise SystemExit(f"sss: the sss_flow.json vector failed: {flow}")
+
+    r = create_random_engine("bench-sss")
+    secret = select_in(Zp, r).serialize()
+    shares, share_first_s, share_launches = _counted(
+        "sss_share", ("fr_mont_mul",), lambda: sss.share_batch(SSS_T, SSS_N, secret, r))
+    # the same draws on the host: 8 shares by the host polynomial
+    r_host = create_random_engine("bench-sss")
+    s0 = select_in(Zp, r_host)
+    coeffs = select_in(Zp, r_host, SSS_T - 1)
+    pts = [1, 2, 3, SSS_N // 2, SSS_N // 2 + 1, SSS_N - 2, SSS_N - 1, SSS_N]
+    checks = {"host_rows": [shares[x - 1] for x in pts]
+              == [polynomial(x, s0, coeffs).serialize() for x in pts]}
+    torch.cuda.reset_peak_memory_stats()
+    share_times = _timed_calls(lambda: sss.share_batch(SSS_T, SSS_N, secret, r), 3)
+    share_peak = torch.cuda.max_memory_allocated()
+
+    idx = [1 + (i * SSS_N) // SSS_T for i in range(SSS_T)]
+    picked = [shares[i - 1] for i in idx]
+    rec, rec_first_s, rec_launches = _counted(
+        "sss_reconstruct", ("fr_mont_mul", "fr_pow_fixed"),
+        lambda: sss.reconstruct_batch(idx, picked))
+    checks["secret_back"] = rec == secret
+    checks["t_minus_1_not_secret"] = sss.reconstruct_batch(idx[1:], picked[1:]) != secret
+    sub = idx[::SSS_T // 16][:16]
+    sub_shares = [shares[i - 1] for i in sub]
+    checks["host_reconstruct_16"] = (sss.reconstruct_batch(sub, sub_shares)
+                                     == sss.reconstruct(sub, sub_shares))
+    if not all(checks.values()):
+        raise SystemExit(f"sss: checks failed: {checks}")
+    torch.cuda.reset_peak_memory_stats()
+    rec_times = _timed_calls(lambda: sss.reconstruct_batch(idx, picked), 3)
+    rec_peak = torch.cuda.max_memory_allocated()
+    ops = _op_tally(lambda: sss.reconstruct_batch(idx, picked))
+    launch_rows = {p: ROWS_BY_PATH[p] for p in ("sss_share", "sss_reconstruct")}
+    print(f"sss: t={SSS_T} n={SSS_N} flow={flow} checks={checks} "
+          f"share_first_s={share_first_s:.3f} share_call_s={[round(t, 4) for t in share_times]} "
+          f"shares_per_s={SSS_N * len(share_times) / sum(share_times):.1f} "
+          f"reconstruct_first_s={rec_first_s:.4f} "
+          f"reconstruct_call_s={[round(t, 4) for t in rec_times]} "
+          f"reconstructs_per_s={len(rec_times) / sum(rec_times):.2f} "
+          f"share_max_memory_allocated={share_peak} reconstruct_max_memory_allocated={rec_peak} "
+          f"launches_per_share_call={share_launches} "
+          f"launches_per_reconstruct_call={rec_launches} launch_rows={launch_rows} "
+          f"reconstruct_{ops}", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -998,6 +1249,9 @@ def main() -> None:
     timed("msm", phase_msm, dev, pts, a, args.trace)
     timed("zp", phase_zp, dev)
     timed("ps", phase_ps, dev, args.trace)
+    timed("bbs", phase_bbs, dev, "bbs", args.trace)
+    timed("bbs_plus", phase_bbs, dev, "bbs_plus", args.trace)
+    timed("sss", phase_sss, dev)
     _check_chains_timed(kernels)
     timed("rows", phase_rows, dev, kernels)
     print(f"phases_s: {phase_s}", flush=True)

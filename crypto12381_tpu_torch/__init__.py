@@ -16,14 +16,22 @@ kernel, a CPU tensor runs the kernel's plain PyTorch version.
     keys = key_gen(rng)                                       # PS, on the host
     sigs = sign_batch(keys.sk, messages, rng)                 # one GLV call
     ok = verify_batch(keys.pk, messages, sigs)                # (B,) bool
+
+    pp = bbs.setup(16, rng); keys = bbs.key_gen(pp, rng)      # BBS (bbs_plus alike)
+    sigs = bbs.sign_batch(pp, keys.sk, blocks, rng)           # blocks: encode_message
+    ok = bbs.verify_batch(pp, keys.pk, blocks, sigs)          # (B,) bool
+    shares = sss.share_batch(t, n, secret, rng)               # Shamir: one Horner ladder
+    secret = sss.reconstruct_batch(indexes, shares[:t])
 """
 
 from ._build import LAUNCH_EXPONENTS, LAUNCH_ROWS, LAUNCHES, reset_launches
 from .api.batch import G1Vec, G2Vec, GTVec, ZpVec, pair_prod_fixed
 from .msm.pippenger import msm_g1
 from .pairing.pairing import pair_batch, pairing_affine
+from .schemes import bbs, bbs_plus, ps, sss
 from .schemes.ps import key_gen, randomnize, sign_batch, verify_batch
 
 __all__ = ["LAUNCHES", "LAUNCH_EXPONENTS", "LAUNCH_ROWS", "G1Vec", "G2Vec", "GTVec", "ZpVec",
-           "key_gen", "msm_g1", "pair_batch", "pair_prod_fixed", "pairing_affine",
-           "randomnize", "reset_launches", "sign_batch", "verify_batch"]
+           "bbs", "bbs_plus", "key_gen", "msm_g1", "pair_batch", "pair_prod_fixed",
+           "pairing_affine", "ps", "randomnize", "reset_launches", "sign_batch", "sss",
+           "verify_batch"]

@@ -9,7 +9,8 @@ points of a verify and its GT verdicts: a vector of elements is ONE tensor
   * ``G1Vec.msm(ZpVec)``  -> the scan Pippenger (K5, K6, K7), n < 2^17
   * ``G1Vec * G1Vec``     -> the group operation (K6)
   * ``ZpVec + - * neg``, ``ZpVec.inverse()`` -> arithmetic mod r on the Fr
-    instance of K1 (``*``: two Fr products; inverse: one power chain)
+    instance of K1 (``*``: two Fr products; inverse: one power chain); a
+    (1,) operand broadcasts against (n,)
   * ``pair_prod_fixed((P1, Q1), ...)`` -> prod_i e(P_i, Q_i) with every Q_i
     a fixed G2 point: precomputed lines, one shared Miller loop, one final
     exponentiation (K1-K4)
@@ -67,7 +68,10 @@ class ZpVec:
     fields/fp.py: + - and neg in plain PyTorch, * as to_mont(REDC(a b)) =
     a b (two `fr_mont_mul` launches), inverse as the Fermat chain a^(r-2)
     in the Montgomery domain (to_mont, one `fr_pow_fixed` launch,
-    from_mont); inverse(0) = 0."""
+    from_mont); inverse(0) = 0.  The operands of + - * broadcast as torch
+    tensors do (a (1,) operand against (n,)): the plain ops broadcast, and
+    K1's wrapper expands its operands and makes them contiguous, so no
+    kernel is handed a stride-0 tensor."""
 
     __slots__ = ("std",)
 
@@ -208,6 +212,14 @@ class _PointVec:
     def shape(self):
         return self.p[0].shape[:-self._mod.ops().elem_ndim]
 
+    def broadcast_to(self, batch):
+        """The vector broadcast to the batch shape `batch` (as torch.expand:
+        a batch shape () or (1,) to any); views, which every kernel wrapper
+        makes contiguous before a launch."""
+        nd = self._mod.ops().elem_ndim
+        return type(self)(tuple(c.expand(tuple(batch) + c.shape[c.dim() - nd:]) for c in self.p),
+                          z_is_one=self.z_is_one)
+
     def affine(self):
         """(x, y, inf_mask) in Montgomery form; the mask has the batch
         shape (Z = 0 over the whole coordinate, Fp for G1, Fp2 for G2)."""
@@ -236,6 +248,11 @@ class G1Vec(_PointVec):
         zs = [0 if p is None else 1 for p in pts]
         return cls((FP.from_int(xs, dev), FP.from_int(ys, dev), FP.from_int(zs, dev)),
                    z_is_one=True)
+
+    @classmethod
+    def from_elements(cls, elems: Iterable, device=None) -> "G1Vec":
+        """Host G1 elements or powers (api/elements.py)."""
+        return cls.from_affine([e.point().pt for e in elems], device)
 
     @classmethod
     def parse(cls, blobs: Iterable[bytes], device=None) -> "G1Vec":
@@ -317,6 +334,11 @@ class G2Vec(_PointVec):
         zs = [(0, 0) if p is None else (1, 0) for p in pts]
         return cls(tuple(FP.from_int([[int(c) for c in v] for v in vals], dev)
                          for vals in (xs, ys, zs)), z_is_one=True)
+
+    @classmethod
+    def from_elements(cls, elems: Iterable, device=None) -> "G2Vec":
+        """Host G2 elements (api/elements.py)."""
+        return cls.from_affine([e.point().pt for e in elems], device)
 
     @classmethod
     def parse(cls, blobs: Iterable[bytes], device=None) -> "G2Vec":

@@ -1,5 +1,5 @@
-"""Host elements with the reference's paper notation, as far as the PS
-scheme uses them.
+"""Host elements with the reference's paper notation, as far as the PS,
+BBS, BBS+ and Shamir schemes use them.
 
 Counterpart of the JAX package's `api/elements.py`: integers mod r and
 host G1 and G2 points with the same multiplicative notation (`**` is
@@ -9,7 +9,9 @@ bulk work runs batched on the device through api/batch.py.
 
 `G1Pow` is the lazy power g^e of a base: it keeps the exponent, which is
 what `schemes/ps.py` `sign_batch` reads to move every signature's powers
-into one batched ladder.
+into one batched ladder, and a product of powers is one host multi-scalar
+product (`G1Element.product`).  The pairing (`GTElement`, `GTPair`,
+`pair`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +21,14 @@ from ..compat.csprng import RandomEngine
 from ..host import curve as C
 from ..params import R
 
-__all__ = ["ZpNumber", "G1Element", "G1Pow", "G2Element"]
+__all__ = ["ZpNumber", "G1Element", "G1Pow", "G2Element", "inverse"]
+
+
+def _as_zp_int(v) -> int:
+    o = _zp_int_or_none(v)
+    if o is None:
+        raise TypeError(f"cannot use {type(v)} as a Zp scalar")
+    return o
 
 
 def _zp_int_or_none(v):
@@ -61,9 +70,42 @@ class ZpNumber:
         o = _zp_int_or_none(other)
         return NotImplemented if o is None else ZpNumber(self.value + o)
 
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        o = _zp_int_or_none(other)
+        return NotImplemented if o is None else ZpNumber(self.value - o)
+
+    def __rsub__(self, other):
+        o = _zp_int_or_none(other)
+        return NotImplemented if o is None else ZpNumber(o - self.value)
+
     def __mul__(self, other):
         o = _zp_int_or_none(other)
         return NotImplemented if o is None else ZpNumber(self.value * o)
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return ZpNumber(self.value * pow(_as_zp_int(other), -1, R))
+
+    def __rtruediv__(self, other):
+        return ZpNumber(_as_zp_int(other) * pow(self.value, -1, R))
+
+    def __neg__(self):
+        return ZpNumber(-self.value)
+
+    def __pow__(self, e):
+        return ZpNumber(pow(self.value, int(e), R))
+
+    def inverse(self) -> "ZpNumber":
+        return ZpNumber(pow(self.value, -1, R))
+
+    def __eq__(self, other):
+        return self.value == _as_zp_int(other)
+
+    def __hash__(self):
+        return hash(("Zp", self.value))
 
     def __repr__(self):
         return f"Zp(0x{self.value:x})"
@@ -81,15 +123,61 @@ class G1Element:
         self.pt = pt
 
     @classmethod
+    def generator(cls) -> "G1Element":
+        return cls(C.G1_GEN)
+
+    @classmethod
+    def identity(cls) -> "G1Element":
+        return cls(None)
+
+    @classmethod
     def parse(cls, data: bytes) -> "G1Element":
         return cls(codec.g1_parse(bytes(data)))
+
+    def __mul__(self, other):
+        if isinstance(other, (G1Element, G1Pow)):
+            return G1Element(C.g1_add(self.pt, other.point().pt))
+        return NotImplemented
+
+    def __truediv__(self, other):
+        if isinstance(other, (G1Element, G1Pow)):
+            return G1Element(C.g1_add(self.pt, C.g1_neg(other.point().pt)))
+        return NotImplemented
 
     def __pow__(self, e):
         ei = _zp_int_or_none(e)
         return NotImplemented if ei is None else G1Pow(self, ei)
 
+    def __eq__(self, other):
+        if isinstance(other, (G1Element, G1Pow)):
+            return self.pt == other.point().pt
+        return NotImplemented
+
+    def __hash__(self):
+        return hash(("G1", self.pt))
+
+    def point(self) -> "G1Element":
+        return self
+
+    def inverse(self) -> "G1Element":
+        return G1Element(C.g1_neg(self.pt))
+
     def serialize(self) -> bytes:
         return codec.g1_serialize(self.pt)
+
+    @staticmethod
+    def product(elems) -> "G1Element":
+        """The product of G1 elements and powers: the powers as ONE host
+        multi-scalar product, the elements added to it."""
+        acc, pows = None, []
+        for e in elems:
+            if isinstance(e, G1Pow):
+                pows.append(e)
+            else:
+                acc = C.g1_add(acc, e.point().pt)
+        if pows:
+            acc = C.g1_add(acc, C.g1_msm([p.base.pt for p in pows], [p.exp for p in pows]))
+        return G1Element(acc)
 
 
 class G1Pow:
@@ -109,6 +197,33 @@ class G1Pow:
 
     def point(self) -> G1Element:
         return G1Element(C.g1_mul(self.base.pt, self.exp))
+
+    def __pow__(self, e):
+        ei = _zp_int_or_none(e)
+        return NotImplemented if ei is None else G1Pow(self.base, self.exp * ei)
+
+    def __mul__(self, other):
+        if isinstance(other, G1Pow):
+            return G1Element(C.g1_msm([self.base.pt, other.base.pt], [self.exp, other.exp]))
+        if isinstance(other, G1Element):
+            return self.point() * other
+        return NotImplemented
+
+    def __truediv__(self, other):
+        if isinstance(other, (G1Element, G1Pow)):
+            return self.point() / other.point()
+        return NotImplemented
+
+    def __eq__(self, other):
+        if isinstance(other, (G1Element, G1Pow)):
+            return self.point().pt == other.point().pt
+        return NotImplemented
+
+    def __hash__(self):
+        return hash(("G1Pow", self.base.pt, self.exp))
+
+    def inverse(self) -> "G1Pow":
+        return G1Pow(self.base, -self.exp)
 
     def serialize(self) -> bytes:
         return self.point().serialize()
@@ -136,5 +251,13 @@ class G2Element:
         ei = _zp_int_or_none(e)
         return NotImplemented if ei is None else G2Element(C.g2_mul(self.pt, ei))
 
+    def point(self) -> "G2Element":
+        return self
+
     def serialize(self) -> bytes:
         return codec.g2_serialize(self.pt)
+
+
+def inverse(x):
+    """The reference's free-function inverse."""
+    return x.inverse()

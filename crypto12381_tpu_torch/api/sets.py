@@ -1,12 +1,14 @@
 """The reference's set notation for a protocol's host edges, as far as
-the PS scheme uses it.
+the PS, BBS, BBS+ and Shamir schemes use it.
 
 Counterpart of the JAX package's `api/sets.py`: the group tags `Zp`,
 `G1` and `G2`, where `~S` excludes the identity and `S ** n` is a
 cartesian power; `select_in` draws elements from the CSPRNG in the
 reference's order; `parse` and `serialize` read and write their
 concatenated bytes; `hash_(...)` is an incremental SHA3-512 whose
-`.to(Zp)` is the digest mod r.
+`.to(Zp)` is the digest mod r; `encode_to`, `make_Zp`, `polynomial` and
+`product_` (over a plain list; the symbolic form waits for a port of the
+JAX package's `api/algebra.py`) are the reference's scalar helpers.
 """
 
 from __future__ import annotations
@@ -15,11 +17,12 @@ import hashlib
 from dataclasses import dataclass
 
 from ..compat.csprng import RandomEngine, create_random_engine
-from ..params import MODBYTES
-from .elements import G1Element, G1Pow, G2Element, ZpNumber
+from ..params import MODBYTES, R
+from .elements import G1Element, G1Pow, G2Element, ZpNumber, inverse
 
 __all__ = ["Zp", "G1", "G2", "Set", "CartesianPower", "select_in", "parse",
-           "serialize", "hash_", "HashState", "create_random_engine"]
+           "serialize", "hash_", "HashState", "create_random_engine", "encode_to",
+           "make_Zp", "polynomial", "product_", "inverse"]
 
 
 @dataclass(frozen=True)
@@ -68,11 +71,13 @@ def _select_one(s: Set, rng: RandomEngine):
     raise ValueError(f"cannot select in {s}")
 
 
-def select_in(s, rng: RandomEngine):
-    """One random element of a set, or a tuple of them for a cartesian
-    power, drawn in order."""
+def select_in(s, rng: RandomEngine, n: int | None = None):
+    """One random element of a set, a tuple of them for a cartesian power,
+    or a list of n of them, drawn in order."""
     if isinstance(s, CartesianPower):
         return tuple(_select_one(s.base, rng) for _ in range(s.exponent))
+    if n is not None:
+        return [_select_one(s, rng) for _ in range(n)]
     return _select_one(s, rng)
 
 
@@ -134,3 +139,50 @@ class HashState:
 
 def hash_(*args) -> HashState:
     return HashState(*args)
+
+
+def product_(items):
+    """The product of a non-empty list: G1 elements and powers as one host
+    multi-scalar product (`G1Element.product`), anything else left to
+    right.  Raises on an empty list, as the JAX package does."""
+    items = list(items)
+    if not items:
+        raise ValueError("empty product")
+    if isinstance(items[0], (G1Element, G1Pow)):
+        return G1Element.product(items)
+    acc = items[0]
+    for it in items[1:]:
+        acc = acc * it
+    return acc
+
+
+#: encode_to's unit: 31 bytes, below r, with a marker bit just above them
+_UNIT = 31
+
+
+def encode_to(s: Set, message) -> list[ZpNumber]:
+    """A message as Zp elements: each 31-byte unit read big-endian, plus
+    2^248 so that no element is 0; a short last unit fills the unit's high
+    bytes.  The empty message has no element."""
+    if s.name != "Zp":
+        raise ValueError("encode_to is defined for Zp only")
+    message = message.encode() if isinstance(message, str) else bytes(message)
+    marker = 1 << (8 * _UNIT)
+    return [ZpNumber(marker + int.from_bytes(message[i:i + _UNIT].ljust(_UNIT, b"\0"), "big"))
+            for i in range(0, len(message), _UNIT)]
+
+
+def make_Zp(x: int) -> ZpNumber:
+    """An integer as a Zp element (negative values taken mod r)."""
+    return ZpNumber(x)
+
+
+def polynomial(x, a0, coeffs):
+    """a0 + sum_i coeffs[i-1] x^i at an integer (or Zp) point x, with the
+    powers as exact integers mod r."""
+    xi = x.value if isinstance(x, ZpNumber) else int(x)
+    acc, p = a0, 1
+    for a in coeffs:
+        p = p * xi % R
+        acc = acc + a * ZpNumber(p)
+    return acc

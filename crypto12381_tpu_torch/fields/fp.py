@@ -312,6 +312,18 @@ class Field:
         """Fermat inversion x^(modulus - 2); inv(0) = 0."""
         return self.pow_fixed(x, self.modulus - 2)
 
+    def batch_inv(self, x: torch.Tensor) -> torch.Tensor:
+        """The inverse of every element of x (Montgomery form in and out), 0
+        for a 0 element: the JAX package's `batch_inv` (fields/fp.py,
+        fields/fp32.py).
+
+        That version is Montgomery's trick: one inversion and two
+        `lax.scan`s of products along an axis, t dependent steps, which
+        here would be 2t launches one after the other.  On a CUDA tensor the
+        Fermat chain of every element is ONE `pow_fixed` launch whatever t
+        is, so this is `inv`, and no axis is needed."""
+        return self.inv(x)
+
     def sqrt(self, x: torch.Tensor) -> torch.Tensor:
         """x^((p+1)/4): a square root of x when x is a square (p = 3 mod 4);
         the caller checks sqrt(x)^2 == x."""
@@ -360,6 +372,7 @@ from_mont = FP_CTX.from_mont
 pow_fixed_plain = FP_CTX.pow_fixed_plain
 pow_fixed = FP_CTX.pow_fixed
 inv = FP_CTX.inv
+batch_inv = FP_CTX.batch_inv
 sqrt = FP_CTX.sqrt
 is_qr = FP_CTX.is_qr
 invsqrt = FP_CTX.invsqrt

@@ -1,11 +1,13 @@
 """Exact G1/G2 scalar multiplication on Python ints (host side).
 
-Makes the port's own test points: affine tuples in, affine tuples out, None
-for the point at infinity.
+The host group law behind the port's own test points and the scalar API
+(api/elements.py): affine tuples in, affine tuples out, None for the point
+at infinity.
   G1: (x, y) with ints mod p,      y^2 = x^3 + 4
   G2: ((xr, xi), (yr, yi)) in Fp2, y^2 = x^3 + 4(1+i)
 
-The ladder runs in Jacobian coordinates with one final inversion.
+Sums, ladders and multi-scalar products run in Jacobian coordinates with
+one final inversion.
 """
 
 from __future__ import annotations
@@ -150,3 +152,26 @@ def g1_mul(pt, k):
 def g2_mul(pt, k):
     """[k]pt on G2, k reduced mod r."""
     return _j_to_affine(_j_mul(pt, k % R, _Fp2), _Fp2)
+
+
+def _j_of(pt, K):
+    return None if pt is None else (pt[0], pt[1], K.one)
+
+
+def g1_neg(pt):
+    """-pt on G1."""
+    return None if pt is None else (pt[0], (-pt[1]) % P)
+
+
+def g1_add(p1, p2):
+    """p1 + p2 on G1 (equal and opposite points included)."""
+    return _j_to_affine(_j_add(_j_of(p1, _Fp), _j_of(p2, _Fp), _Fp), _Fp)
+
+
+def g1_msm(points, scalars):
+    """sum_i [k_i] points[i] on G1, each k_i reduced mod r: the Jacobian
+    ladders summed in Jacobian coordinates, with one final inversion."""
+    acc = None
+    for pt, k in zip(points, scalars):
+        acc = _j_add(acc, _j_mul(pt, k % R, _Fp), _Fp)
+    return _j_to_affine(acc, _Fp)

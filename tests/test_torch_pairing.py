@@ -192,7 +192,8 @@ def _check_port_imports_no_jax():
     names = set(names.split(","))
     for mod in ("convert", "compat.codec", "compat.csprng", "api.batch", "api.sets",
                 "api.elements", "curves.g1", "curves.endo", "msm.pippenger",
-                "ops.scalar_decomp", "pairing.pairing", "schemes.ps"):
+                "ops.scalar_decomp", "pairing.pairing", "schemes.ps", "schemes.bbs",
+                "schemes.bbs_plus", "schemes.sss"):
         assert "crypto12381_tpu_torch." + mod in names, mod
 
 
