@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels and drive its batched pairing,
-G1 scalar multiplication, G1 MSM, G1 point parsing, scalar arithmetic,
-Pointcheval-Sanders, BBS and BBS+ batch signing and verification, and
-Shamir secret sharing on one CUDA card.
+G1 scalar multiplication, G1 MSM (scan and dense rounds), G1 point
+parsing, scalar arithmetic, Pointcheval-Sanders, BBS and BBS+ batch
+signing and verification, Shamir secret sharing, G2 scalar
+multiplication and MSM, and GT powers and pairing products on one CUDA
+card.
 
     python3 chip_smoke.py            # the smoke run
     python3 chip_smoke.py --trace    # and one profiled call of each path
@@ -42,6 +44,16 @@ Phases, one line each; any failure raises and ends the run non-zero:
            tiled; an identity row with a nonzero scalar, some zero scalars)
            against the host integer oracle [sum a_i s_i mod r]G; points/s,
            launches and torch ops per call, peak device memory
+  msm_rounds `G1Vec.msm` at n = 2^20 (the dense-rounds route, c = 16; the
+           JAX bench's size): the g1 phase's 8192 points, affine, tiled
+           128 times, scalars uniform mod r from a seed, an identity row
+           under a nonzero scalar and zero scalars, against the host
+           oracle; a counted first call and 3 timed ones; points/s, the
+           rounds R and the ladder (K5's launches by row count), launches
+           by row count, torch ops, peak device memory; then one
+           projective call (Z != 1 on every 7th row: the Z-inversion
+           front) and one at n = 2^17 with 1,024 equal scalars (runs longer
+           than 512: the scan MSM takes it), both against the oracle
   zp       `ZpVec` + - * neg inverse at 8192 rows (0, 1 and r-1 among
            them): every row against host integers mod r, 4 rows against
            the CPU plain path; launches per call and per operation
@@ -80,16 +92,31 @@ Phases, one line each; any failure raises and ends the run non-zero:
            equals the host reconstruction; shares/s, reconstructs/s,
            first-call seconds, peak device memory, launches per call and
            by row count, the torch ops of one reconstruct call
+  g2       `G2Vec.generator((2048,)) ** ZpVec` (the GS ladder): 8 rows
+           against the host ladder and codec, 4 against the CPU path;
+           `in_subgroup` true on all 2048, false on a point of E'(Fp2)
+           outside G2, `clear_cofactor` of it in G2; scalar
+           multiplications/s; `G2Vec.msm` at n = 4096 (the ladder's points,
+           affine, tiled, two zero scalars) against the host oracle
+  algebra  at B = 2048, P = g1^x, Q = g2^y: `pair_vec(P, Q)` equals
+           `pair_vec(g1, g2) ** (x y)` on every row and is not one,
+           `pair_prod((P, Q), (g1, g2))` equals the product of the two
+           pair_vecs, `GTVec.parse(serialize())` round-trips, e(G1, G2)'s
+           bytes equal tests/vectors/reference.json; pairs/s of
+           `pair_vec`, GT powers/s, launches per call
   rows     every kernel at each row count the paths launched it at that the
            kernels phase did not time, on random canonical operands: held
-           bit for bit against its plain version, device time
+           bit for bit against its plain version (given at most PLAIN_ROWS
+           rows at once), device time
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; every kernel of the path must have launched (a scheme's
 signing and verification, Shamir's sharing and reconstruction, are two
-paths each).  With --trace, each of the pairing, g1, msm, ps, bbs and
-bbs_plus lines also gives one call (the schemes: one verify call) under
-torch.profiler: the summed device time of its kernels against the host
+paths each; the rounds MSM's affine, projective and fallback calls three;
+the G2 ladder and MSM two; pair_vec, gt_pow and pair_prod three).  With
+--trace, each of the pairing, g1, msm, msm_rounds, ps, bbs, bbs_plus, g2
+and algebra lines also gives one call (the schemes: one verify call;
+algebra: pair_vec) under torch.profiler: the summed device time of its kernels against the host
 clock, and its top kernels.
 
 Then the wall seconds of each phase, a JSON line of per-kernel numbers
@@ -124,6 +151,12 @@ BBS_MSG_BYTES = 112
 SSS_T, SSS_N = 1000, 10_000    # Shamir: 10,000 shares (BASELINE.json), threshold 1,000
 MSM_N = 1 << 16
 MSM_LANES, MSM_WINDOWS = 64, 33     # G1Vec.msm's defaults at c = 8
+MSMR_N = 1 << 20               # the rounds MSM: the JAX bench's 2^20 points (bench.py:155-196)
+MSMR_FALLBACK_N = 1 << 17      # the smallest rounds size, with 1,024 equal scalars: the scan
+MSMR_EQUAL = 1024
+G2_B = 2048                    # G2 ladder batch
+G2_MSM_N = 4096
+ALG_B = 2048                   # pair_vec, pair_prod and GT powers
 SEED = 20261016
 #: H100 SXM5: HBM3 at 3.35 TB/s; 132 SMs x 64 INT32 lanes x 1.98 GHz boost
 #: = 1.673e13 32-bit integer multiply-adds/s (NVIDIA H100 data sheet and
@@ -147,6 +180,8 @@ K4_ROWS_PER_PAIR = (3, 2)
 #: added to a headline row count, leaves the last block of K2 (32 rows per
 #: block), K3 (64), K4 (16), K5 (16), K6 (16) and K7 (32) ragged
 RAGGED = 7
+#: the largest row block a plain version is given at once in the rows phase
+PLAIN_ROWS = 32768
 #: kernel -> launches per path and row count, read right after each path
 ROWS_BY_PATH: dict[str, dict[str, dict[int, int]]] = {}
 #: power chain -> launches per path and (row count, exponent), read alike
@@ -495,7 +530,11 @@ def phase_rows(dev, kernels) -> None:
             ins = tuple(torch.from_numpy(
                 _rand_fr(rng, r) if shape == (8,) else _rand_fp(rng, r, int(np.prod(shape[:-1])))
             ).reshape((r,) + shape).to(dev) for shape in k["row_shapes"])
-            got, want = kern(*ins), plain(*ins)
+            got = kern(*ins)
+            # the plain version row block by row block: its int64 columns at
+            # the largest counts would not fit the card at once
+            want = torch.cat([plain(*(t[i:i + PLAIN_ROWS] for t in ins))
+                              for i in range(0, r, PLAIN_ROWS)])
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise SystemExit(f"rows: {k['name']} disagrees with its plain version at {r} rows")
@@ -806,6 +845,249 @@ def phase_msm(dev, pts, a, trace: bool):
           f"call_s={[round(t, 4) for t in times]} points_per_s={rate:.1f} "
           f"launches_per_call={launches} {ops} max_memory_allocated={peak} {traced}",
           flush=True)
+
+
+def uniform_scalars(rng, n: int) -> np.ndarray:
+    """(n, 18) int32 limbs of 16 bits of scalars uniform below r: 255-bit
+    draws, those >= r drawn again (numpy, no host big ints)."""
+    from crypto12381_tpu_torch.params import R
+
+    r_top = np.array([(R >> (16 * i)) & 0xFFFF for i in range(15, -1, -1)])
+    out = np.zeros((n, 18), np.int32)
+    todo = np.arange(n)
+    while todo.size:
+        w = rng.integers(0, 1 << 16, size=(todo.size, 16), dtype=np.int64)
+        w[:, 15] &= 0x7FFF
+        diff = w[:, ::-1] - r_top
+        first = (diff != 0).argmax(1)
+        below = diff[np.arange(todo.size), first] < 0
+        out[todo[below], :16] = w[below]
+        todo = todo[~below]
+    return out
+
+
+def limb_ints(limbs: np.ndarray) -> list[int]:
+    """(n, 18) 16-bit limbs -> Python ints."""
+    raw = np.ascontiguousarray(limbs[:, :16].astype("<u2"))
+    return [int.from_bytes(row.tobytes(), "little") for row in raw]
+
+
+def msm_rounds_scalars(n: int) -> tuple[np.ndarray, int, list[int]]:
+    """The rounds MSM's scalars (limbs), its identity row, and its zero
+    rows: uniform mod r from a fixed seed."""
+    limbs = uniform_scalars(np.random.default_rng(SEED + 8), n)
+    zero_rows = [5, G1_B, n // 2 + 1, n - 1]
+    limbs[zero_rows] = 0
+    return limbs, n // 3, zero_rows
+
+
+def phase_msm_rounds(dev, pts, a, trace: bool):
+    """G1Vec.msm at MSMR_N, the dense-rounds route (K5 per round, K6 and K7
+    in the finish), on the g1 phase's points, affine and tiled, an
+    identity row under a nonzero scalar and zero scalars; a projective
+    call (K1 front); and at MSMR_FALLBACK_N with MSMR_EQUAL equal scalars,
+    which takes the scan MSM.  Each against the host integer oracle."""
+    import torch
+
+    import crypto12381_tpu_torch as T
+    from crypto12381_tpu_torch.curves import g1 as G1C
+    from crypto12381_tpu_torch.fields import fp as FP
+    from crypto12381_tpu_torch.host import curve as C
+    from crypto12381_tpu_torch.params import R
+
+    m = len(a)
+    x, y, _ = pts.affine()
+    X, Y = x.repeat(MSMR_N // m, 1), y.repeat(MSMR_N // m, 1)
+    Z = FP.one((MSMR_N,), dev).clone()
+    t0 = time.perf_counter()
+    limbs, ident, _ = msm_rounds_scalars(MSMR_N)
+    X[ident], Z[ident] = 0, 0                       # an identity row ...
+    s_int = limb_ints(limbs)
+    assert s_int[ident] != 0                        # ... under a nonzero scalar
+    vec = T.G1Vec((X, Y, Z), z_is_one=True)
+    e = T.ZpVec(torch.from_numpy(limbs).to(dev))
+
+    def oracle(scal, n):
+        per_point = [0] * m
+        for i in range(n):
+            if i != ident:
+                per_point[i % m] += scal[i]
+        return C.g1_mul(C.G1_GEN, sum(u * v for u, v in zip(a, per_point)) % R)
+
+    expect = oracle(s_int, MSMR_N)
+    setup_s = time.perf_counter() - t0
+    kernels = ("g1_madd", "g1_add", "g1_dbl")
+    res, first_s, launches = _counted("msm_rounds", kernels, lambda: vec.msm(e))
+    checks = {"oracle": G1C.to_affine_ints(res.p) == expect}
+    k5 = ROWS_BY_PATH["msm_rounds"]["g1_madd"]       # one launch per round
+    rounds = sum(k5.values())
+    torch.cuda.reset_peak_memory_stats()
+    times = _timed_calls(lambda: vec.msm(e), 3)
+    peak = torch.cuda.max_memory_allocated()
+    ops = _op_tally(lambda: vec.msm(e))
+    traced = _trace(lambda: vec.msm(e)) if trace else ""
+
+    # projective: Z != 1 on every 7th row (the identity row keeps Z = 0),
+    # through the Z-inversion front
+    rng = np.random.default_rng(SEED + 11)
+    rows = torch.arange(0, MSMR_N, 7, device=dev)
+    rows = rows[rows != ident]
+    z = torch.from_numpy(_rand_fp(rng, rows.numel(), 1)[:, 0]).to(dev)
+    Xp, Yp, Zp = X.clone(), Y.clone(), Z.clone()
+    Xp[rows], Yp[rows], Zp[rows] = FP.mont_mul(X[rows], z), FP.mont_mul(Y[rows], z), z
+    proj = T.G1Vec((Xp, Yp, Zp))
+    res, proj_s, proj_launches = _counted(
+        "msm_rounds_proj", ("fp_mont_mul", "fp_pow_fixed") + kernels, lambda: proj.msm(e))
+    checks["projective_oracle"] = G1C.to_affine_ints(res.p) == expect
+
+    # MSMR_EQUAL equal scalars make runs longer than 512: the scan MSM
+    nf = MSMR_FALLBACK_N
+    eq_limbs = limbs[:nf].copy()
+    eq_limbs[:MSMR_EQUAL] = limbs[1]
+    few = T.G1Vec((X[:nf], Y[:nf], Z[:nf]), z_is_one=True)
+    res, fb_s, fb_launches = _counted(
+        "msm_rounds_fallback", ("fp_mont_mul", "fp_pow_fixed") + kernels,
+        lambda: few.msm(T.ZpVec(torch.from_numpy(eq_limbs).to(dev))))
+    checks["fallback_oracle"] = G1C.to_affine_ints(res.p) == oracle(limb_ints(eq_limbs), nf)
+    fb_k5 = ROWS_BY_PATH["msm_rounds_fallback"]["g1_madd"]
+    checks["fallback_is_scan"] = set(fb_k5) == {MSM_LANES * MSM_WINDOWS}
+    if not all(checks.values()):
+        raise SystemExit(f"msm_rounds: checks failed: {checks}")
+    print(f"msm_rounds: n={MSMR_N} distinct={m} identity_row={ident} checks={checks} "
+          f"setup_s={setup_s:.2f} first_s={first_s:.3f} call_s={[round(t, 4) for t in times]} "
+          f"points_per_s={MSMR_N * len(times) / sum(times):.1f} rounds={rounds} "
+          f"ladder={sorted(k5, reverse=True)} launches_per_call={launches} "
+          f"launch_rows={ROWS_BY_PATH['msm_rounds']} {ops} max_memory_allocated={peak} "
+          f"projective_s={proj_s:.3f} projective_launches={proj_launches} "
+          f"fallback_n={nf} fallback_s={fb_s:.3f} fallback_launches={fb_launches} {traced}",
+          flush=True)
+
+
+def _off_g2_point():
+    """A point of E'(Fp2) outside G2: the least x = (t, 1) on the twist."""
+    from crypto12381_tpu_torch.host import field as HF
+    from crypto12381_tpu_torch.params import B_G2
+
+    t = 1
+    while True:
+        x = (t, 1)
+        y = HF.fp2_sqrt(HF.fp2_add(HF.fp2_mul(HF.fp2_sqr(x), x), B_G2))
+        if y is not None:
+            return (x, y)
+        t += 1
+
+
+def phase_g2(dev, trace: bool):
+    """G2Vec ** ZpVec at G2_B (the GS ladder, K2), its checks, membership
+    and cofactor clearing, and G2Vec.msm at G2_MSM_N (K1, K2)."""
+    import torch
+
+    import crypto12381_tpu_torch as T
+    from crypto12381_tpu_torch.compat import codec
+    from crypto12381_tpu_torch.curves import g2 as G2C
+    from crypto12381_tpu_torch.fields import tower as TW
+    from crypto12381_tpu_torch.host import curve as C
+    from crypto12381_tpu_torch.params import R
+
+    rng = np.random.default_rng(SEED + 9)
+    a = [int.from_bytes(rng.bytes(32), "big") % R for _ in range(G2_B)]
+    gen = T.G2Vec.generator((G2_B,))
+    e = T.ZpVec.from_ints(a)
+    pts, first_s, launches = _counted("g2", ("fp2_mul",), lambda: gen ** e)
+
+    rows = [0, 1, 2, 3, G2_B // 8, G2_B // 2 + 1, G2_B - 2, G2_B - 1]
+    sub = T.G2Vec(tuple(c[rows] for c in pts.p))
+    host = [C.g2_mul(C.G2_GEN, a[i]) for i in rows]
+    cpu = T.G2Vec.generator((4,), device="cpu") ** T.ZpVec.from_ints(a[:4], device="cpu")
+    off = T.G2Vec.from_affine([_off_g2_point(), host[0]])
+    cleared = G2C.clear_cofactor(off.p)
+    checks = {
+        "host_rows": list(G2C.to_affine_ints(sub.p)) == host,
+        "bytes": sub.serialize() == [codec.g2_serialize(h) for h in host],
+        "cpu_rows": all(torch.equal(c.cpu(), g[:4].cpu()) for c, g in zip(cpu.p, pts.p)),
+        "in_subgroup": bool(G2C.in_subgroup(pts.p).all()),
+        "off_g2_rejected": G2C.in_subgroup(off.p).tolist() == [False, True],
+        "cleared_in_g2": (G2C.in_subgroup(cleared).tolist() == [True, True]
+                          and not bool(G2C.is_identity(cleared).any())),
+    }
+    times = _timed_calls(lambda: gen ** e, 3)
+    traced = _trace(lambda: gen ** e) if trace else ""
+
+    # G2Vec.msm over the ladder's points, affine and tiled
+    x, y, _ = pts.affine()
+    k = G2_MSM_N // G2_B
+    mv = T.G2Vec((x.repeat(k, 1, 1), y.repeat(k, 1, 1), TW.fp2_one((G2_MSM_N,), dev).clone()),
+                 z_is_one=True)
+    s = [int.from_bytes(rng.bytes(32), "big") % R for _ in range(G2_MSM_N)]
+    s[3] = s[G2_MSM_N - 1] = 0
+    se = T.ZpVec.from_ints(s)
+    expect = C.g2_mul(C.G2_GEN, sum(a[i % G2_B] * s[i] for i in range(G2_MSM_N)) % R)
+    res, msm_first_s, msm_launches = _counted(
+        "g2_msm", ("fp_mont_mul", "fp_pow_fixed", "fp2_mul"), lambda: mv.msm(se))
+    checks["msm_oracle"] = G2C.to_affine_ints(res.p) == expect
+    if not all(checks.values()):
+        raise SystemExit(f"g2: checks failed: {checks}")
+    torch.cuda.reset_peak_memory_stats()
+    msm_times = _timed_calls(lambda: mv.msm(se), 2)
+    msm_peak = torch.cuda.max_memory_allocated()
+    print(f"g2: B={G2_B} checks={checks} first_s={first_s:.3f} "
+          f"call_s={[round(t, 4) for t in times]} "
+          f"scalar_muls_per_s={G2_B * len(times) / sum(times):.1f} launches_per_call={launches} "
+          f"launch_rows={ROWS_BY_PATH['g2']} msm_n={G2_MSM_N} msm_first_s={msm_first_s:.3f} "
+          f"msm_call_s={[round(t, 4) for t in msm_times]} "
+          f"msm_points_per_s={G2_MSM_N * len(msm_times) / sum(msm_times):.1f} "
+          f"msm_launches_per_call={msm_launches} msm_max_memory_allocated={msm_peak} {traced}",
+          flush=True)
+
+
+def phase_algebra(dev, trace: bool):
+    """pair_vec, GT powers and pair_prod at ALG_B (K1-K4): bilinearity
+    e(g1^x, g2^y) = e(g1, g2)^(x y) on every row, pair_prod as the product
+    of pair_vecs, GTVec.parse of serialize, and e(G1, G2)'s bytes."""
+    import torch
+
+    import crypto12381_tpu_torch as T
+    from crypto12381_tpu_torch.params import R
+
+    vec = json.loads((pathlib.Path(__file__).resolve().parent / "tests" / "vectors"
+                      / "reference.json").read_text())
+    rng = np.random.default_rng(SEED + 10)
+    xs, ys = ([int.from_bytes(rng.bytes(32), "big") % R for _ in range(ALG_B)] for _ in range(2))
+    X, Y = T.ZpVec.from_ints(xs), T.ZpVec.from_ints(ys)
+    g1, g2 = T.G1Vec.generator((ALG_B,)), T.G2Vec.generator((ALG_B,))
+    P, Q = g1 ** X, g2 ** Y
+    pairing = ("fp_mont_mul", "fp_pow_fixed", "fp2_mul", "fp2_sqr", "fp6_mul")
+    lhs, pv_first_s, pv_launches = _counted("pair_vec", pairing, lambda: T.pair_vec(P, Q))
+    base1 = T.pair_vec(T.G1Vec.generator((1,)), T.G2Vec.generator((1,)))
+    base = T.GTVec(base1.f.expand((ALG_B,) + tuple(base1.f.shape[1:])))
+    xy = X * Y
+    rhs, pow_first_s, pow_launches = _counted("gt_pow", ("fp2_mul", "fp2_sqr", "fp6_mul"),
+                                              lambda: base ** xy)
+    prod, pp_first_s, pp_launches = _counted("pair_prod", pairing,
+                                             lambda: T.pair_prod((P, Q), (g1, g2)))
+    blobs = lhs.serialize()
+    checks = {
+        "bilinear": bool((lhs == rhs).all()),
+        "not_one": not bool(lhs.is_one().any()),
+        "pair_prod": bool((prod == lhs * base).all()),
+        "parse_round_trip": torch.equal(T.GTVec.parse(blobs).f, lhs.f),
+        "gt_e_g1_g2": base1.serialize()[0].hex() == vec["gt_e_g1_g2"],
+    }
+    if not all(checks.values()):
+        raise SystemExit(f"algebra: checks failed: {checks}")
+    torch.cuda.reset_peak_memory_stats()
+    pv_times = _timed_calls(lambda: T.pair_vec(P, Q), 2)
+    pv_peak = torch.cuda.max_memory_allocated()
+    pow_times = _timed_calls(lambda: base ** xy, 3)
+    traced = _trace(lambda: T.pair_vec(P, Q)) if trace else ""
+    print(f"algebra: B={ALG_B} checks={checks} pair_vec_first_s={pv_first_s:.3f} "
+          f"pair_vec_call_s={[round(t, 4) for t in pv_times]} "
+          f"pairs_per_s={ALG_B * len(pv_times) / sum(pv_times):.1f} "
+          f"gt_pow_first_s={pow_first_s:.3f} gt_pow_call_s={[round(t, 4) for t in pow_times]} "
+          f"gt_powers_per_s={ALG_B * len(pow_times) / sum(pow_times):.1f} "
+          f"pair_prod_s={pp_first_s:.3f} pair_vec_max_memory_allocated={pv_peak} "
+          f"launches_per_call={{'pair_vec': {pv_launches}, 'gt_pow': {pow_launches}, "
+          f"'pair_prod': {pp_launches}}} {traced}", flush=True)
 
 
 def phase_zp(dev):
@@ -1247,11 +1529,14 @@ def main() -> None:
     timed("pairing", phase_pairing, dev, args.trace)
     pts, a = timed("g1", phase_g1, dev, args.trace)
     timed("msm", phase_msm, dev, pts, a, args.trace)
+    timed("msm_rounds", phase_msm_rounds, dev, pts, a, args.trace)
     timed("zp", phase_zp, dev)
     timed("ps", phase_ps, dev, args.trace)
     timed("bbs", phase_bbs, dev, "bbs", args.trace)
     timed("bbs_plus", phase_bbs, dev, "bbs_plus", args.trace)
     timed("sss", phase_sss, dev)
+    timed("g2", phase_g2, dev, args.trace)
+    timed("algebra", phase_algebra, dev, args.trace)
     _check_chains_timed(kernels)
     timed("rows", phase_rows, dev, kernels)
     print(f"phases_s: {phase_s}", flush=True)

@@ -9,7 +9,10 @@ kernel, a CPU tensor runs the kernel's plain PyTorch version.
     gt = pair_batch(g1_points, g2_points)            # on the CUDA card
     gt = pair_batch(g1_points, g2_points, device="cpu")
     pts = G1Vec.generator((n,)) ** ZpVec.from_ints(scalars)   # GLV ladder
-    acc = pts.msm(ZpVec.from_ints(more_scalars))              # Pippenger
+    acc = pts.msm(ZpVec.from_ints(more_scalars))              # Pippenger (rounds from 2^17)
+    q = G2Vec.generator((n,)) ** ZpVec.from_ints(scalars)    # GS ladder on G2
+    gt = pair_vec(pts, q) ** ZpVec.from_ints(scalars)         # GT power
+    one = pair_prod((pts, q), (pts.inverse(), q)).is_one()    # shared Miller loop
 
     from crypto12381_tpu_torch.api.sets import create_random_engine
     rng = create_random_engine("seed")                        # MIRACL's CSPRNG
@@ -25,13 +28,13 @@ kernel, a CPU tensor runs the kernel's plain PyTorch version.
 """
 
 from ._build import LAUNCH_EXPONENTS, LAUNCH_ROWS, LAUNCHES, reset_launches
-from .api.batch import G1Vec, G2Vec, GTVec, ZpVec, pair_prod_fixed
+from .api.batch import G1Vec, G2Vec, GTVec, ZpVec, pair_prod, pair_prod_fixed, pair_vec
 from .msm.pippenger import msm_g1
 from .pairing.pairing import pair_batch, pairing_affine
 from .schemes import bbs, bbs_plus, ps, sss
 from .schemes.ps import key_gen, randomnize, sign_batch, verify_batch
 
 __all__ = ["LAUNCHES", "LAUNCH_EXPONENTS", "LAUNCH_ROWS", "G1Vec", "G2Vec", "GTVec", "ZpVec",
-           "bbs", "bbs_plus", "key_gen", "msm_g1", "pair_batch", "pair_prod_fixed",
-           "pairing_affine", "ps", "randomnize", "reset_launches", "sign_batch", "sss",
-           "verify_batch"]
+           "bbs", "bbs_plus", "key_gen", "msm_g1", "pair_batch", "pair_prod", "pair_prod_fixed",
+           "pair_vec", "pairing_affine", "ps", "randomnize", "reset_launches", "sign_batch",
+           "sss", "verify_batch"]

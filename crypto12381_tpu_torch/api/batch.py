@@ -1,13 +1,24 @@
 """Batched G1, G2, GT and scalar vectors: the paper notation over device
 tensors.
 
-Counterpart of the JAX package's `api/batch.py` for G1, Zp, the fixed G2
-points of a verify and its GT verdicts: a vector of elements is ONE tensor
-(leading batch dims), and the operators lower to the batched curve code:
+Counterpart of the JAX package's `api/batch.py` for G1, G2, GT and Zp: a
+vector of elements is ONE tensor (leading batch dims), and the operators
+lower to the batched curve code:
 
   * ``G1Vec ** ZpVec``    -> the GLV ladder over the whole batch (K6, K7)
-  * ``G1Vec.msm(ZpVec)``  -> the scan Pippenger (K5, K6, K7), n < 2^17
+  * ``G1Vec.msm(ZpVec)``  -> the scan Pippenger (K5, K6, K7) for n < 2^17,
+    the dense-rounds Pippenger (msm/rounds.py, one K5 launch per round)
+    from 2^17 on
   * ``G1Vec * G1Vec``     -> the group operation (K6)
+  * ``G2Vec ** ZpVec``, ``G2Vec * G2Vec``, ``G2Vec.msm(ZpVec)`` -> the GS
+    ladder, the group operation and the scan Pippenger over Fp2 (K2, and
+    K1 for the affine conversions)
+  * ``GTVec ** ZpVec``, ``GTVec * GTVec``, ``/``, ``inverse``,
+    ``product`` -> the GS power ladder with cyclotomic squarings and the
+    Fp12 products (K2-K4, K1)
+  * ``pair_vec(P, Q)``    -> e(P_i, Q_i) row by row (K1-K4)
+  * ``pair_prod((P1, Q1), ...)`` -> prod_i e(P_i, Q_i): one shared Miller
+    squaring chain with per-row G2 lines, one final exponentiation
   * ``ZpVec + - * neg``, ``ZpVec.inverse()`` -> arithmetic mod r on the Fr
     instance of K1 (``*``: two Fr products; inverse: one power chain); a
     (1,) operand broadcasts against (n,)
@@ -37,16 +48,19 @@ from ..curves import weierstrass as W
 from ..fields import fp as FP
 from ..fields import tower as TW
 from ..msm import pippenger as MSM
+from ..msm import rounds as MR
 from ..pairing import pairing as PAIR
 from ..params import B_G1, LIMBS, MODBYTES, R
 
-__all__ = ["ZpVec", "G1Vec", "G2Vec", "GTVec", "pair_prod_fixed"]
+__all__ = ["ZpVec", "G1Vec", "G2Vec", "GTVec", "pair_prod", "pair_prod_fixed", "pair_vec"]
 
 #: Fr scalars: 18 limbs of 16 bits (the JAX package's Fr layout)
 FR_LIMBS = 18
 FR = FP.FR_CTX
-#: from this size on, the JAX package's G1Vec.msm takes msm/rounds.py
+#: from this size on, G1Vec.msm takes msm/rounds.py (as the JAX package's)
 ROUNDS_MSM_MIN = 1 << 17
+#: the window width of that route, whatever `c` the caller gives
+ROUNDS_MSM_C = 16
 
 
 def _device(device, what: str = "point and scalar vectors are built") -> torch.device:
@@ -298,21 +312,30 @@ class G1Vec(_PointVec):
         return self.pack_bytes(st.cpu().numpy(), inf.cpu().numpy())
 
     def msm(self, scalars: ZpVec, c: int | None = None, lanes: int = 64) -> "G1Vec":
-        """prod_i self[i] ** scalars[i] over the leading axis, by the scan
-        Pippenger with the JAX package's defaults (c = 8, lanes = 64 clipped
-        to the batch).  Batch-free result."""
+        """prod_i self[i] ** scalars[i] over the leading axis.  Batch-free
+        result.
+
+        n < 2^17: the scan Pippenger with the JAX package's defaults (c = 8,
+        lanes = 64 clipped to the batch).  n >= 2^17: the dense-rounds
+        Pippenger at c = 16 (msm/rounds.py), as the JAX package routes it;
+        `c` and `lanes` are ignored there.  A vector built from affine data
+        (`z_is_one`) skips the rounds' Z inversion; its identity rows
+        (Z = 0) get the scalar 0 first, so that their raw (X, Y) never
+        enter a bucket (the JAX package adds them as the point (0, 1))."""
         n = self.p[0].shape[0]
         if n >= ROUNDS_MSM_MIN:
-            raise NotImplementedError(
-                f"G1Vec.msm at n = {n} >= 2^17: the JAX package takes msm/rounds.py "
-                "there, which is not ported yet")
+            e = scalars.std
+            if self.z_is_one:
+                e = torch.where(G1C.is_identity(self.p)[:, None], 0, e)
+            return G1Vec(MR.msm_g1_rounds(self.p, e, c=ROUNDS_MSM_C, affine=self.z_is_one))
         lanes = min(lanes, 1 << max(0, (n - 1).bit_length() - 1)) or 1
         return G1Vec(MSM.msm_g1(self.p, scalars.std, c=c or 8, lanes=lanes))
 
 
 class G2Vec(_PointVec):
-    """Batched G2 points; PS's verify takes its public-key points as
-    batch-free G2Vec.  The group operations of G2 are not ported yet."""
+    """Batched G2 points: the group law over Fp2, ``**`` by the GS ladder,
+    the scan Pippenger MSM; PS's verify takes its public-key points as
+    batch-free G2Vec."""
 
     _mod = G2C
 
@@ -346,6 +369,28 @@ class G2Vec(_PointVec):
         twist, as codec.g2_parse does."""
         return cls.from_affine([codec.g2_parse(bytes(b)) for b in blobs], device)
 
+    def serialize(self) -> list[bytes]:
+        """97-byte points (one affine conversion on the device, the host
+        codec per point)."""
+        pts = G2C.to_affine_ints(self.p)
+        return [codec.g2_serialize(p) for p in (pts.reshape(-1) if isinstance(pts, np.ndarray)
+                                                 else [pts])]
+
+    def msm(self, scalars: ZpVec, c: int = 8, lanes: int = 64) -> "G2Vec":
+        """prod_i self[i] ** scalars[i] over the leading axis by the scan
+        Pippenger over Fp2 (c = 8, lanes = 64 clipped to the batch, as the
+        JAX package's).  Batch-free result."""
+        n = self.p[0].shape[0]
+        lanes = min(lanes, 1 << max(0, (n - 1).bit_length() - 1)) or 1
+        return G2Vec(MSM.msm_g2(self.p, scalars.std, c=c, lanes=lanes))
+
+
+def _reduce_p(limbs: torch.Tensor) -> torch.Tensor:
+    """int32 limbs of values below 2^384 (< 10 p) -> the values mod p."""
+    for _ in range(9):
+        limbs = FP.FP_CTX._cond_sub_p(limbs.to(torch.int64) & 0xFFFFFFFF)
+    return limbs
+
 
 class GTVec:
     """A batch of GT elements: (..., 2, 3, 2, 12) Fp12 tensors."""
@@ -359,11 +404,99 @@ class GTVec:
     def one(cls, batch=(), device=None) -> "GTVec":
         return cls(TW.fp12_one(batch, _device(device)))
 
+    @classmethod
+    def parse(cls, blobs: Iterable[bytes], device=None) -> "GTVec":
+        """576-byte GT encodings: the 12 Fp coefficients cross as ONE
+        (B, 6, 2, 48) byte array, become limbs with numpy (no host big
+        ints), are reduced mod p and enter the Montgomery form in one K1
+        launch."""
+        dev = _device(device)
+        arr = np.frombuffer(b"".join(bytes(b) for b in blobs), np.uint8).reshape(-1, 6, 2, 48)
+        le = np.ascontiguousarray(arr[..., ::-1]).view("<u4").astype(np.uint32)
+        limbs = torch.from_numpy(le.view(np.int32)).to(dev)        # [slot][imag, real]
+        mont = FP.FP_CTX.to_mont(_reduce_p(limbs))
+        cs6 = [None] * 6
+        for slot, k in enumerate(codec._GT_ORDER):
+            cs6[k] = mont[:, slot].flip(-2)                          # (real, imag)
+        return cls(TW.fp12_from_coeffs_w(cs6))
+
+    @property
+    def shape(self):
+        return self.f.shape[:-4]
+
+    def __mul__(self, other: "GTVec") -> "GTVec":
+        return GTVec(TW.fp12_mul(self.f, other.f))
+
+    def __truediv__(self, other: "GTVec") -> "GTVec":
+        return GTVec(TW.fp12_mul(self.f, TW.fp12_inv(other.f)))
+
+    def __pow__(self, e):
+        e_std = e.std if isinstance(e, ZpVec) else e
+        return GTVec(PAIR.gt_pow(self.f, e_std))
+
+    __xor__ = __pow__
+
+    def inverse(self) -> "GTVec":
+        return GTVec(TW.fp12_inv(self.f))
+
+    def inverse_unitary(self) -> "GTVec":
+        """Conjugation: the inverse of a reduced-pairing value (cyclotomic
+        subgroup), without an Fp12 inversion."""
+        return GTVec(TW.fp12_conj(self.f))
+
     def __eq__(self, other) -> torch.Tensor:  # type: ignore[override]
         return TW.fp12_eq(self.f, other.f)
 
+    def __hash__(self):
+        raise TypeError("GTVec is not hashable")
+
     def is_one(self) -> torch.Tensor:
         return TW.fp12_is_one(self.f)
+
+    def product(self, axis: int = 0) -> "GTVec":
+        """The product over an axis: a tree of Fp12 products."""
+        return GTVec(PAIR.fp12_tree_product(self.f.movedim(axis, 0)))
+
+    def serialize(self) -> list[bytes]:
+        """576-byte encodings of the batch: the 12 coefficients leave the
+        Montgomery form in one K1 launch and cross in one fetch; numpy
+        writes the bytes."""
+        cs = torch.stack(TW.fp12_coeffs_w(self.f), -3)               # (..., 6, 2, 12)
+        host = FP.from_mont(cs).cpu().numpy().reshape(-1, 6, 2, LIMBS)
+        host = host[:, list(codec._GT_ORDER), ::-1]                  # slot order, imag first
+        be = np.ascontiguousarray(host).view(np.uint32).astype("<u4").view(np.uint8)
+        be = be.reshape(host.shape[:3] + (4 * LIMBS,))[..., ::-1]
+        return [bytes(r) for r in np.ascontiguousarray(be).reshape(-1, 6 * 2 * 4 * LIMBS)]
+
+
+def _masked_miller(g1v: G1Vec, g2v: G2Vec) -> torch.Tensor:
+    """Miller values of the rows, 1 where P or Q is the identity."""
+    px, py, pinf = g1v.affine()
+    qx, qy, qinf = g2v.affine()
+    f = PAIR.miller_loop((px, py), (qx, qy))
+    inf = pinf | qinf
+    return torch.where(inf[..., None, None, None, None], TW.fp12_one(f.shape[:-4], f.device), f)
+
+
+def pair_vec(g1v: G1Vec, g2v: G2Vec) -> GTVec:
+    """The reduced pairing e(P_i, Q_i) row by row (the reference's
+    normalization, the ate pairing cubed); e(O, .) = e(., O) = 1."""
+    return GTVec(PAIR.final_exp(_masked_miller(g1v, g2v)))
+
+
+def pair_prod(*pairs: tuple) -> GTVec:
+    """prod_i e(P_i, Q_i) over the argument pairs (G1Vec, G2Vec) with ONE
+    shared Miller squaring chain (per step one Fp12 square for all pairs,
+    each pair's G2 line per row) and ONE final exponentiation.  All pairs
+    share a batch shape; a pair with an identity P or Q contributes 1."""
+    p_aff = [a.affine() for a, _ in pairs]
+    q_aff = [b.affine() for _, b in pairs]
+    px = torch.stack([p[0] for p in p_aff])
+    py = torch.stack([p[1] for p in p_aff])
+    qx = torch.stack([q[0] for q in q_aff])
+    qy = torch.stack([q[1] for q in q_aff])
+    inf = torch.stack([p[2] | q[2] for p, q in zip(p_aff, q_aff)])
+    return GTVec(PAIR.final_exp(PAIR.multi_miller_shared((px, py), (qx, qy), inf=inf)))
 
 
 def pair_prod_fixed(*pairs: tuple) -> GTVec:

@@ -105,3 +105,14 @@ def gt_serialize(f) -> bytes:
         out += int_to_bytes(imag)
         out += int_to_bytes(real)
     return bytes(out)
+
+
+def gt_parse(b: bytes):
+    """576 bytes -> host Fp12 tuple (host/field.py layout), the inverse of
+    gt_serialize."""
+    cs = [None] * 6
+    for slot, k in enumerate(_GT_ORDER):
+        off = slot * 2 * MODBYTES
+        cs[k] = (int_from_bytes(b[off + MODBYTES:off + 2 * MODBYTES]),
+                 int_from_bytes(b[off:off + MODBYTES]))
+    return F.fp12_from_coeffs_w(tuple(cs))

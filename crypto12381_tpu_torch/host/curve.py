@@ -175,3 +175,8 @@ def g1_msm(points, scalars):
     for pt, k in zip(points, scalars):
         acc = _j_add(acc, _j_mul(pt, k % R, _Fp), _Fp)
     return _j_to_affine(acc, _Fp)
+
+
+def g2_add(p1, p2):
+    """p1 + p2 on G2 (equal and opposite points included)."""
+    return _j_to_affine(_j_add(_j_of(p1, _Fp2), _j_of(p2, _Fp2), _Fp2), _Fp2)

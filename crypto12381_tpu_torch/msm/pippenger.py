@@ -1,21 +1,23 @@
-"""Batched Pippenger multi-scalar multiplication on G1.
+"""Batched Pippenger multi-scalar multiplication on G1 and G2.
 
 Counterpart of the JAX package's `msm/pippenger.py` (the scan Pippenger:
 `window_digits`, `signed_window_digits`, `force_affine`, `pad_affine`,
-`msm`, `_suffix_weighted`, `_collapse_buckets`, `msm_g1`), with the same
-algorithm and parameters:
+`msm`, `_suffix_weighted`, `_collapse_buckets`, `msm_g1`, `msm_g2`), with
+the same algorithm and parameters, over G1 (K5-K7) or G2 (the RCB
+formulas over Fp2, one K2 launch per product round):
   * scalars split into K signed c-bit window digits in [-2^(c-1), 2^(c-1)]
     (the offset trick: no sequential borrow chain);
   * points go affine up front by a Montgomery batch inversion of the Z
     column (identity points become the generator with scalar 0), so every
-    bucket update is the mixed add K5;
+    bucket update is a mixed add (K5 on G1);
   * G lanes each own a private (K, 2^(c-1) + 1) bucket grid; a Python loop
     walks the n / G point blocks, and per step each lane adds its point,
-    sign-corrected per window, into one bucket of each window (one K5
+    sign-corrected per window, into one bucket of each window (on G1 one K5
     launch over G * K rows);
-  * lanes reduce by a log2(G) tree of complete adds (K6), buckets collapse
-    by the suffix-sum split into O(sqrt(nbuck)) steps, windows combine
-    Horner-style with c doublings (K7) and one add per window.
+  * lanes reduce by a log2(G) tree of complete adds (K6 on G1), buckets
+    collapse by the suffix-sum split into O(sqrt(nbuck)) steps, windows
+    combine Horner-style with c doublings (K7 on G1) and one add per
+    window.
 The complete formulas keep every step exception-free: identity buckets,
 repeated points and doubling collisions need no branch.
 """
@@ -27,6 +29,7 @@ import math
 import torch
 
 from ..curves import g1 as G1
+from ..curves import g2 as G2
 from ..curves import weierstrass as W
 from ..ops.scalar_decomp import LIMB_BITS, LIMB_MASK, carry_fix
 
@@ -69,21 +72,24 @@ def force_affine(ops: W.FieldOps, points, scalars_std, gen_affine, block: int = 
 
     Montgomery batch inversion of the Z column in two levels: the n values
     are cut into `block` rows of m columns, a running product walks the
-    rows (block K1 launches over m columns), ONE Fermat inversion inverts
-    the m column totals, and a backward walk hands each Z its inverse
-    (2 * block launches).  Identity points (Z = 0) become `gen_affine`
-    with scalar 0, so the bucket phase never sees a Z != 1 operand."""
+    rows (block product launches over m columns), ONE Fermat inversion
+    inverts the m column totals, and a backward walk hands each Z its
+    inverse (2 * block launches).  Identity points (Z = 0) become
+    `gen_affine` with scalar 0, so the bucket phase never sees a Z != 1
+    operand.  Any coefficient field: elements are (n, *elem)."""
     X, Y, Z = points
     n = scalars_std.shape[0]
     dev = Z.device
+    elem = tuple(Z.shape[1:])
     is_id = ops.is_zero(Z)
+    m_id = is_id.reshape((n,) + (1,) * len(elem))
     one = ops.one((n,), dev)
-    safe = torch.where(is_id[:, None], one, Z)
+    safe = torch.where(m_id, one, Z)
     pad = (-n) % block
     if pad:
         safe = torch.cat([safe, ops.one((pad,), dev)], 0)
     m = safe.shape[0] // block
-    zb = safe.reshape(m, block, -1).transpose(0, 1)            # (block, m, 12)
+    zb = safe.reshape((m, block) + elem).transpose(0, 1)         # (block, m, *elem)
     prefix = []
     carry = ops.one((m,), dev)
     for j in range(block):
@@ -93,11 +99,11 @@ def force_affine(ops: W.FieldOps, points, scalars_std, gen_affine, block: int = 
     zinv = [None] * block
     for j in reversed(range(block)):
         zinv[j], carry = ops.mul_many([(carry, prefix[j]), (carry, zb[j])])
-    zinv = torch.stack(zinv, 0).transpose(0, 1).reshape(-1, Z.shape[-1])[:n]
+    zinv = torch.stack(zinv, 0).transpose(0, 1).reshape((-1,) + elem)[:n]
     x, y = ops.mul_many([(X, zinv), (Y, zinv)])
     gx, gy = gen_affine
-    x = torch.where(is_id[:, None], gx.expand_as(x), x)
-    y = torch.where(is_id[:, None], gy.expand_as(y), y)
+    x = torch.where(m_id, gx.expand_as(x), x)
+    y = torch.where(m_id, gy.expand_as(y), y)
     scalars_std = torch.where(is_id[:, None], torch.zeros_like(scalars_std), scalars_std)
     return x, y, scalars_std
 
@@ -124,10 +130,11 @@ def _stacked(ops: W.FieldOps, op, *pts: torch.Tensor) -> torch.Tensor:
 def msm(points, scalars_std, ops: W.FieldOps, c: int = 8, lanes: int = 64, gen_affine=None):
     """sum_i scalars[i] * points[i].
 
-    points: projective (X, Y, Z) of (n, 12) tensors; scalars_std: (n, L)
-    standard-domain Fr limbs.  lanes must be a power of two.  gen_affine:
-    (x, y) of a fixed non-identity affine point, for identity replacement
-    and padding.  Returns one projective point (batch shape ())."""
+    points: projective (X, Y, Z) of (n, *elem) tensors (elem (12,) for G1,
+    (2, 12) for G2); scalars_std: (n, L) standard-domain Fr limbs.  lanes
+    must be a power of two.  gen_affine: (x, y) of a fixed non-identity
+    affine point, for identity replacement and padding.  Returns one
+    projective point (batch shape ())."""
     assert lanes & (lanes - 1) == 0
     K = -(-258 // c)
     nbuck = (1 << (c - 1)) + 1
@@ -136,32 +143,34 @@ def msm(points, scalars_std, ops: W.FieldOps, c: int = 8, lanes: int = 64, gen_a
     x, y, scalars_std = force_affine(ops, points, scalars_std, gen_affine)
     (x, y), scalars_std = pad_affine(ops, (x, y), scalars_std, lanes, gen_affine)
     steps = scalars_std.shape[0] // lanes
+    elem = tuple(x.shape[1:])
+    emask = (1,) * len(elem)
 
     digits = signed_window_digits(scalars_std, c).reshape(steps, lanes, K)
     neg = digits < 0
     idx = digits.abs()
     # -y for every point once, not once per step
-    xs = x.reshape(steps, lanes, 1, -1)
-    ys = y.reshape(steps, lanes, 1, -1)
-    nys = ops.neg(y).reshape(steps, lanes, 1, -1)
+    xs = x.reshape((steps, lanes, 1) + elem)
+    ys = y.reshape((steps, lanes, 1) + elem)
+    nys = ops.neg(y).reshape((steps, lanes, 1) + elem)
 
-    # (lanes, K, nbuck, 3, 12), all identity; a real tensor (it is updated
-    # in place), not a broadcast view
-    buckets = torch.zeros((lanes, K, nbuck, 3, x.shape[-1]), dtype=x.dtype, device=dev)
-    buckets[..., 1, :] = ops.one((), dev)
+    # (lanes, K, nbuck, 3, *elem), all identity; a real tensor (it is
+    # updated in place), not a broadcast view
+    buckets = torch.zeros((lanes, K, nbuck, 3) + elem, dtype=x.dtype, device=dev)
+    buckets[:, :, :, 1] = ops.one((), dev)
 
     lane_idx = torch.arange(lanes, device=dev)[:, None]
     win_idx = torch.arange(K, device=dev)[None, :]
     for s in range(steps):
-        cur = buckets[lane_idx, win_idx, idx[s]]               # (lanes, K, 3, 12)
-        py = torch.where(neg[s][..., None], nys[s], ys[s])     # (lanes, K, 12)
-        q = torch.stack([xs[s].expand_as(py), py], -2)
+        cur = buckets[lane_idx, win_idx, idx[s]]               # (lanes, K, 3, *elem)
+        py = torch.where(neg[s].reshape(neg[s].shape + emask), nys[s], ys[s])
+        q = torch.stack([xs[s].expand_as(py), py], -1 - len(elem))
         new = _stacked(ops, W.madd, cur, q)
         # each (lane, window) pair names one bucket, so the indices of one
         # step are unique and the in-place scatter has no collisions
         buckets[lane_idx, win_idx, idx[s]] = new
 
-    # lane tree -> (K, nbuck, 3, 12)
+    # lane tree -> (K, nbuck, 3, *elem)
     g = lanes
     while g > 1:
         half = g // 2
@@ -169,11 +178,15 @@ def msm(points, scalars_std, ops: W.FieldOps, c: int = 8, lanes: int = 64, gen_a
         g = half
     buckets = buckets[0]
 
-    S = W.stack_point(ops, _collapse_buckets(ops, buckets, nbuck, K))     # (K, 3, 12)
+    S = W.stack_point(ops, _collapse_buckets(ops, buckets, nbuck, K))     # (K, 3, *elem)
+    return _horner(ops, S, c)
 
-    # window combine, Horner from the top window down
-    acc = W.identity(ops, (), dev)
-    for k in range(K - 1, -1, -1):
+
+def _horner(ops: W.FieldOps, S: torch.Tensor, c: int):
+    """The window combine sum_k 2^(ck) S[k], Horner from the top window
+    down: c doublings and one add per window.  S: (K, 3, *elem)."""
+    acc = W.identity(ops, (), S.device)
+    for k in range(S.shape[0] - 1, -1, -1):
         for _ in range(c):
             acc = W.double(ops, acc)
         acc = W.add(ops, acc, W.unstack_point(ops, S[k]))
@@ -234,5 +247,14 @@ def _gen_affine_g1(device):
     return (g[0], g[1])
 
 
+def _gen_affine_g2(device):
+    g = G2.generator((), device)
+    return (g[0], g[1])
+
+
 def msm_g1(points, scalars_std, c: int = 8, lanes: int = 64):
     return msm(points, scalars_std, G1.ops(), c, lanes, _gen_affine_g1(scalars_std.device))
+
+
+def msm_g2(points, scalars_std, c: int = 8, lanes: int = 64):
+    return msm(points, scalars_std, G2.ops(), c, lanes, _gen_affine_g2(scalars_std.device))

@@ -1,10 +1,11 @@
-"""Scalar decomposition for the G1 GLV ladder, batched on the device.
+"""Scalar decompositions for the G1 GLV and the G2/GT GS ladders, batched
+on the device.
 
 Counterpart of the JAX package's `ops/scalar_decomp.py` (`mul_const`,
-`divmod_const`, `glv_split`, `bits_msb_first`).  The divisor lambda is a
-fixed public constant, so each division is a branch-free Barrett reduction
-over limb tensors: one constant product, a limb shift and two conditional
-corrections.
+`divmod_const`, `glv_split`, `gs_split`, `bits_msb_first`).  The divisors
+lambda and |x| are fixed public constants, so each division is a
+branch-free Barrett reduction over limb tensors: one constant product, a
+limb shift and two conditional corrections.
 
 Scalars keep the JAX package's layout: standard-domain (not Montgomery)
 limbs of 16 bits, least significant first, in int32 tensors (..., L).
@@ -30,6 +31,8 @@ assert GLV_LAMBDA**2 + GLV_LAMBDA + 1 == R
 
 #: Shamir ladder length: bits of the two half-scalars.
 GLV_BITS = max(GLV_LAMBDA.bit_length(), ((R - 1) // GLV_LAMBDA).bit_length())
+#: GS ladder length: bits of the four digits below |x|.
+GS_BITS = X_ABS.bit_length()
 
 
 def _to_limbs(v: int, n: int) -> list[int]:
@@ -118,6 +121,20 @@ def glv_split(e_std: torch.Tensor):
     so both halves are below 2^128)."""
     k2, k1 = divmod_const(e_std, GLV_LAMBDA, lq=8, lr=8)
     return k1, k2
+
+
+def gs_split(e_std: torch.Tensor) -> torch.Tensor:
+    """(..., L) Fr standard limbs -> (..., 4, 4) digit limbs with
+    e = sum_i d_i |x|^i, each d_i < |x| (64 bits): three divisions by |x|.
+    psi acts as [x] = [-|x|] on G2 (and the Frobenius as x on the GT
+    r-torsion), so [e]Q = sum_i [d_i] ((-1)^i psi^i(Q))."""
+    digits = []
+    k = e_std
+    for _ in range(3):
+        k, d = divmod_const(k, X_ABS, lq=max(4, k.shape[-1] - 3), lr=4)
+        digits.append(d)
+    digits.append(k[..., :4])                      # e // |x|^3 < r / |x|^3 < |x|
+    return torch.stack(digits, -2)
 
 
 def bits_msb_first(d: torch.Tensor, n_bits: int) -> torch.Tensor:

@@ -3,9 +3,11 @@
 Counterpart of the JAX package's `pairing/pairing.py`: the n3/n digit
 Miller loop with M-type twist line functions, the final conjugation for
 the negative x, and the final exponentiation whose hard part is CUBED (the
-reference's reduced pairing is the textbook ate pairing cubed).  The digit
-schedule is a host constant, so the loop is a plain Python loop over static
-digits: no data-dependent control flow.
+reference's reduced pairing is the textbook ate pairing cubed); products
+of pairings with one shared squaring chain (`multi_miller_shared`, and
+`multi_miller_precomp` on precomputed fixed-G2 lines); and the GT power
+`gt_pow`.  The digit schedule is a host constant, so the loops are plain
+Python loops over static digits: no data-dependent control flow.
 
 Line values are sparse Fp12 elements with w-basis coefficients at
 positions (0, 3, 5).
@@ -22,6 +24,7 @@ from ..fields import fp as FP
 from ..fields import fused as FK
 from ..fields import tower as TW
 from ..host.curve import G1_GEN, G2_GEN
+from ..ops import scalar_decomp as SD
 from ..params import LIMBS, P, R, X_ABS
 
 
@@ -124,6 +127,84 @@ def miller_loop(p_aff, q_aff):
             f = _mul_sparse(f, _line_add(A, (Px, pay), qx, qy))
             A = G2.madd(A, (Px, pay))
     return TW.fp12_conj(f)
+
+
+def multi_miller(p_affs, q_affs):
+    """The product of the Miller values of k pairs along the leading axis
+    (one final exponentiation serves them all).  Up to 4 pairs share one
+    squaring chain (multi_miller_shared); more run as one batched Miller
+    loop and a tree of Fp12 products."""
+    if p_affs[0].shape[0] <= 4:
+        return multi_miller_shared(p_affs, q_affs)
+    return fp12_tree_product(miller_loop(p_affs, q_affs))
+
+
+def fp12_tree_product(f):
+    """The product of the Fp12 values along the leading axis: a log-depth
+    tree of stacked Fp12 products."""
+    while f.shape[0] > 1:
+        k = f.shape[0]
+        half = k // 2
+        red = TW.fp12_mul(f[:half], f[half:2 * half])
+        f = red if k % 2 == 0 else torch.cat([red, f[-1:]], 0)
+    return f[0]
+
+
+def multi_miller_shared(p_affs, q_affs, inf=None):
+    """prod_i Miller(P_i, Q_i) over the leading axis k with ONE shared
+    squaring chain: per digit step the accumulator squares once and
+    absorbs each pair's line by a sparse product (the reference's
+    PAIR_another accumulation).  Every pair runs its own G2 steps, one
+    batch over the k pairs and the rows.
+
+    p_affs: G1 affine (x, y), tensors (k, batch..., 12); q_affs: G2 affine
+    (X, Y), tensors (k, batch..., 2, 12); inf: optional (k, batch...) bool,
+    a flagged pair contributing exactly 1 (its points become the
+    generators, so that the line algebra stays finite, and its lines 1).
+    Returns the product after the negative-x conjugation."""
+    qx, qy = p_affs
+    Px, Py = q_affs
+    kk = qx.shape[0]
+    dev = qx.device
+    if inf is not None:
+        m1 = inf[..., None]
+        m2 = inf[..., None, None]
+        g2x, g2y = (torch.stack([FP.from_int(c[0], dev), FP.from_int(c[1], dev)])
+                    for c in G2_GEN)
+        qx = torch.where(m1, FP.from_int(G1_GEN[0], dev), qx)
+        qy = torch.where(m1, FP.from_int(G1_GEN[1], dev), qy)
+        Px = torch.where(m2, g2x, Px)
+        Py = torch.where(m2, g2y, Py)
+    NPy = TW.fp2_neg(Py)
+    A = (Px, Py, TW.fp2_one(qx.shape[:-1], dev))
+    f = TW.fp12_one(qx.shape[1:-1], dev)
+
+    def absorb(f, line):
+        c0, c3, c5 = line
+        if inf is not None:
+            m = inf[..., None, None]
+            c0 = torch.where(m, TW.fp2_one((), dev), c0)
+            c3 = torch.where(m, 0, c3)
+            c5 = torch.where(m, 0, c5)
+        for i in range(kk):
+            f = _mul_sparse(f, (c0[i], c3[i], c5[i]))
+        return f
+
+    for d in _digits():
+        f = TW.fp12_sqr(f)
+        f = absorb(f, _line_dbl(A, qx, qy))
+        A = G2.double(A)
+        if d:
+            pay = Py if d > 0 else NPy
+            f = absorb(f, _line_add(A, (Px, pay), qx, qy))
+            A = G2.madd(A, (Px, pay))
+    return TW.fp12_conj(f)
+
+
+def multi_pairing(p_affs, q_affs):
+    """e(P_1, Q_1) e(P_2, Q_2) ... over the leading axis, one final
+    exponentiation."""
+    return final_exp(multi_miller(p_affs, q_affs))
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +311,38 @@ def final_exp(f):
     dx2 = _pow_abs_x(_pow_abs_x(d))
     e = TW.fp12_mul(TW.fp12_mul(dx2, TW.fp12_frob(d, 2)), TW.fp12_conj(d))
     return TW.fp12_mul(e, TW.fp12_mul(TW.fp12_sqr(m), m))           # e * m^3
+
+
+# ---------------------------------------------------------------------------
+# GT exponentiation (Galbraith-Scott, cyclotomic squarings)
+# ---------------------------------------------------------------------------
+
+
+def gt_pow(f, e_std):
+    """f^e for f in GT (a reduced-pairing value) and e_std standard-domain
+    Fr limbs (..., 18): the reference's PAIR_GTpow.
+
+    e = sum_i d_i |x|^i with the Frobenius as the endomorphism (f^p = f^x
+    on the r-torsion; conjugation is the inverse in the cyclotomic
+    subgroup): a 16-entry table of subset products of
+    {f, conj(f^p), f^(p^2), conj(f^(p^3))}, then 64 steps of a cyclotomic
+    square (K3) and a product (K4) by the row's entry.  Each level of the
+    table is one stacked Fp12 product over its entries."""
+    batch = f.shape[:-4]
+    bases = [f, TW.fp12_conj(TW.fp12_frob(f, 1)), TW.fp12_frob(f, 2),
+             TW.fp12_conj(TW.fp12_frob(f, 3))]
+    T = TW.fp12_one(batch, f.device)[None]
+    for b in bases:
+        T = torch.cat([T, TW.fp12_mul(T, b)], 0)           # (2^(i+1), ..., 2, 3, 2, 12)
+    bits = SD.bits_msb_first(SD.gs_split(e_std), SD.GS_BITS)      # (64, ..., 4)
+    idxs = (bits * torch.tensor([1, 2, 4, 8], device=bits.device)).sum(-1)
+    flat = T.reshape((16, -1) + T.shape[-4:])
+    rows = torch.arange(flat.shape[1], device=f.device)
+    acc = TW.fp12_one(batch, f.device)
+    for i in range(SD.GS_BITS):
+        acc = TW.fp12_usqr(acc)
+        acc = TW.fp12_mul(acc, flat[idxs[i].reshape(-1), rows].reshape(acc.shape))
+    return acc
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ n = 16 (as tests/test_msm.py), with an identity point under a nonzero
 scalar and zero scalars, against the JAX `msm_g1` under jax.jit (in a
 child process), exactly as canonical projective values, and against the
 host integer oracle; `G1Vec.msm` on the CPU against the oracle, and its
-refusal at n >= 2^17, where the JAX package takes msm/rounds.py.
+route at n >= 2^17 to the port's msm/rounds.py (at c = 16, identity rows of
+an affine-built vector under the scalar 0), seen through a stand-in.
 """
 
 import pathlib
@@ -104,19 +105,42 @@ def _check_msm_g1_matches_jax_jit_and_oracle(tmp_path):
     assert all(torch.equal(g, w) for g, w in zip(got, convert.from_jax_point(want)))
 
 
-def _check_g1vec_msm_routes():
+def _check_g1vec_msm_routes(monkeypatch):
     p, s, expect = msm_inputs()
     v = T.G1Vec(p)
     assert G1.to_affine_ints(v.msm(T.ZpVec(convert.from_jax_fr(s)), c=4).p) == expect
+    # n >= 2^17 reaches msm_g1_rounds at c = 16 whatever c is given (a real
+    # call at this size takes minutes on the CPU, so a stand-in records it)
+    from crypto12381_tpu_torch.api import batch
+
+    seen = []
+
+    def rounds(points, scalars_std, c=16, affine=False):
+        seen.append((points, scalars_std, c, affine))
+        return G1.identity((), "cpu")
+
+    monkeypatch.setattr(batch.MR, "msm_g1_rounds", rounds)
     n = 1 << 17
-    big = T.G1Vec.generator((n,), device="cpu")
-    with pytest.raises(NotImplementedError, match="msm/rounds.py"):
-        big.msm(T.ZpVec(torch.zeros((n, 18), dtype=torch.int32)))
+    big = tuple(c.clone() for c in T.G1Vec.generator((n,), device="cpu").p)
+    ident = [3, n - 1]
+    for i in ident:
+        big[0][i], big[2][i] = 0, 0
+    e = torch.from_numpy(np.random.default_rng(7).integers(0, 1 << 16, (n, 18), np.int32))
+    e[:, 15:] = 0
+    out = T.G1Vec(big, z_is_one=True).msm(T.ZpVec(e), c=4)
+    assert bool(G1.is_identity(out.p))
+    (pts, got_e, c, affine), = seen
+    assert (pts[0].shape[0], c, affine) == (n, 16, True)
+    keep = torch.ones(n, dtype=torch.bool)
+    keep[ident] = False
+    assert torch.equal(got_e[keep], e[keep]) and not bool(got_e[~keep].any())
+    T.G1Vec(big).msm(T.ZpVec(e))                 # projective: the Z inversion front
+    assert seen[1][3] is False and torch.equal(seen[1][1], e)
 
 
-def test_msm_layer_matches_jax(tmp_path):
+def test_msm_layer_matches_jax(tmp_path, monkeypatch):
     """One test for the file's checks (the tier-1 run's worker schedule
     depends on the number of tests collected)."""
     _check_signed_window_digits_match_jax()
     _check_msm_g1_matches_jax_jit_and_oracle(tmp_path)
-    _check_g1vec_msm_routes()
+    _check_g1vec_msm_routes(monkeypatch)

@@ -191,9 +191,9 @@ def _check_port_imports_no_jax():
     assert (jax_loaded, pkg_loaded) == ("False", "False")
     names = set(names.split(","))
     for mod in ("convert", "compat.codec", "compat.csprng", "api.batch", "api.sets",
-                "api.elements", "curves.g1", "curves.endo", "msm.pippenger",
-                "ops.scalar_decomp", "pairing.pairing", "schemes.ps", "schemes.bbs",
-                "schemes.bbs_plus", "schemes.sss"):
+                "api.elements", "curves.g1", "curves.g2", "curves.endo", "msm.pippenger",
+                "msm.rounds", "msm.sorted", "ops.scalar_decomp", "pairing.pairing",
+                "schemes.ps", "schemes.bbs", "schemes.bbs_plus", "schemes.sss"):
         assert "crypto12381_tpu_torch." + mod in names, mod
 
 

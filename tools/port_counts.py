@@ -1,34 +1,47 @@
 #!/usr/bin/env python3
-"""Count, on the CPU, what one call of each of the port's scheme paths
-issues, to predict a run on the card without one.
+"""Count, on the CPU, what one call of each of the port's paths issues,
+to predict a run on the card without one.
 
-    python3 tools/port_counts.py [B]      # B messages, default 4
+    python3 tools/port_counts.py [B]      # B rows or messages, default 4
 
-The paths and their shapes are chip_smoke.py's, at B messages: PS
+The paths and their shapes are chip_smoke.py's, at B messages or rows: PS
 `sign_batch`/`verify_batch` (messages b"bench-%06d"), BBS and BBS+
 `sign_batch`/`verify_batch` (`setup(16)`, 112-byte messages of 4 Zp
-blocks, the last one a single block), and Shamir `share_batch` (t = 1,000
-at n = 16 points: the counts do not depend on n) and `reconstruct_batch`
-(t = 1,000).  For each call: the torch ops it dispatches and the non-view
-ones, and the kernel launches it would make, each kernel's plain version
-counted as ONE op and one launch (its own ops hidden), as its CUDA kernel
-is on the card; the card's wrappers add a few views and empties per
-launch.  Launch and op counts do not depend on B.  Also the host seconds
-of PS signing's per-message hash and CSPRNG draw over 512 messages.
-Imports nothing of the JAX package.
+blocks, the last one a single block), Shamir `share_batch` (t = 1,000 at
+n = 16 points: the counts do not depend on n) and `reconstruct_batch`
+(t = 1,000), the G2 GS ladder `G2Vec ** ZpVec`, `GTVec ** ZpVec`,
+`pair_vec` and the two-pair `pair_prod`.  For each call: the torch ops it
+dispatches and the non-view ones, and the kernel launches it would make,
+each kernel's plain version counted as ONE op and one launch (its own ops
+hidden), as its CUDA kernel is on the card; the card's wrappers add a few
+views and empties per launch.  Launch and op counts do not depend on B.
+Also the host seconds of PS signing's per-message hash and CSPRNG draw
+over 512 messages.
+
+Then the rounds MSM (`G1Vec.msm` at n = 2^20) at its full size, on
+chip_smoke.py's scalars: the affine call, the projective call and the
+call at 2^17 with 1,024 equal scalars.  There every kernel is a stand-in
+that returns zeros of its output's shape (the schedule depends on the
+scalars alone), so the counts are exact and the results are not; the
+launches are given by row count too, and with them the rounds R and the
+compaction sizes.  Imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import collections
 import functools
+import math
 import pathlib
 import sys
 import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
+import torch  # noqa: E402
 from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes  # noqa: E402
+
+import chip_smoke as CS  # noqa: E402
 
 import crypto12381_tpu_torch as T  # noqa: E402
 from crypto12381_tpu_torch.api.sets import G1, Zp, create_random_engine, hash_, select_in  # noqa: E402
@@ -40,21 +53,38 @@ VIEW_OPS = {"select", "slice", "unsqueeze", "view", "expand", "unbind", "alias",
             "_unsafe_view", "t", "transpose", "permute", "squeeze", "detach", "_reshape_alias",
             "split", "chunk"}
 LAUNCHES: collections.Counter = collections.Counter()
+ROWS: dict = collections.defaultdict(collections.Counter)
 OPS: collections.Counter = collections.Counter()
 _depth = [0]
+#: while set, every kernel is a stand-in returning zeros of its output's shape
+STAND_IN = [False]
 SSS_T, SSS_N = 1000, 16
+#: int32 words of one row of each kernel's first operand
+ROW_WORDS = {"fp_mont_mul": 12, "fr_mont_mul": 8, "fp_pow_fixed": 12, "fr_pow_fixed": 8,
+             "fp2_mul": 24, "fp2_sqr": 24, "fp6_mul": 72, "g1_add": 36, "g1_dbl": 36,
+             "g1_madd": 36}
 
 
 def _as_launch(name, fn):
-    """fn counted as one launch of `name`, its own ops hidden from OPS."""
+    """fn counted as one launch of `name` (and by row count), its own ops
+    hidden from OPS."""
     @functools.wraps(fn)
     def wrapper(*a, **k):
         if _depth[0] == 0:
             LAUNCHES[name] += 1
             OPS[name] += 1
+            ts = [t for t in a if isinstance(t, torch.Tensor)]
+            if name.startswith("g1_"):            # (..., 3, 12) out of any operand rows
+                shape = torch.broadcast_shapes(*[t.shape[:-2] for t in ts]) + (3, 12)
+            else:
+                shape = torch.broadcast_shapes(*[t.shape for t in ts])
+            rows = math.prod(shape) // ROW_WORDS[name]
+            ROWS[name][rows] += 1
         _depth[0] += 1
         try:
             with _disable_current_modes():
+                if STAND_IN[0]:
+                    return torch.zeros(shape, dtype=torch.int32)
                 return fn(*a, **k)
         finally:
             _depth[0] -= 1
@@ -92,6 +122,45 @@ def _calls(b: int):
     yield "sss_share", call(T.sss.share_batch, SSS_T, SSS_N, secret, r, device="cpu")
     yield "sss_reconstruct", call(T.sss.reconstruct_batch, range(1, SSS_T + 1), shares,
                                   device="cpu")
+    e = T.ZpVec.from_ints(range(3, b + 3), device="cpu")
+    g1, g2 = T.G1Vec.generator((b,), device="cpu"), T.G2Vec.generator((b,), device="cpu")
+    yield "g2_pow", call(g2.__pow__, e)
+    yield "gt_pow", call(T.GTVec.one((b,), device="cpu").__pow__, e)
+    yield "pair_vec", call(T.pair_vec, g1, g2)
+    yield "pair_prod", call(T.pair_prod, (g1, g2), (g1, g2))
+
+
+def _rounds_calls():
+    """(name, call) for the rounds MSM paths of chip_smoke.py, at full size
+    on its scalars; the points are the generator (the schedule does not
+    depend on them)."""
+    n, nf = CS.MSMR_N, CS.MSMR_FALLBACK_N
+    limbs, ident, _ = CS.msm_rounds_scalars(n)
+    gen = T.G1Vec.generator((n,), device="cpu")
+    X, Y, Z = (c.clone() for c in gen.p)
+    X[ident], Z[ident] = 0, 0
+    e = T.ZpVec(torch.from_numpy(limbs))
+    eq = limbs[:nf].copy()
+    eq[:CS.MSMR_EQUAL] = limbs[1]
+    yield "msm_rounds", functools.partial(T.G1Vec((X, Y, Z), z_is_one=True).msm, e)
+    yield "msm_rounds_proj", functools.partial(T.G1Vec((X, Y, Z)).msm, e)
+    yield "msm_rounds_fallback", functools.partial(
+        T.G1Vec((X[:nf], Y[:nf], Z[:nf]), z_is_one=True).msm, T.ZpVec(torch.from_numpy(eq)))
+
+
+def _count(name, call, b, rows=False):
+    OPS.clear()
+    LAUNCHES.clear()
+    ROWS.clear()
+    with _Count():
+        call()
+    total = sum(OPS.values())
+    views = sum(v for k, v in OPS.items() if k in VIEW_OPS)
+    by_rows = {k: dict(sorted(v.items())) for k, v in sorted(ROWS.items())}
+    print(f"{name}: B={b} torch_ops={total} non_view_ops={total - views} "
+          f"launches={dict(sorted(LAUNCHES.items()))}"
+          + (f" launch_rows={by_rows}" if rows else ""), flush=True)
+    return by_rows
 
 
 def main() -> None:
@@ -105,14 +174,7 @@ def main() -> None:
         F.pow_fixed_plain = _as_launch(f"{F.name}_pow_fixed", F.pow_fixed_plain)
 
     for name, call in _calls(b):
-        OPS.clear()
-        LAUNCHES.clear()
-        with _Count():
-            call()
-        total = sum(OPS.values())
-        views = sum(v for k, v in OPS.items() if k in VIEW_OPS)
-        print(f"{name}: B={b} torch_ops={total} non_view_ops={total - views} "
-              f"launches={dict(sorted(LAUNCHES.items()))}", flush=True)
+        _count(name, call, b, rows=name in ("g2_pow", "gt_pow", "pair_vec", "pair_prod"))
 
     draws = create_random_engine("bench-ps")
     t0 = time.perf_counter()
@@ -120,6 +182,15 @@ def main() -> None:
         hash_(b"bench-%06d" % i).to(Zp)
         select_in(~G1, draws)
     print(f"ps sign host draws and hashes for 512 messages: {time.perf_counter() - t0:.3f} s")
+
+    STAND_IN[0] = True
+    for name, call in _rounds_calls():
+        rows = _count(name, call, CS.MSMR_N if name != "msm_rounds_fallback" else
+                      CS.MSMR_FALLBACK_N, rows=True)
+        k5 = rows.get("g1_madd", {})
+        print(f"{name}: rounds={sum(k5.values())} k5_rows_descending="
+              f"{dict(sorted(k5.items(), reverse=True))}", flush=True)
+    STAND_IN[0] = False
 
 
 if __name__ == "__main__":
