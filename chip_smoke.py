@@ -3,8 +3,9 @@
 G1 scalar multiplication, G1 MSM (scan and dense rounds), G1 point
 parsing, scalar arithmetic, Pointcheval-Sanders, BBS and BBS+ batch
 signing and verification, Shamir secret sharing, G2 scalar
-multiplication and MSM, and GT powers and pairing products on one CUDA
-card.
+multiplication and MSM, GT powers and pairing products, the SHA3-512
+sponge and hash to Zp, BBS04 group signatures, the AC-BBS, AC-RBBS and
+AC-RPS credential verifiers and multi-message PS on one CUDA card.
 
     python3 chip_smoke.py            # the smoke run
     python3 chip_smoke.py --trace    # and one profiled call of each path
@@ -30,9 +31,10 @@ Phases, one line each; any failure raises and ends the run non-zero:
            Python.  A chain's bound counts the least work of x^e: the
            sliding-window chain with the fewest multiply-adds, squarings at
            their own count
-  pairing  `pair_batch` at B = 2048 (32 distinct pairs, tiled): GT bytes
-           against tests/vectors/reference.json, bilinearity, infinity
-           masks, 4 rows recomputed on the CPU, pairings/s, launches of
+  pairing  `pair_batch` at B = 2048 (32 distinct pairs, tiled; counted,
+           then 2 timed): GT bytes against tests/vectors/reference.json,
+           bilinearity, infinity masks, 4 rows recomputed on the CPU,
+           pairings/s, launches of
            each kernel in one batch (K2 and K4 also by row count), peak
            device memory
   g1       `G1Vec.generator((8192,)) ** ZpVec`: 8 rows against the host
@@ -62,11 +64,12 @@ Phases, one line each; any failure raises and ends the run non-zero:
            (seed "bench-ps", B = 512 messages b"bench-%06d"): `sign_batch`
            (the counted first call, then 3 timed ones on the same stream),
            8 signatures' s2 against the host ladder s1^(x + y m), 4 against
-           the CPU path; `verify_batch` of the 512 (counted, then 3 timed),
-           rotated messages (all rejected), one swapped s2 (that row
-           rejected), an x off the curve (raises); signs/s, verifies/s,
-           first-call seconds, peak device memory, launches per sign and per
-           verify call, and the torch ops of one verify call
+           the CPU path; `verify_batch` of the 512 (counted, then 2 timed),
+           rotated messages (all rejected; the call whose torch ops are
+           tallied), one swapped s2 (that row rejected), an x off the curve
+           (raises); signs/s, verifies/s, first-call seconds, peak device
+           memory, launches per sign and per verify call, and the torch ops
+           of one verify call
   bbs      BBS on the card: the flow of tests/vectors/bbs_flow.json (seed
            "seed", B = 1) byte for byte; then seed "bench-bbs", setup(16),
            B = 512 messages of 112 bytes (4 Zp blocks), the last one of a
@@ -104,6 +107,37 @@ Phases, one line each; any failure raises and ends the run non-zero:
            pair_vecs, `GTVec.parse(serialize())` round-trips, e(G1, G2)'s
            bytes equal tests/vectors/reference.json; pairs/s of
            `pair_vec`, GT powers/s, launches per call
+  keccak   the SHA3-512 sponge (plain PyTorch) at SCHEME_B = 512 rows of 0
+           to 1,100 bytes (0, 71, 72, 143, 144 and 575 among them) against
+           hashlib, the same rows framed on the card (frame_device) with junk
+           past each length, hash_to_zp of the digests against
+           ZpNumber.from_hash; digests/s, launches and torch ops per call
+  bbs04    BBS04: the bbs04_flow.json vector on the host (key_gen(4), sign,
+           the host verify, open_signature) byte for byte; then seed
+           "bench-bbs04", key_gen(16), one host signature per member on
+           messages of 0-300 bytes, tiled to 512 rows: `verify_batch`
+           (device Fiat-Shamir; counted, then 2 timed, the second with one
+           row's sx + 1) 512 of 512, 4 rows against the host verify, the
+           row with sx + 1 rejected alone, rotated messages all rejected
+           (the call whose torch ops are tallied); `open_batch` gives each
+           row's member A (its ops tallied too); verifies/s, opens/s
+  ac_bbs   AC-BBS: the flow vector at n = 32, I = {0, 3}, m = 0x00; 16 more
+  ac_rbbs  host presentations of its credential tiled to 512 rows:
+           `verify_batch` (counted, then 2 timed, the second with one row
+           tampered: AC-BBS another row's u list, AC-RBBS its t + 1) 512
+           of 512, 4 rows against the host verify, the tampered row
+           rejected alone, another m all rejected (the tallied call);
+           verifies/s
+  ac_rps   AC-RPS: the flow vector at n = 64, I = {0, 1, 3}, its verify, t1
+           and t2 False (reference fault F6); 8 more host presentations
+           tiled to 512 rows: `verify_batch` equals the host verify on 4
+           rows, and the four GT terms of t1 and t2 of the 8 equal the host
+           GT elements' bytes; verifies/s
+  ps_n     the host sign and verify of PS, BBS and BBS+ on their flow
+           vectors (the host pairing); multi-message PS, seed "bench-ps-n",
+           key_gen_n(4), 512 messages of 1-4 units signed on the host:
+           `verify_n_batch` 512 of 512, rotated messages all rejected, 4
+           rows against the host verify_n; verifies/s
   rows     every kernel at each row count the paths launched it at that the
            kernels phase did not time, on random canonical operands: held
            bit for bit against its plain version (given at most PLAIN_ROWS
@@ -157,6 +191,15 @@ MSMR_EQUAL = 1024
 G2_B = 2048                    # G2 ladder batch
 G2_MSM_N = 4096
 ALG_B = 2048                   # pair_vec, pair_prod and GT powers
+SCHEME_B = 512                 # BBS04, AC-*, PS-N and the sponge: the PS/BBS batch
+KECCAK_MAX = 1100              # the sponge phase's longest row, in bytes
+BBS04_MEMBERS = 16             # key_gen(16): one host signature per member
+BBS04_MAX_MSG = 300
+AC_N = 32                      # AC-BBS, AC-RBBS: the reference tests' n (and I = {0, 3})
+AC_PRES = 16                   # distinct host presentations, tiled to SCHEME_B
+RPS_N = 64                     # AC-RPS: the reference test's n (and I = {0, 1, 3})
+RPS_PRES = 8
+PS_N_UNITS = 4                 # multi-message PS: key_gen_n(4), messages of 1-4 units
 SEED = 20261016
 #: H100 SXM5: HBM3 at 3.35 TB/s; 132 SMs x 64 INT32 lanes x 1.98 GHz boost
 #: = 1.673e13 32-bit integer multiply-adds/s (NVIDIA H100 data sheet and
@@ -706,14 +749,8 @@ def phase_pairing(dev, trace: bool):
 
     # steady state: host clock around synchronized batches
     torch.cuda.reset_peak_memory_stats()
-    reps = 3
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        T.pair_batch(*args)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    rate = B * reps / sum(times)
+    times = _timed_calls(lambda: T.pair_batch(*args), 2)
+    rate = B * len(times) / sum(times)
     peak = torch.cuda.max_memory_allocated()
 
     ops = _op_tally(lambda: T.pair_batch(*args))
@@ -1229,17 +1266,17 @@ def phase_ps(dev, trace: bool):
     if ok.shape != (PS_B,) or checks["verified"] != PS_B:
         raise SystemExit(f"ps: {checks['verified']} of {PS_B} signatures verified")
     torch.cuda.reset_peak_memory_stats()
-    verify_times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        T.verify_batch(keys.pk, msgs, sigs)
-        torch.cuda.synchronize()
-        verify_times.append(time.perf_counter() - t0)
+    verify_times = _timed_calls(lambda: T.verify_batch(keys.pk, msgs, sigs), 2)
     verify_peak = torch.cuda.max_memory_allocated()
 
-    # rejections: rotated messages, one swapped s2, an x off the curve
+    # rejections: rotated messages (every row rejected; the call whose torch
+    # ops are tallied, since a verify call's ops do not depend on the
+    # verdicts), one swapped s2 (that row alone rejected), an x off the
+    # curve (raises)
     t0 = time.perf_counter()
-    checks["rotated_rejected"] = not T.verify_batch(keys.pk, msgs[1:] + msgs[:1], sigs).any()
+    out = []
+    ops = _op_tally(lambda: out.append(T.verify_batch(keys.pk, msgs[1:] + msgs[:1], sigs)))
+    checks["rotated_rejected"] = not out[0].any()
     swapped, j = list(sigs), PS_B // 2
     swapped[j] = sigs[j][:49] + sigs[j + 1][49:]
     got = T.verify_batch(keys.pk, msgs, swapped)
@@ -1254,10 +1291,6 @@ def phase_ps(dev, trace: bool):
     if not all(checks.values()):
         raise SystemExit(f"ps: checks failed: {checks}")
     rejections_s = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    ops = _op_tally(lambda: T.verify_batch(keys.pk, msgs, sigs))
-    tally_s = time.perf_counter() - t0
     traced = _trace(lambda: T.verify_batch(keys.pk, msgs, sigs)) if trace else ""
     rows_of = {p: {k: ROWS_BY_PATH[p][k] for k in ("fp2_mul", "fp6_mul") if k in ROWS_BY_PATH[p]}
                for p in ("ps_sign", "ps_verify")}
@@ -1270,7 +1303,7 @@ def phase_ps(dev, trace: bool):
           f"sign_max_memory_allocated={sign_peak} verify_max_memory_allocated={verify_peak} "
           f"launches_per_sign_call={sign_launches} launches_per_verify_call={verify_launches} "
           f"launch_rows={rows_of} verify_{ops} sign_checks_s={sign_checks_s:.1f} "
-          f"rejections_s={rejections_s:.1f} op_tally_s={tally_s:.1f} {traced}", flush=True)
+          f"rejections_and_op_tally_s={rejections_s:.1f} {traced}", flush=True)
 
 
 def _timed_calls(fn, reps: int) -> list[float]:
@@ -1493,6 +1526,339 @@ def phase_sss(dev):
           f"launches_per_reconstruct_call={rec_launches} launch_rows={launch_rows} "
           f"reconstruct_{ops}", flush=True)
 
+#: kernels of a verify path with G1 ladders (GLV: K6, K7) and pairings (K1-K4)
+G1_PAIRING = ("fp_mont_mul", "fp_pow_fixed", "fp2_mul", "fp2_sqr", "fp6_mul", "g1_add", "g1_dbl")
+#: kernels of a verify path with G2 ladders and pairings only
+PAIRING = ("fp_mont_mul", "fp_pow_fixed", "fp2_mul", "fp2_sqr", "fp6_mul")
+
+
+def _flow(name: str) -> dict:
+    return json.loads((pathlib.Path(__file__).resolve().parent / "tests" / "vectors"
+                       / f"{name}_flow.json").read_text())
+
+
+def _timed_path(path: str, kernels, fn, timed):
+    """A counted first call of fn (the path's launches), then each call of
+    `timed` (the same work, some on tampered rows) on the host clock, with
+    the peak device memory over them: (first result, timed results, report
+    fields)."""
+    import torch
+
+    out, first_s, launches = _counted(path, kernels, fn)
+    torch.cuda.reset_peak_memory_stats()
+    outs, times = [], []
+    for f in timed:
+        t0 = time.perf_counter()
+        outs.append(f())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    return out, outs, {"first_s": round(first_s, 3), "call_s": [round(t, 4) for t in times],
+                       "mean_s": sum(times) / len(times), "max_memory_allocated": peak,
+                       "launches_per_call": launches}
+
+
+def _report(name: str, rows: int, unit: str, rep: dict) -> str:
+    """'<name>_first_s=... <name>_call_s=[...] <unit>_per_s=... ...'."""
+    return (f"{name}_first_s={rep['first_s']} {name}_call_s={rep['call_s']} "
+            f"{unit}_per_s={rows / rep['mean_s']:.1f} "
+            f"{name}_max_memory_allocated={rep['max_memory_allocated']} "
+            f"launches_per_{name}_call={rep['launches_per_call']}")
+
+
+def _fail(name: str, checks: dict) -> None:
+    if not all(checks.values()):
+        raise SystemExit(f"{name}: checks failed: {checks}")
+
+
+def phase_keccak(dev, trace: bool):
+    """The device SHA3-512 sponge (plain PyTorch) and hash_to_zp (K1's Fr
+    product): SCHEME_B ragged rows of 0 to 1,100 bytes, the framing edges
+    among them, against hashlib; the same rows framed on the device with
+    junk past each length; the digests mod r against ZpNumber.from_hash."""
+    import hashlib
+
+    import torch
+
+    from crypto12381_tpu_torch.api.batch import hash_to_zp
+    from crypto12381_tpu_torch.api.elements import ZpNumber
+    from crypto12381_tpu_torch.hashing import keccak as KC
+
+    rng = np.random.default_rng(SEED + 11)
+    edges = [0, 71, 72, 143, 144, 575, KECCAK_MAX]
+    lens = np.array(edges + list(rng.integers(0, KECCAK_MAX + 1, SCHEME_B - len(edges))))
+    rows = [rng.bytes(int(n)) for n in lens]
+    data = np.zeros((SCHEME_B, KECCAK_MAX), np.uint8)
+    data[np.arange(KECCAK_MAX)[None, :] < lens[:, None]] = np.frombuffer(b"".join(rows), np.uint8)
+    want = [hashlib.sha3_512(r).digest() for r in rows]
+
+    def run():
+        d = KC.sha3_512_batch(data, lens)
+        return d, hash_to_zp(d)
+
+    (dig, z), _, rep = _timed_path("keccak", ("fr_mont_mul",), run, [run] * 3)
+    junk = torch.from_numpy(np.where(np.arange(KECCAK_MAX)[None, :] < lens[:, None], data,
+                                     0xA5).astype(np.uint8)).to(dev)
+    framed = KC.sha3_512_blocks(*KC.frame_device(junk, torch.from_numpy(lens).to(dev)))
+    checks = {
+        "sha3_512_batch": [bytes(r) for r in dig.cpu().numpy()] == want,
+        "frame_device": torch.equal(framed, dig),
+        "hash_to_zp": list(z.to_ints()) == [ZpNumber.from_hash(d).value for d in want],
+    }
+    _fail("keccak", checks)
+    ops = _op_tally(run)
+    traced = _trace(run) if trace else ""
+    print(f"keccak: B={SCHEME_B} bytes={int(lens.sum())} max_len={KECCAK_MAX} checks={checks} "
+          f"{_report('sponge', SCHEME_B, 'digests', rep)} sponge_{ops} {traced}", flush=True)
+
+
+def phase_bbs04(dev, trace: bool):
+    """BBS04 group signatures: the bbs04_flow.json vector on the host (key
+    generation, signing, the host verify and opening); then key_gen(16),
+    one host signature per member on messages of 0 to 300 bytes, tiled to
+    SCHEME_B rows: verify_batch (device Fiat-Shamir) and open_batch with
+    their gates; two counted paths."""
+    import crypto12381_tpu_torch as T
+    from crypto12381_tpu_torch.api.sets import create_random_engine
+    from crypto12381_tpu_torch.params import R
+
+    mod, vec = T.bbs04, _flow("bbs04")
+    r = create_random_engine("seed")
+    keys = mod.key_gen(4, r)
+    msg = b"hello bbs\x00"
+    sig = mod.sign(keys.gpk, keys.gsk[2], msg, r)
+    opened = mod.open_signature(keys.gmsk, sig)
+    flow = {
+        "keys": (keys.gpk.hex(), keys.gmsk.hex(), [g.hex() for g in keys.gsk])
+                == (vec["gpk"], vec["gmsk"], vec["gsk"]),
+        "signature": sig.hex() == vec["signature"],
+        "verify": mod.verify(keys.gpk, msg, sig) == vec["verify"],
+        "opened": opened.hex() == vec["opened"] and keys.gsk[vec["opened_index"]][:49] == opened,
+    }
+    _fail("bbs04 flow", flow)
+
+    t0 = time.perf_counter()
+    r = create_random_engine("bench-bbs04")
+    keys = mod.key_gen(BBS04_MEMBERS, r)
+    rng = np.random.default_rng(SEED + 12)
+    lens = [0, BBS04_MAX_MSG] + list(rng.integers(1, BBS04_MAX_MSG, BBS04_MEMBERS - 2))
+    msgs16 = [rng.bytes(int(n)) for n in lens]
+    sigs16 = [mod.sign(keys.gpk, keys.gsk[i], msgs16[i], r) for i in range(BBS04_MEMBERS)]
+    host_sign_s = time.perf_counter() - t0
+    msgs = [msgs16[i % BBS04_MEMBERS] for i in range(SCHEME_B)]
+    sigs = [sigs16[i % BBS04_MEMBERS] for i in range(SCHEME_B)]
+    j, off = SCHEME_B // 3, 147 + 3 * 48          # row j's sx + 1 mod r
+    sx = (int.from_bytes(sigs[j][off:off + 48], "big") + 1) % R
+    bad = list(sigs)
+    bad[j] = sigs[j][:off] + sx.to_bytes(48, "big") + sigs[j][off + 48:]
+    ok, (_, got), vrep = _timed_path(
+        "bbs04_verify", G1_PAIRING + ("fr_mont_mul",),
+        lambda: mod.verify_batch(keys.gpk, msgs, sigs),
+        [lambda: mod.verify_batch(keys.gpk, msgs, sigs),
+         lambda: mod.verify_batch(keys.gpk, msgs, bad)])
+    host_rows = [0, 1, SCHEME_B // 2 + 1, SCHEME_B - 1]
+    checks = {"verified": int(ok.sum()) == SCHEME_B and ok.shape == (SCHEME_B,),
+              "host_rows": [mod.verify(keys.gpk, msgs[i], sigs[i]) for i in host_rows]
+              == ok[host_rows].tolist(),
+              "changed_sx_rejected_alone": not got[j] and bool(np.delete(got, j).all())}
+    out = []
+    ops = _op_tally(lambda: out.append(mod.verify_batch(keys.gpk, msgs[1:] + msgs[:1], sigs)))
+    checks["rotated_rejected"] = not out[0].any()
+    opened, _, orep = _timed_path("bbs04_open", ("fp_mont_mul", "fp_pow_fixed", "g1_add",
+                                                 "g1_dbl"),
+                                  lambda: mod.open_batch(keys.gmsk, sigs),
+                                  [lambda: mod.open_batch(keys.gmsk, sigs)] * 2)
+    checks["open_batch"] = opened == [keys.gsk[i % BBS04_MEMBERS][:49] for i in range(SCHEME_B)]
+    _fail("bbs04", checks)
+    open_ops = _op_tally(lambda: mod.open_batch(keys.gmsk, sigs))
+    traced = _trace(lambda: mod.verify_batch(keys.gpk, msgs, sigs)) if trace else ""
+    print(f"bbs04: B={SCHEME_B} members={BBS04_MEMBERS} flow={flow} checks={checks} "
+          f"host_sign_s={host_sign_s:.1f} {_report('verify', SCHEME_B, 'verifies', vrep)} "
+          f"{_report('open', SCHEME_B, 'opens', orep)} "
+          f"launch_rows={ {p: ROWS_BY_PATH[p] for p in ('bbs04_verify', 'bbs04_open')} } "
+          f"verify_{ops} open_{open_ops} {traced}", flush=True)
+
+
+def phase_ac(dev, name: str, trace: bool):
+    """AC-BBS or AC-RBBS: the flow vector at n = 32, I = {0, 3}, m = 0x00;
+    then AC_PRES host presentations of the flow's credential tiled to
+    SCHEME_B rows: verify_batch with its gates; one counted path."""
+    import crypto12381_tpu_torch as T
+    from crypto12381_tpu_torch.api.sets import create_random_engine
+    from crypto12381_tpu_torch.params import R
+
+    mod, vec, rbbs = getattr(T, name), _flow(name), name == "ac_rbbs"
+    I, m = [0, 3], b"\x00"
+    r = create_random_engine("seed")
+    keys = mod.keygen(AC_N, r)
+    attr = mod.generate_attributes(keys.pk, AC_N, r)
+    sig = mod.issue(keys, attr, r)
+    flow = {"keys": (keys.sk.hex(), keys.pk.fixed_part.hex(), [y.hex() for y in keys.pk.Y])
+            == (vec["sk"], vec["pk_fixed"], vec["Y"]),
+            "attr": [a.hex() for a in attr] == vec["attr"],
+            "sig": sig.hex() == vec["sig_A"] + vec["sig_w"]}
+    t0 = time.perf_counter()
+    if rbbs:
+        rc = mod.redact(attr, sig, I, keys.pk)
+        flow["tilde_Y"] = [y.hex() for y in keys.pk.tilde_Y] == vec["tilde_Y"]
+        flow["redact"] = rc.hex() == vec["redact"]
+        pres = [mod.pres(m, sig, rc, r) for _ in range(AC_PRES + 1)]
+        flow["pres"] = pres[0].hex() == vec["pres"]
+    else:
+        pres = [mod.pres(m, attr, sig, I, keys.pk, r) for _ in range(AC_PRES + 1)]
+        flow["pres"] = (pres[0].fixed_part.hex() == vec["pres_fixed"]
+                        and [u.hex() for u in pres[0].u] == vec["pres_u"])
+    flow["verify"] = mod.verify(m, attr, I, pres[0], keys.pk) == vec["verify"]
+    _fail(f"{name} flow", flow)
+    host_pres_s = time.perf_counter() - t0
+    rows = [pres[1 + i % AC_PRES] for i in range(SCHEME_B)]
+    j, bad = SCHEME_B // 3, list(rows)
+    if rbbs:       # row j's last scalar t + 1 mod r
+        t = (int.from_bytes(rows[j][-48:], "big") + 1) % R
+        bad[j] = rows[j][:-48] + t.to_bytes(48, "big")
+        what = "t_plus_1_rejected_alone"
+    else:          # row j with row j + 1's u list
+        bad[j] = mod.PresInfo(rows[j].fixed_part, rows[j + 1].u)
+        what = "other_u_rejected_alone"
+    ok, (_, got), rep = _timed_path(f"{name}_verify", G1_PAIRING,
+                                    lambda: mod.verify_batch(m, attr, I, rows, keys.pk),
+                                    [lambda: mod.verify_batch(m, attr, I, rows, keys.pk),
+                                     lambda: mod.verify_batch(m, attr, I, bad, keys.pk)])
+    host_rows = [0, 1, SCHEME_B // 2 + 1, SCHEME_B - 1]
+    checks = {"verified": int(ok.sum()) == SCHEME_B and ok.shape == (SCHEME_B,),
+              "host_rows": [mod.verify(m, attr, I, rows[i], keys.pk) for i in host_rows]
+              == ok[host_rows].tolist(),
+              what: not got[j] and bool(np.delete(got, j).all())}
+    out = []
+    ops = _op_tally(lambda: out.append(mod.verify_batch(b"\x01", attr, I, rows, keys.pk)))
+    checks["other_m_rejected"] = not out[0].any()
+    _fail(name, checks)
+    traced = _trace(lambda: mod.verify_batch(m, attr, I, rows, keys.pk)) if trace else ""
+    print(f"{name}: B={SCHEME_B} n={AC_N} I={I} presentations={AC_PRES} flow={flow} "
+          f"checks={checks} host_pres_s={host_pres_s:.1f} "
+          f"{_report('verify', SCHEME_B, 'verifies', rep)} "
+          f"launch_rows={ROWS_BY_PATH[f'{name}_verify']} verify_{ops} {traced}", flush=True)
+
+
+def _ac_rps_host_terms(m, attr, I, presinfo, pk):
+    """The four GT sides of AC-RPS's t1 and t2 on the host (schemes/ac_rps.py
+    `verify`), as host GT elements."""
+    from crypto12381_tpu_torch.api.sets import G1, G2, GT, Zp, hash_, inverse, pair, parse
+    from crypto12381_tpu_torch.schemes import ac_rps
+
+    tg, tY0, tXc, CYq = ac_rps._verify_constants(attr, I, pk)
+    A_, B_, D_, tCJ_, U, s = parse(G1 ** 3, G2, GT, Zp, presinfo)
+    c = hash_(m, A_, B_, tCJ_, D_, U).to(Zp)
+    return (pair(A_, tY0 ** s) * inverse(U),
+            (pair(inverse(A_), tXc * tCJ_) * pair(B_, tg)) ** c,
+            pair(CYq, tCJ_).value(), pair(D_, tg).value())
+
+
+def phase_ac_rps(dev, trace: bool):
+    """AC-RPS: the ac_rps_flow.json vector at n = 64, I = {0, 1, 3}, with
+    verify, t1 and t2 False (reference fault F6); then RPS_PRES host
+    presentations tiled to SCHEME_B rows: verify_batch equals the host
+    verify, and the device GT terms of t1 and t2 equal the host ones byte
+    for byte; one counted path."""
+    import crypto12381_tpu_torch as T
+    from crypto12381_tpu_torch.api.sets import create_random_engine
+
+    mod, vec = T.ac_rps, _flow("ac_rps")
+    I, m = [0, 1, 3], b"\x00"
+    r = create_random_engine("seed")
+    keys = mod.keygen(RPS_N, r)
+    attr = mod.generate_attributes(keys.pk, RPS_N, r)
+    sig = mod.issue(keys, attr, r)
+    rc = mod.redact(attr, sig, I, keys.pk)
+    t0 = time.perf_counter()
+    pres = [mod.pres(m, attr, sig, I, rc, keys.pk, r) for _ in range(RPS_PRES + 1)]
+    host_pres_s = time.perf_counter() - t0
+    l1, r1, l2, r2 = _ac_rps_host_terms(m, attr, I, pres[0], keys.pk)
+    flow = {"keys": (keys.sk.hex(), keys.pk.fixed_part.hex(), [y.hex() for y in keys.pk.Y],
+                     [y.hex() for y in keys.pk.tilde_Y])
+            == (vec["sk"], vec["pk_fixed"], vec["Y"], vec["tilde_Y"]),
+            "attr": [a.hex() for a in attr] == vec["attr"],
+            "sig": sig.hex() == vec["sig"], "redact": rc.hex() == vec["redact"],
+            "pres": pres[0].hex() == vec["pres"],
+            "verify": mod.verify(m, attr, I, pres[0], keys.pk) is vec["verify"] is False,
+            "t1": (l1 == r1) is vec["verify_t1"] is False,
+            "t2": (l2 == r2) is vec["verify_t2"] is False}
+    _fail("ac_rps flow", flow)
+    rows = [pres[1 + i % RPS_PRES] for i in range(SCHEME_B)]
+    ok, _, rep = _timed_path("ac_rps_verify", PAIRING,
+                             lambda: mod.verify_batch(m, attr, I, rows, keys.pk),
+                             [lambda: mod.verify_batch(m, attr, I, rows, keys.pk)] * 2)
+    host_rows = [0, 1, SCHEME_B // 2 + 1, SCHEME_B - 1]
+    checks = {"shape": ok.shape == (SCHEME_B,),
+              "host_rows": [mod.verify(m, attr, I, rows[i], keys.pk) for i in host_rows]
+              == ok[host_rows].tolist()}
+    t0 = time.perf_counter()
+    dev_terms = mod._gt_terms(m, attr, I, pres[1:], keys.pk, dev)
+    host_terms = [_ac_rps_host_terms(m, attr, I, p, keys.pk) for p in pres[1:]]
+    checks["gt_terms_bytes"] = all(
+        t.serialize() == [h[k].serialize() for h in host_terms] for k, t in enumerate(dev_terms))
+    terms_s = time.perf_counter() - t0
+    _fail("ac_rps", checks)
+    ops = _op_tally(lambda: mod.verify_batch(m, attr, I, rows, keys.pk))
+    traced = _trace(lambda: mod.verify_batch(m, attr, I, rows, keys.pk)) if trace else ""
+    print(f"ac_rps: B={SCHEME_B} n={RPS_N} I={I} presentations={RPS_PRES} flow={flow} "
+          f"checks={checks} verdicts_false={int((~ok).sum())} host_pres_s={host_pres_s:.1f} "
+          f"gt_terms_check_s={terms_s:.1f} {_report('verify', SCHEME_B, 'verifies', rep)} "
+          f"launch_rows={ROWS_BY_PATH['ac_rps_verify']} verify_{ops} {traced}", flush=True)
+
+
+def phase_ps_n(dev, trace: bool):
+    """Multi-message PS: key_gen_n(PS_N_UNITS), SCHEME_B messages of 1 to 4
+    encode_to units signed on the host, verify_n_batch with its gates (one
+    counted path); and the host sign and verify of PS, BBS and BBS+ on their
+    flow vectors (the host pairing)."""
+    import crypto12381_tpu_torch as T
+    from crypto12381_tpu_torch.api.sets import create_random_engine
+
+    ps, bbs, bbs_plus = T.ps, T.bbs, T.bbs_plus
+    flows = {}
+    vec = _flow("ps")
+    r = create_random_engine("seed")
+    keys = ps.key_gen(r)
+    msg = b"\x00" * 47 + b"\x17"
+    sig = ps.sign(keys.sk, msg, r)
+    rand_sig = ps.randomnize(sig, r)
+    flows["ps"] = (sig.hex() == vec["signature"] and rand_sig.hex() == vec["signature_rand"]
+                   and ps.verify(keys.pk, msg, rand_sig) is vec["verify"] is True)
+    for name, mod, raw in (("bbs", bbs, b"Hello, BBS!"), ("bbs_plus", bbs_plus, b"Hello, BBS+!")):
+        vec = _flow(name)
+        r = create_random_engine("seed")
+        pp = mod.setup(16, r)
+        k = mod.key_gen(pp, r)
+        msg = mod.encode_message(raw) if name == "bbs" else raw
+        sig = mod.sign(pp, k.sk, msg, r)
+        flows[name] = (sig.hex() == vec["signature_A"] + vec["signature_x"]
+                       + vec.get("signature_r", "")
+                       and mod.verify(pp, k.pk, msg, sig) is vec["verify"] is True)
+    _fail("ps_n flows", flows)
+
+    t0 = time.perf_counter()
+    r = create_random_engine("bench-ps-n")
+    keys = ps.key_gen_n(PS_N_UNITS, r)
+    msgs = [((b"ps-n-%06d-" % i) * 12)[:1 + (37 * i) % (31 * PS_N_UNITS)]
+            for i in range(SCHEME_B)]
+    sigs = [ps.sign_n(keys, mm, r) for mm in msgs]
+    host_sign_s = time.perf_counter() - t0
+    ok, _, rep = _timed_path("ps_n_verify", PAIRING, lambda: ps.verify_n_batch(keys, msgs, sigs),
+                             [lambda: ps.verify_n_batch(keys, msgs, sigs)] * 2)
+    host_rows = [0, 1, SCHEME_B // 2 + 1, SCHEME_B - 1]
+    checks = {"verified": int(ok.sum()) == SCHEME_B and ok.shape == (SCHEME_B,),
+              "host_rows": [ps.verify_n(keys, msgs[i], sigs[i]) for i in host_rows]
+              == ok[host_rows].tolist()}
+    out = []
+    ops = _op_tally(lambda: out.append(ps.verify_n_batch(keys, msgs[1:] + msgs[:1], sigs)))
+    checks["rotated_rejected"] = not out[0].any()
+    _fail("ps_n", checks)
+    traced = _trace(lambda: ps.verify_n_batch(keys, msgs, sigs)) if trace else ""
+    print(f"ps_n: B={SCHEME_B} units={PS_N_UNITS} host_flows={flows} checks={checks} "
+          f"host_sign_s={host_sign_s:.1f} {_report('verify', SCHEME_B, 'verifies', rep)} "
+          f"launch_rows={ROWS_BY_PATH['ps_n_verify']} verify_{ops} {traced}", flush=True)
+
 
 def main() -> None:
     import torch
@@ -1537,6 +1903,12 @@ def main() -> None:
     timed("sss", phase_sss, dev)
     timed("g2", phase_g2, dev, args.trace)
     timed("algebra", phase_algebra, dev, args.trace)
+    timed("keccak", phase_keccak, dev, args.trace)
+    timed("bbs04", phase_bbs04, dev, args.trace)
+    timed("ac_bbs", phase_ac, dev, "ac_bbs", args.trace)
+    timed("ac_rbbs", phase_ac, dev, "ac_rbbs", args.trace)
+    timed("ac_rps", phase_ac_rps, dev, args.trace)
+    timed("ps_n", phase_ps_n, dev, args.trace)
     _check_chains_timed(kernels)
     timed("rows", phase_rows, dev, kernels)
     print(f"phases_s: {phase_s}", flush=True)

@@ -25,6 +25,9 @@ lower to the batched curve code:
   * ``pair_prod_fixed((P1, Q1), ...)`` -> prod_i e(P_i, Q_i) with every Q_i
     a fixed G2 point: precomputed lines, one shared Miller loop, one final
     exponentiation (K1-K4)
+  * ``g1_bytes``, ``zp_bytes``, ``gt_bytes`` -> the reference's encodings
+    as uint8 tensors where the vector lies, for device Fiat-Shamir
+    transcripts; ``hash_to_zp`` -> SHA3-512 digests mod r (K1, Fr)
 
 Scalars keep the JAX package's layout: (..., 18) int32 standard-domain
 limbs of 16 bits; arithmetic packs them into 8 limbs of 32 bits on the
@@ -47,12 +50,14 @@ from ..curves import g2 as G2C
 from ..curves import weierstrass as W
 from ..fields import fp as FP
 from ..fields import tower as TW
+from ..host import field as HF
 from ..msm import pippenger as MSM
 from ..msm import rounds as MR
 from ..pairing import pairing as PAIR
 from ..params import B_G1, LIMBS, MODBYTES, R
 
-__all__ = ["ZpVec", "G1Vec", "G2Vec", "GTVec", "pair_prod", "pair_prod_fixed", "pair_vec"]
+__all__ = ["ZpVec", "G1Vec", "G2Vec", "GTVec", "g1_bytes", "gt_bytes", "hash_to_zp",
+           "pair_prod", "pair_prod_fixed", "pair_vec", "zp_bytes"]
 
 #: Fr scalars: 18 limbs of 16 bits (the JAX package's Fr layout)
 FR_LIMBS = 18
@@ -289,27 +294,9 @@ class G1Vec(_PointVec):
         y = torch.where((odd != want_odd)[..., None], FP.neg(y), y)
         return cls((x, y, FP.one(x.shape[:-1], dev)), z_is_one=True)
 
-    def serialize_device(self):
-        """Canonical standard-domain affine limbs (..., 2, 12) and the
-        infinity mask, on the device."""
-        x, y, inf = self.affine()
-        return FP.from_mont(torch.stack([x, y], -2)), inf
-
-    @staticmethod
-    def pack_bytes(host, infh) -> list[bytes]:
-        """Host half of serialize: limbs from serialize_device, fetched to
-        numpy, into 49-byte compressed points."""
-        host = np.ascontiguousarray(np.asarray(host, np.int32).reshape(-1, 2, 12))
-        infh = np.asarray(infh).reshape(-1)
-        out = np.zeros((host.shape[0], 49), np.uint8)
-        out[:, 0] = np.where(infh, 0x02, 0x02 + (host[:, 1, 0] & 1))
-        xb = host[:, 0].astype("<u4").view(np.uint8)[:, ::-1]    # x big-endian
-        out[:, 1:] = np.where(infh[:, None], 0, xb)
-        return [bytes(r) for r in out]
-
     def serialize(self) -> list[bytes]:
-        st, inf = self.serialize_device()
-        return self.pack_bytes(st.cpu().numpy(), inf.cpu().numpy())
+        """49-byte compressed points: g1_bytes on the device, one fetch."""
+        return [bytes(r) for r in g1_bytes(self).reshape(-1, 49).cpu().numpy()]
 
     def msm(self, scalars: ZpVec, c: int | None = None, lanes: int = 64) -> "G1Vec":
         """prod_i self[i] ** scalars[i] over the leading axis.  Batch-free
@@ -457,16 +444,79 @@ class GTVec:
         """The product over an axis: a tree of Fp12 products."""
         return GTVec(PAIR.fp12_tree_product(self.f.movedim(axis, 0)))
 
+    @classmethod
+    def from_elements(cls, elems: Iterable, device=None) -> "GTVec":
+        """Host GT elements (api/elements.py GTElement) as one batch."""
+        dev = _device(device)
+        vals = [[list(c) for c in HF.fp12_coeffs_w(e.value().val)] for e in elems]
+        cs = FP.from_int(vals, dev).reshape(len(vals), 6, 2, LIMBS)
+        return cls(TW.fp12_from_coeffs_w([cs[:, k] for k in range(6)]))
+
     def serialize(self) -> list[bytes]:
-        """576-byte encodings of the batch: the 12 coefficients leave the
-        Montgomery form in one K1 launch and cross in one fetch; numpy
-        writes the bytes."""
-        cs = torch.stack(TW.fp12_coeffs_w(self.f), -3)               # (..., 6, 2, 12)
-        host = FP.from_mont(cs).cpu().numpy().reshape(-1, 6, 2, LIMBS)
-        host = host[:, list(codec._GT_ORDER), ::-1]                  # slot order, imag first
-        be = np.ascontiguousarray(host).view(np.uint32).astype("<u4").view(np.uint8)
-        be = be.reshape(host.shape[:3] + (4 * LIMBS,))[..., ::-1]
-        return [bytes(r) for r in np.ascontiguousarray(be).reshape(-1, 6 * 2 * 4 * LIMBS)]
+        """576-byte encodings of the batch: gt_bytes on the device, one
+        fetch."""
+        return [bytes(r) for r in gt_bytes(self).reshape(-1, 576).cpu().numpy()]
+
+
+# -- device bytes and hashing to Zp -------------------------------------------
+#
+# The serialized forms of a batch as uint8 tensors where the batch lies, for
+# the device Fiat-Shamir transcripts (hashing/keccak.py), and digests to Zp.
+
+_BYTE_SHIFTS = (0, 8, 16, 24)
+
+
+def _fp_be48(std: torch.Tensor) -> torch.Tensor:
+    """(..., 12) canonical standard-domain limbs -> (..., 48) uint8
+    big-endian."""
+    sh = torch.tensor(_BYTE_SHIFTS, device=std.device)
+    le = ((std.to(torch.int64)[..., None] & 0xFFFFFFFF) >> sh) & 0xFF
+    return le.to(torch.uint8).reshape(*std.shape[:-1], 4 * std.shape[-1]).flip(-1)
+
+
+def g1_bytes(vec: G1Vec) -> torch.Tensor:
+    """(...,) G1Vec -> (..., 49) uint8 compressed encodings on its device
+    (the identity is 0x02 and 48 zero bytes)."""
+    x, y, inf = vec.affine()
+    st = FP.from_mont(torch.stack([x, y], -2))
+    prefix = torch.where(inf, 2, 2 + (st[..., 1, 0] & 1)).to(torch.uint8)
+    xb = torch.where(inf[..., None], torch.zeros((), dtype=torch.uint8, device=x.device),
+                     _fp_be48(st[..., 0, :]))
+    return torch.cat([prefix[..., None], xb], -1)
+
+
+def zp_bytes(vec: ZpVec) -> torch.Tensor:
+    """(...,) ZpVec -> (..., 48) uint8 big-endian encodings on its device:
+    12 zero bytes, then the 18 limbs of 16 bits high limb first."""
+    std = vec.std.to(torch.int64)
+    le = torch.stack([std & 0xFF, std >> 8], -1).reshape(*std.shape[:-1], 2 * FR_LIMBS)
+    pad = torch.zeros(*std.shape[:-1], MODBYTES - 2 * FR_LIMBS, dtype=torch.uint8,
+                      device=std.device)
+    return torch.cat([pad, le.to(torch.uint8).flip(-1)], -1)
+
+
+def gt_bytes(vec: GTVec) -> torch.Tensor:
+    """(...,) GTVec -> (..., 576) uint8 encodings on its device: the
+    w-coefficients in codec._GT_ORDER, each imaginary part before the real
+    part, 48-byte big-endian; one K1 launch leaves the Montgomery form."""
+    cs = FP.from_mont(torch.stack(TW.fp12_coeffs_w(vec.f), -3))      # (..., 6, 2, 12)
+    order = torch.tensor(codec._GT_ORDER, device=cs.device)
+    be = _fp_be48(cs.index_select(-3, order).flip(-2))               # (..., 6, 2, 48)
+    return be.reshape(*cs.shape[:-3], 576)
+
+
+def hash_to_zp(digests: torch.Tensor) -> ZpVec:
+    """(B, 64) uint8 SHA3-512 digests -> their values mod r, on their
+    device (ZpNumber.from_hash on every row): hi 2^256 + lo with hi and lo
+    the big-endian halves, each reduced below r by two conditional
+    subtractions; hi 2^256 = hi R is one `fr_mont_mul` (to_mont), then one
+    modular add."""
+    be = digests.to(torch.int64).reshape(-1, 2, 8, 4).flip(-2)       # [hi, lo], limbs LS first
+    limbs = (be << torch.tensor(_BYTE_SHIFTS[::-1], device=digests.device)).sum(-1)
+    for _ in range(2):                                                # 2^256 < 3 r
+        limbs = FR._cond_sub_p(limbs).to(torch.int64) & 0xFFFFFFFF
+    limbs = FP._i32(limbs)
+    return ZpVec.from_limbs32(FR.add(FR.to_mont(limbs[:, 0]), limbs[:, 1]))
 
 
 def _masked_miller(g1v: G1Vec, g2v: G2Vec) -> torch.Tensor:

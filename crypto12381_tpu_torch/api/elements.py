@@ -10,8 +10,10 @@ bulk work runs batched on the device through api/batch.py.
 `G1Pow` is the lazy power g^e of a base: it keeps the exponent, which is
 what `schemes/ps.py` `sign_batch` reads to move every signature's powers
 into one batched ladder, and a product of powers is one host multi-scalar
-product (`G1Element.product`).  The pairing (`GTElement`, `GTPair`,
-`pair`) is not ported yet.
+product (`G1Element.product`).  `pair(P, Q)` is the lazy pairing
+`GTPair`: a product of pairs keeps its pairs, and its value takes ONE
+final exponentiation over the product of their Miller values
+(host/pairing.py); `GTElement` is a value in GT.
 """
 
 from __future__ import annotations
@@ -19,9 +21,12 @@ from __future__ import annotations
 from ..compat import codec
 from ..compat.csprng import RandomEngine
 from ..host import curve as C
+from ..host import field as F
+from ..host import pairing as HP
 from ..params import R
 
-__all__ = ["ZpNumber", "G1Element", "G1Pow", "G2Element", "inverse"]
+__all__ = ["ZpNumber", "G1Element", "G1Pow", "G2Element", "GTElement", "GTPair", "pair",
+           "inverse"]
 
 
 def _as_zp_int(v) -> int:
@@ -247,15 +252,144 @@ class G2Element:
         """g2^u for a nonzero draw u."""
         return cls(C.g2_mul(C.G2_GEN, rng.random_mod_nonzero(R)))
 
+    def __mul__(self, other):
+        if isinstance(other, G2Element):
+            return G2Element(C.g2_add(self.pt, other.pt))
+        return NotImplemented
+
+    def __truediv__(self, other):
+        if isinstance(other, G2Element):
+            return G2Element(C.g2_add(self.pt, C.g2_neg(other.pt)))
+        return NotImplemented
+
     def __pow__(self, e):
         ei = _zp_int_or_none(e)
         return NotImplemented if ei is None else G2Element(C.g2_mul(self.pt, ei))
 
+    def __eq__(self, other):
+        if isinstance(other, G2Element):
+            return self.pt == other.pt
+        return NotImplemented
+
+    def __hash__(self):
+        return hash(("G2", self.pt))
+
     def point(self) -> "G2Element":
         return self
 
+    def in_subgroup(self) -> bool:
+        """On the twist and of order r."""
+        return C.g2_in_subgroup(self.pt)
+
+    def inverse(self) -> "G2Element":
+        return G2Element(C.g2_neg(self.pt))
+
     def serialize(self) -> bytes:
         return codec.g2_serialize(self.pt)
+
+    @staticmethod
+    def product(elems) -> "G2Element":
+        acc = None
+        for e in elems:
+            acc = C.g2_add(acc, e.pt)
+        return G2Element(acc)
+
+
+class GTElement:
+    """A value in GT: a host Fp12 tuple (host/field.py layout)."""
+
+    __slots__ = ("val",)
+
+    def __init__(self, val):
+        self.val = val
+
+    @classmethod
+    def parse(cls, data: bytes) -> "GTElement":
+        return cls(codec.gt_parse(bytes(data)))
+
+    @classmethod
+    def one(cls) -> "GTElement":
+        return cls(F.FP12_ONE)
+
+    def __mul__(self, other):
+        if isinstance(other, (GTElement, GTPair)):
+            return GTElement(F.fp12_mul(self.val, other.value().val))
+        return NotImplemented
+
+    def __truediv__(self, other):
+        return GTElement(F.fp12_mul(self.val, F.fp12_inv(other.value().val)))
+
+    def __pow__(self, e):
+        ei = _zp_int_or_none(e)
+        return NotImplemented if ei is None else GTElement(F.fp12_pow(self.val, ei))
+
+    __xor__ = __pow__
+
+    def __eq__(self, other):
+        if isinstance(other, (GTElement, GTPair)):
+            return F.fp12_eq(self.val, other.value().val)
+        return NotImplemented
+
+    def __hash__(self):
+        return hash(("GT", F.fp12_canon(self.val)))
+
+    def value(self) -> "GTElement":
+        return self
+
+    def in_subgroup(self) -> bool:
+        """x^r = 1."""
+        return F.fp12_eq(F.fp12_pow(self.val, R), F.FP12_ONE)
+
+    def inverse(self) -> "GTElement":
+        return GTElement(F.fp12_inv(self.val))
+
+    def serialize(self) -> bytes:
+        return codec.gt_serialize(self.val)
+
+
+class GTPair:
+    """The lazy pairing product prod e(P_i, Q_i): products of pairs keep
+    their pairs, and the value takes one final exponentiation over the
+    product of the Miller values (pairs with an identity point give 1)."""
+
+    __slots__ = ("pairs",)
+
+    def __init__(self, pairs):
+        self.pairs = list(pairs)   # [(G1 affine, G2 affine), ...]
+
+    def value(self) -> GTElement:
+        acc = None
+        for p1, p2 in self.pairs:
+            if p1 is not None and p2 is not None:
+                f = HP.miller_loop(p1, p2)
+                acc = f if acc is None else F.fp12_mul(acc, f)
+        return GTElement.one() if acc is None else GTElement(HP.reduced(acc))
+
+    def __mul__(self, other):
+        if isinstance(other, GTPair):
+            return GTPair(self.pairs + other.pairs)
+        if isinstance(other, GTElement):
+            return self.value() * other
+        return NotImplemented
+
+    def __truediv__(self, other):
+        return self.value() / other
+
+    def __pow__(self, e):
+        return self.value() ** e
+
+    __xor__ = __pow__
+
+    def __eq__(self, other):
+        return self.value() == other
+
+    def serialize(self) -> bytes:
+        return self.value().serialize()
+
+
+def pair(p1, p2) -> GTPair:
+    """The lazy pairing e(p1, p2) of a G1 and a G2 element."""
+    return GTPair([(p1.point().pt, p2.point().pt)])
 
 
 def inverse(x):

@@ -1,14 +1,15 @@
 """The reference's set notation for a protocol's host edges, as far as
-the PS, BBS, BBS+ and Shamir schemes use it.
+the ported schemes use it.
 
 Counterpart of the JAX package's `api/sets.py`: the group tags `Zp`,
-`G1` and `G2`, where `~S` excludes the identity and `S ** n` is a
+`G1`, `G2` and `GT`, where `~S` excludes the identity and `S ** n` is a
 cartesian power; `select_in` draws elements from the CSPRNG in the
 reference's order; `parse` and `serialize` read and write their
 concatenated bytes; `hash_(...)` is an incremental SHA3-512 whose
-`.to(Zp)` is the digest mod r; `encode_to`, `make_Zp`, `polynomial` and
-`product_` (over a plain list; the symbolic form waits for a port of the
-JAX package's `api/algebra.py`) are the reference's scalar helpers.
+`.to(Zp)` is the digest mod r; `pair` and `inverse` are the element
+functions; `encode_to`, `make_Zp`, `polynomial`, `sum_` and `product_`
+(over a plain list; the symbolic forms wait for a port of the JAX
+package's `api/algebra.py`) are the reference's scalar helpers.
 """
 
 from __future__ import annotations
@@ -17,12 +18,12 @@ import hashlib
 from dataclasses import dataclass
 
 from ..compat.csprng import RandomEngine, create_random_engine
-from ..params import MODBYTES, R
-from .elements import G1Element, G1Pow, G2Element, ZpNumber, inverse
+from ..params import GT_BYTES, MODBYTES, R
+from .elements import G1Element, G1Pow, G2Element, GTElement, ZpNumber, inverse, pair
 
-__all__ = ["Zp", "G1", "G2", "Set", "CartesianPower", "select_in", "parse",
+__all__ = ["Zp", "G1", "G2", "GT", "Set", "CartesianPower", "select_in", "parse",
            "serialize", "hash_", "HashState", "create_random_engine", "encode_to",
-           "make_Zp", "polynomial", "product_", "inverse"]
+           "make_Zp", "polynomial", "sum_", "product_", "inverse", "pair"]
 
 
 @dataclass(frozen=True)
@@ -57,8 +58,10 @@ class CartesianPower:
 Zp = Set("Zp", MODBYTES)
 G1 = Set("G1", 1 + MODBYTES)
 G2 = Set("G2", 1 + 2 * MODBYTES)
+GT = Set("GT", GT_BYTES)
 
-_PARSERS = {"Zp": ZpNumber.parse, "G1": G1Element.parse, "G2": G2Element.parse}
+_PARSERS = {"Zp": ZpNumber.parse, "G1": G1Element.parse, "G2": G2Element.parse,
+            "GT": GTElement.parse}
 
 
 def _select_one(s: Set, rng: RandomEngine):
@@ -141,15 +144,26 @@ def hash_(*args) -> HashState:
     return HashState(*args)
 
 
+def sum_(items):
+    """The sum of a list of Zp values; 0 for an empty list."""
+    acc = None
+    for it in items:
+        acc = it if acc is None else acc + it
+    return ZpNumber(0) if acc is None else acc
+
+
 def product_(items):
     """The product of a non-empty list: G1 elements and powers as one host
-    multi-scalar product (`G1Element.product`), anything else left to
-    right.  Raises on an empty list, as the JAX package does."""
+    multi-scalar product (`G1Element.product`), G2 elements by the group
+    law, pairings as one lazy `GTPair` (one final exponentiation), anything
+    else left to right.  Raises on an empty list, as the JAX package does."""
     items = list(items)
     if not items:
         raise ValueError("empty product")
     if isinstance(items[0], (G1Element, G1Pow)):
         return G1Element.product(items)
+    if isinstance(items[0], G2Element):
+        return G2Element.product(items)
     acc = items[0]
     for it in items[1:]:
         acc = acc * it

@@ -12,7 +12,7 @@ one final inversion.
 
 from __future__ import annotations
 
-from ..params import G1_GEN_X, G1_GEN_Y, G2_GEN_X, G2_GEN_Y, P, R
+from ..params import B_G1, B_G2, G1_GEN_X, G1_GEN_Y, G2_GEN_X, G2_GEN_Y, P, R
 from . import field as F
 
 G1_GEN = (G1_GEN_X, G1_GEN_Y)
@@ -180,3 +180,25 @@ def g1_msm(points, scalars):
 def g2_add(p1, p2):
     """p1 + p2 on G2 (equal and opposite points included)."""
     return _j_to_affine(_j_add(_j_of(p1, _Fp2), _j_of(p2, _Fp2), _Fp2), _Fp2)
+
+
+def g2_neg(pt):
+    """-pt on G2."""
+    return None if pt is None else (pt[0], F.fp2_neg(pt[1]))
+
+
+def g1_in_subgroup(pt) -> bool:
+    """On the curve and [r]pt = O (the identity included)."""
+    if pt is None:
+        return True
+    x, y = pt
+    return (y * y - x * x * x - B_G1) % P == 0 and _j_mul(pt, R, _Fp) is None
+
+
+def g2_in_subgroup(pt) -> bool:
+    """On the twist and [r]pt = O (the identity included)."""
+    if pt is None:
+        return True
+    x, y = pt
+    rhs = F.fp2_add(F.fp2_mul(F.fp2_sqr(x), x), B_G2)
+    return F.fp2_sqr(y) == (rhs[0] % P, rhs[1] % P) and _j_mul(pt, R, _Fp2) is None

@@ -11,8 +11,7 @@ default (and raise without one); `device="cpu"` runs the plain versions.
 All the message-block ladders h_i^m_i of a batch of B run as ONE GLV call
 of n B rows (block i's base repeated B times, short messages padded with
 the exponent 0, whose power is the identity), and the product over the
-blocks is a tree of complete adds along the block axis.  The host
-`verify` needs the host pairing, which is not ported yet.
+blocks is a tree of complete adds along the block axis.
 """
 
 from __future__ import annotations
@@ -23,11 +22,11 @@ import numpy as np
 import torch
 
 from ..api import batch as BT
-from ..api.sets import (G1, G2, Zp, encode_to, inverse, parse, product_, select_in,
+from ..api.sets import (G1, G2, Zp, encode_to, inverse, pair, parse, product_, select_in,
                         serialize)
 
 __all__ = ["PublicParameters", "Keys", "setup", "key_gen", "encode_message", "sign",
-           "sign_batch", "verify_batch"]
+           "sign_batch", "verify", "verify_batch"]
 
 
 @dataclass
@@ -75,6 +74,19 @@ def sign(pp: PublicParameters, sk: bytes, message: list[bytes], random) -> bytes
     return serialize(base ** inverse(gamma + x), x)
 
 
+def verify(pp: PublicParameters, pk: bytes, message: list[bytes], signature: bytes) -> bool:
+    """e(A, w g2^x) == e(g1 prod h_i^m_i, g2), on the host."""
+    g1, g2 = parse(G1, G2, pp.g1_g2)
+    h = [parse(G1, b) for b in pp.h]
+    w = parse(G2, pk)
+    m = [parse(Zp, b) for b in message]
+    if len(m) > len(h):
+        raise ValueError("message is too long")
+    A, x = parse(G1, Zp, signature)
+    return pair(A, w * (g2 ** x)) == pair(g1 * product_([h[i] ** m[i] for i in range(len(m))]),
+                                          g2)
+
+
 def block_exponents(blocks, n: int, dev) -> BT.ZpVec:
     """(n, B) exponents: block i of message b in row i, column b, and 0 past
     a message's end.  blocks: B lists of Zp elements."""
@@ -82,10 +94,30 @@ def block_exponents(blocks, n: int, dev) -> BT.ZpVec:
     return BT.ZpVec(BT.ZpVec.from_ints(flat, dev).std.reshape(n, len(blocks), BT.FR_LIMBS))
 
 
+def row(v, i: int):
+    """Row block i of a point vector of batch shape (k, ...), with the
+    vector's z_is_one."""
+    return type(v)(tuple(c[i] for c in v.p), z_is_one=v.z_is_one)
+
+
+def cat_rows(*vecs):
+    """Point vectors of one kind joined along their batch axis; built from
+    affine data if all of them are."""
+    return type(vecs[0])(tuple(torch.cat(x) for x in zip(*(v.p for v in vecs))),
+                         z_is_one=all(v.z_is_one for v in vecs))
+
+
+def parse_points(blobs, k: int, dev) -> BT.G1Vec:
+    """The first k 49-byte points of each of B blobs as a (k, B) G1Vec,
+    from ONE batched parse (one square-root chain)."""
+    v = BT.G1Vec.parse((b[49 * i:49 * (i + 1)] for i in range(k) for b in blobs), dev)
+    return BT.G1Vec(tuple(c.reshape(k, len(blobs), *c.shape[1:]) for c in v.p), z_is_one=True)
+
+
 def fixed_bases(elems, dev) -> list[BT.G1Vec]:
     """Host G1 points as batch-free G1Vecs, uploaded together."""
     v = BT.G1Vec.from_elements(elems, dev)
-    return [BT.G1Vec(tuple(c[i] for c in v.p), z_is_one=True) for i in range(len(elems))]
+    return [row(v, i) for i in range(len(elems))]
 
 
 def stacked_powers(bases, exps: BT.ZpVec) -> BT.G1Vec:
@@ -144,7 +176,7 @@ def verify_from_bases(A: BT.G1Vec, xs: BT.ZpVec, bases, exps, g1: BT.G1Vec, w: B
     the k bases.  A (B,) bool array."""
     B, k = xs.std.shape[0], len(bases)
     powers = stacked_powers(list(bases) + [A], BT.ZpVec(torch.cat([exps.std, xs.std[None]])))
-    ax = BT.G1Vec(tuple(c[k] for c in powers.p))
+    ax = row(powers, k)
     base = base_product(g1, BT.G1Vec(tuple(c[:k] for c in powers.p)) if k else None, B)
     ok = BT.pair_prod_fixed((A, w), (ax / base, g2)).is_one()
     return ok.cpu().numpy()

@@ -9,7 +9,6 @@ signature is A | x | r (G1 | Zp | Zp).
 The batched paths are schemes/bbs.py's with one more row block in the
 stacked GLV call: h0^r for the blinding.  They run on the CUDA card by
 default (and raise without one); `device="cpu"` runs the plain versions.
-The host `verify` needs the host pairing, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,12 +19,12 @@ import numpy as np
 import torch
 
 from ..api import batch as BT
-from ..api.sets import (G1, G2, Zp, encode_to, inverse, parse, product_, select_in,
+from ..api.sets import (G1, G2, Zp, encode_to, inverse, pair, parse, product_, select_in,
                         serialize)
 from .bbs import (Keys, base_product, block_exponents, fixed_bases, sign_from_base,
                   stacked_powers, verify_from_bases)
 
-__all__ = ["PublicParameters", "Keys", "setup", "key_gen", "sign", "sign_batch",
+__all__ = ["PublicParameters", "Keys", "setup", "key_gen", "sign", "sign_batch", "verify",
            "verify_batch"]
 
 
@@ -64,6 +63,19 @@ def sign(pp: PublicParameters, sk: bytes, message: bytes, random) -> bytes:
     x, r = select_in(Zp ** 2, random)
     base = g1 * (h0 ** r) * product_([h[i] ** m[i] for i in range(len(m))])
     return serialize(base ** inverse(gamma + x), x, r)
+
+
+def verify(pp: PublicParameters, pk: bytes, message: bytes, signature: bytes) -> bool:
+    """e(A, w g2^x) == e(g1 h0^r prod h_i^m_i, g2), on the host."""
+    g1, g2, h0 = parse(G1, G2, G1, pp.g1_g2_h0)
+    h = [parse(G1, b) for b in pp.h]
+    w = parse(G2, pk)
+    m = encode_to(Zp, message)
+    if len(m) > len(h):
+        raise ValueError("message is too long")
+    A, x, r = parse(G1, Zp, Zp, signature)
+    rhs = g1 * (h0 ** r) * product_([h[i] ** m[i] for i in range(len(m))])
+    return pair(A, w * (g2 ** x)) == pair(rhs, g2)
 
 
 def sign_batch(pp: PublicParameters, sk: bytes, messages, random, device=None) -> list[bytes]:

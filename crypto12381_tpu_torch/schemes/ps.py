@@ -1,11 +1,13 @@
-"""Pointcheval-Sanders signatures: key generation, batched signing,
+"""Pointcheval-Sanders signatures, single and multi-message: key
+generation, signing and verification on the host, batched signing,
 re-randomization and batched verification.
 
 Counterpart of the JAX package's `schemes/ps.py` (the reference's
 src/ps.cpp): the same algorithms, CSPRNG draw order and byte formats, so
 a seeded flow gives the reference's bytes.  Keys and signatures are
 `bytes` in the reference's layouts: sk = x | y (Zp^2), pk = g2 | X2 | Y2
-(G2^3), a signature s1 | s2 (G1^2).
+(G2^3), a signature s1 | s2 (G1^2).  The multi-message keys (`KeysN`)
+hold one y_i and Y2_i = g2^y_i per 31-byte unit of `encode_to`.
 
 The batched entry points run their group work on the CUDA card by
 default (and raise without one); `device="cpu"` runs the plain versions.
@@ -18,9 +20,12 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..api import batch as BT
-from ..api.sets import G1, G2, Zp, hash_, parse, select_in, serialize
+from ..api.sets import (G1, G2, Zp, encode_to, hash_, pair, parse, product_, select_in,
+                        serialize, sum_)
+from .bbs import parse_points, row
 
-__all__ = ["Keys", "key_gen", "sign_batch", "randomnize", "verify_batch"]
+__all__ = ["Keys", "KeysN", "key_gen", "key_gen_n", "sign", "sign_batch", "sign_n", "verify",
+           "verify_n", "verify_batch", "verify_n_batch", "randomnize"]
 
 
 @dataclass
@@ -39,6 +44,22 @@ def key_gen(random) -> Keys:
     g2 = select_in(~G2, random)
     x, y = select_in(~Zp ** 2, random)
     return Keys(sk=serialize(x, y), pk=serialize(g2, g2 ** x, g2 ** y))
+
+
+def sign(sk: bytes, message: bytes, random) -> bytes:
+    """(h, h^(x + y m)) for m = H(message) mod r and a draw h, on the host."""
+    x, y = parse(Zp ** 2, sk)
+    m = hash_(message).to(Zp)
+    h = select_in(~G1, random)
+    return serialize(h, h ** (x + y * m))
+
+
+def verify(pk: bytes, message: bytes, signature: bytes) -> bool:
+    """e(s1, X2 Y2^m) == e(s2, g2), on the host."""
+    g2, X2, Y2 = parse(G2 ** 3, pk)
+    m = hash_(message).to(Zp)
+    s1, s2 = parse(G1 ** 2, signature)
+    return pair(s1, X2 * (Y2 ** m)) == pair(s2, g2)
 
 
 def sign_batch(sk: bytes, messages, random, device=None) -> list[bytes]:
@@ -89,3 +110,85 @@ def verify_batch(pk: bytes, messages, signatures, mesh=None, device=None) -> np.
     X2, Y2, g2 = (BT.G2Vec.from_affine([e.pt], dev) for e in (X2e, Y2e, g2e))
     ok = BT.pair_prod_fixed((s1, X2), (s1 ** ms, Y2), (s2.inverse(), g2)).is_one()
     return ok.cpu().numpy()
+
+
+# -- multi-message -------------------------------------------------------------
+
+
+@dataclass
+class KeysN:
+    x: bytes          # Zp
+    y: list           # [Zp bytes]
+    g2: bytes         # G2
+    X2: bytes         # G2
+    Y2: list          # [G2 bytes]
+
+
+def key_gen_n(n: int, random) -> KeysN:
+    """g2, x, then each y_i, in the reference's draw order."""
+    g2 = select_in(~G2, random)
+    x = select_in(~Zp, random)
+    ys, Y2s = [], []
+    for _ in range(n):
+        y = select_in(~Zp, random)
+        ys.append(serialize(y))
+        Y2s.append(serialize(g2 ** y))
+    return KeysN(x=serialize(x), y=ys, g2=serialize(g2), X2=serialize(g2 ** x), Y2=Y2s)
+
+
+def sign_n(sk: KeysN, message: bytes, random) -> bytes:
+    """(h, h^(x + sum_i y_i m_i)) over the encode_to units m_i of the
+    message, on the host."""
+    m = encode_to(Zp, message)
+    if len(m) > len(sk.y):
+        raise ValueError("message is too long")
+    x = parse(Zp, sk.x)
+    y = [parse(Zp, b) for b in sk.y]
+    h = select_in(~G1, random)
+    return serialize(h, h ** (x + sum_(y[i] * m[i] for i in range(len(m)))))
+
+
+def verify_n(pk: KeysN, message: bytes, signature: bytes) -> bool:
+    """e(s1, X2 prod_i Y2_i^m_i) == e(s2, g2), on the host (the product over
+    a plain list; the JAX package writes it in the symbolic notation of
+    its api/algebra.py, with the same value).  An empty message raises (an
+    empty product), as in the JAX package."""
+    m = encode_to(Zp, message)
+    if len(m) > len(pk.Y2):
+        raise ValueError("message is too long")
+    g2, X2 = parse(G2, pk.g2), parse(G2, pk.X2)
+    Y2 = [parse(G2, b) for b in pk.Y2]
+    s1, s2 = parse(G1 ** 2, signature)
+    return pair(s1, X2 * product_([Y2[i] ** m[i] for i in range(len(m))])) == pair(s2, g2)
+
+
+def verify_n_batch(pk: KeysN, messages, signatures, device=None) -> np.ndarray:
+    """Verify B multi-message signatures under one key: a (B,) bool array.
+    The powers Y2_j^m_j of every unit j and row run as ONE GS ladder of
+    n B rows (a short message's missing units with the exponent 0), their
+    product over j is a tree of complete adds, and e(s1, X2 prod ...)
+    e(s2^-1, g2) == 1 is one pair_prod.  A point that does not parse or a
+    message longer than the key raises ValueError."""
+    dev = BT._device(device, "verify_n_batch runs")
+    if len(signatures) != len(messages):
+        raise ValueError("messages and signatures differ in length")
+    g2e, X2e = parse(G2, pk.g2), parse(G2, pk.X2)
+    Y2e = [parse(G2, b) for b in pk.Y2]
+    ms = [encode_to(Zp, _as_bytes(m)) for m in messages]
+    n = max((len(m) for m in ms), default=0)
+    if n > len(Y2e):
+        raise ValueError("message is too long")
+    B = len(ms)
+    if B == 0:
+        return np.zeros(0, bool)
+    s12 = parse_points([bytes(s) for s in signatures], 2, dev)
+    s1, s2 = row(s12, 0), row(s12, 1)
+    acc = BT.G2Vec.from_elements([X2e], dev).broadcast_to((B,))
+    if n:
+        Y = BT.G2Vec.from_elements(Y2e[:n], dev)
+        Y = BT.G2Vec(tuple(c[:, None].expand(n, B, *c.shape[1:]) for c in Y.p))
+        e = BT.ZpVec.from_ints([m[j].value if j < len(m) else 0 for j in range(n) for m in ms],
+                               dev)
+        acc = acc * (Y ** BT.ZpVec(e.std.reshape(n, B, BT.FR_LIMBS))).product(0)
+    g2 = BT.G2Vec.from_elements([g2e], dev).broadcast_to((B,))
+    return BT.pair_prod((s1, acc), (s2.inverse(), g2)).is_one().cpu().numpy()

@@ -170,3 +170,34 @@ def test_verify_batch_verdicts(scheme):
     with pytest.raises(ValueError, match="message is too long"):
         mod.verify_batch(pp, keys.pk, [_message(scheme, b"z" * 31 * 5)], sigs[:1],
                          device="cpu")
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_host_verify_matches_flow_and_jax(scheme):
+    """The port's host verify (the host pairing) gives the flow vector's
+    `verify` on its signature, and equals the JAX host verify on the rows
+    of a batch from the JAX host sign: valid, swapped messages, a swapped
+    x, -A; a too-long message raises in both."""
+    vec = json.loads((ROOT / "tests" / "vectors" / f"{scheme}_flow.json").read_text())
+    mod, jmod = PORT[scheme], JAX[scheme]
+    r = S.create_random_engine("seed")
+    pp = mod.setup(16, r)
+    keys = mod.key_gen(pp, r)
+    msg = _message(scheme, b"Hello, BBS+!" if scheme == "bbs_plus" else b"Hello, BBS!")
+    sig = mod.sign(pp, keys.sk, msg, r)
+    assert mod.verify(pp, keys.pk, msg, sig) is vec["verify"] is True
+
+    rj = SETJ.create_random_engine(f"host-verify-{scheme}")
+    ppj = jmod.setup(4, rj)
+    kj = jmod.key_gen(ppj, rj)
+    msgs = [_message(scheme, bytes([70 + i]) * (9 + 40 * i)) for i in range(3)]
+    sigs = [jmod.sign(ppj, kj.sk, m, rj) for m in msgs]
+    rows = [(msgs[0], sigs[0]), (msgs[2], sigs[2]), (msgs[1], sigs[0]),
+            (msgs[1], sigs[1][:49] + sigs[2][49:97] + sigs[1][97:]),
+            (msgs[2], bytes([sigs[2][0] ^ 1]) + sigs[2][1:])]
+    want = [jmod.verify(ppj, kj.pk, m, s) for m, s in rows]
+    assert want == [True, True, False, False, False]
+    assert [mod.verify(ppj, kj.pk, m, s) for m, s in rows] == want
+    long = _message(scheme, b"z" * 31 * 5)
+    with pytest.raises(ValueError, match="message is too long"):
+        mod.verify(ppj, kj.pk, long, sigs[0])

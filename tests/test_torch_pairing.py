@@ -193,7 +193,9 @@ def _check_port_imports_no_jax():
     for mod in ("convert", "compat.codec", "compat.csprng", "api.batch", "api.sets",
                 "api.elements", "curves.g1", "curves.g2", "curves.endo", "msm.pippenger",
                 "msm.rounds", "msm.sorted", "ops.scalar_decomp", "pairing.pairing",
-                "schemes.ps", "schemes.bbs", "schemes.bbs_plus", "schemes.sss"):
+                "schemes.ps", "schemes.bbs", "schemes.bbs_plus", "schemes.sss",
+                "hashing.keccak", "host.pairing", "schemes.bbs04", "schemes.ac_bbs",
+                "schemes.ac_rbbs", "schemes.ac_rps"):
         assert "crypto12381_tpu_torch." + mod in names, mod
 
 

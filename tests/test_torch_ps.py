@@ -319,3 +319,65 @@ def test_verify_batch_cases(case):
             T.verify_batch(pk, msgs, sigs, device="cpu")
     else:
         assert T.verify_batch(pk, msgs, sigs, device="cpu").tolist() == want
+
+
+# ------------------------------------------- host PS and multi-message PS
+
+
+def test_host_sign_and_verify_match_jax():
+    """The host sign, randomnize and verify on ps_flow.json (its `verify`
+    field through the host pairing), and on another stream sign equals the
+    JAX host sign and verify the JAX host verify on valid and tampered
+    signatures."""
+    r = CS.create_random_engine("seed")
+    keys = PS.key_gen(r)
+    msg = b"\x00" * 47 + bytes([23])
+    sig = PS.sign(keys.sk, msg, r)
+    assert sig.hex() == VEC["signature"]
+    rand_sig = PS.randomnize(sig, r)
+    assert PS.verify(keys.pk, msg, rand_sig) is VEC["verify"] is True
+
+    r, rj = CS.create_random_engine("host-ps"), CSJ.RandomEngine("host-ps")
+    keys, kj = PS.key_gen(r), PSJ.key_gen(rj)
+    msgs = [b"one", b"", b"three" * 30]
+    sigs = [PS.sign(keys.sk, m, r) for m in msgs]
+    assert sigs == [PSJ.sign(kj.sk, m, rj) for m in msgs]
+    rows = [(msgs[0], sigs[0]), (msgs[1], sigs[1]), (msgs[2], sigs[0]),
+            (msgs[2], sigs[2][:49] + sigs[1][49:])]
+    want = [PSJ.verify(kj.pk, m, s) for m, s in rows]
+    assert want == [True, True, False, False]
+    assert [PS.verify(keys.pk, m, s) for m, s in rows] == want
+
+
+def test_multi_message_matches_jax():
+    """key_gen_n(3), sign_n on messages of 1 to 3 encode_to units and an
+    empty one, equal to the JAX host functions on one stream; verify_n
+    equals the JAX verify_n (both raise on the empty message: an empty
+    product); verify_n_batch on valid, rotated and empty rows equals the
+    JAX host verify_n, or for the empty row e(s1, X2) == e(s2, g2) on the
+    JAX host elements; a message longer than the key raises."""
+    from crypto12381_tpu.api import sets as SJ
+
+    r, rj = CS.create_random_engine("ps-n"), CSJ.RandomEngine("ps-n")
+    keys, kj = PS.key_gen_n(3, r), PSJ.key_gen_n(3, rj)
+    assert (keys.x, keys.y, keys.g2, keys.X2, keys.Y2) == (kj.x, kj.y, kj.g2, kj.X2, kj.Y2)
+    msgs = [b"a", b"b" * 40, b"c" * 93, b""]
+    sigs = [PS.sign_n(keys, m, r) for m in msgs]
+    assert sigs == [PSJ.sign_n(kj, m, rj) for m in msgs]
+    rows = [(msgs[0], sigs[0]), (msgs[1], sigs[1]), (msgs[2], sigs[2]), (msgs[2], sigs[1])]
+    want = [PSJ.verify_n(kj, m, s) for m, s in rows]
+    assert want == [True, True, True, False]
+    assert [PS.verify_n(keys, m, s) for m, s in rows] == want
+    for mod, k in ((PS, keys), (PSJ, kj)):
+        with pytest.raises(ValueError, match="empty product"):
+            mod.verify_n(k, msgs[3], sigs[3])
+    s1, s2 = SJ.parse(SJ.G1 ** 2, sigs[3])
+    empty_ok = SJ.pair(s1, SJ.parse(SJ.G2, kj.X2)) == SJ.pair(s2, SJ.parse(SJ.G2, kj.g2))
+    got = PS.verify_n_batch(keys, [m for m, _ in rows] + [msgs[3]],
+                            [s for _, s in rows] + [sigs[3]], device="cpu")
+    assert got.dtype == bool and got.tolist() == want + [empty_ok] and empty_ok
+    with pytest.raises(ValueError, match="message is too long"):
+        PS.verify_n_batch(keys, [b"z" * 94], sigs[:1], device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="verify_n_batch runs on a CUDA card"):
+            PS.verify_n_batch(keys, msgs[:1], sigs[:1])

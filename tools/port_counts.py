@@ -2,7 +2,8 @@
 """Count, on the CPU, what one call of each of the port's paths issues,
 to predict a run on the card without one.
 
-    python3 tools/port_counts.py [B]      # B rows or messages, default 4
+    python3 tools/port_counts.py [B] [PATH,...]   # B rows or messages, default 4;
+                                                  # only the named paths
 
 The paths and their shapes are chip_smoke.py's, at B messages or rows: PS
 `sign_batch`/`verify_batch` (messages b"bench-%06d"), BBS and BBS+
@@ -10,7 +11,13 @@ The paths and their shapes are chip_smoke.py's, at B messages or rows: PS
 blocks, the last one a single block), Shamir `share_batch` (t = 1,000 at
 n = 16 points: the counts do not depend on n) and `reconstruct_batch`
 (t = 1,000), the G2 GS ladder `G2Vec ** ZpVec`, `GTVec ** ZpVec`,
-`pair_vec` and the two-pair `pair_prod`.  For each call: the torch ops it
+`pair_vec` and the two-pair `pair_prod`; the SHA3-512 sponge with
+`hash_to_zp` (`keccak`: rows of 0 to 1,100 bytes), BBS04 `verify_batch`
+and `open_batch` (`key_gen(16)`, messages of 0 to 300 bytes), AC-BBS and
+AC-RBBS `verify_batch` (n = 32, I = {0, 3}), AC-RPS `verify_batch`
+(n = 64, I = {0, 1, 3}) and multi-message PS `verify_n_batch` (messages
+of 1 to 4 units), their host signatures and presentations tiled to B
+rows.  For each call: the torch ops it
 dispatches and the non-view ones, and the kernel launches it would make,
 each kernel's plain version counted as ONE op and one launch (its own ops
 hidden), as its CUDA kernel is on the card; the card's wrappers add a few
@@ -59,6 +66,9 @@ _depth = [0]
 #: while set, every kernel is a stand-in returning zeros of its output's shape
 STAND_IN = [False]
 SSS_T, SSS_N = 1000, 16
+#: the paths of _scheme_calls, counted also by row count
+SLICE_PATHS = ("keccak", "bbs04_verify", "bbs04_open", "ac_bbs_verify", "ac_rbbs_verify",
+               "ac_rps_verify", "ps_n_verify")
 #: int32 words of one row of each kernel's first operand
 ROW_WORDS = {"fp_mont_mul": 12, "fr_mont_mul": 8, "fp_pow_fixed": 12, "fr_pow_fixed": 8,
              "fp2_mul": 24, "fp2_sqr": 24, "fp6_mul": 72, "g1_add": 36, "g1_dbl": 36,
@@ -128,6 +138,49 @@ def _calls(b: int):
     yield "gt_pow", call(T.GTVec.one((b,), device="cpu").__pow__, e)
     yield "pair_vec", call(T.pair_vec, g1, g2)
     yield "pair_prod", call(T.pair_prod, (g1, g2), (g1, g2))
+    yield from _scheme_calls(b)
+
+
+def _scheme_calls(b: int):
+    """(name, call) for the paths of this slice at chip_smoke.py's
+    parameters, with two distinct host signatures or presentations tiled
+    to b rows (the counts do not depend on the rows' values)."""
+    from crypto12381_tpu_torch.api.batch import hash_to_zp
+    from crypto12381_tpu_torch.hashing import keccak as KC
+
+    call = functools.partial
+    lens = [(CS.KECCAK_MAX * i) // max(1, b - 1) for i in range(b)]
+    data = torch.zeros(b, CS.KECCAK_MAX, dtype=torch.uint8).numpy()
+    yield "keccak", lambda: hash_to_zp(KC.sha3_512_batch(data, lens, device="cpu"))
+    r = create_random_engine("bench-bbs04")
+    keys = T.bbs04.key_gen(CS.BBS04_MEMBERS, r)
+    msgs = [bytes(2), bytes(CS.BBS04_MAX_MSG)]
+    sigs = [T.bbs04.sign(keys.gpk, keys.gsk[i], msgs[i], r) for i in range(2)]
+    msgs, sigs = [msgs[i % 2] for i in range(b)], [sigs[i % 2] for i in range(b)]
+    yield "bbs04_verify", call(T.bbs04.verify_batch, keys.gpk, msgs, sigs, device="cpu")
+    yield "bbs04_open", call(T.bbs04.open_batch, keys.gmsk, sigs, device="cpu")
+    for mod, n, I in ((T.ac_bbs, CS.AC_N, [0, 3]), (T.ac_rbbs, CS.AC_N, [0, 3]),
+                      (T.ac_rps, CS.RPS_N, [0, 1, 3])):
+        r = create_random_engine("seed")
+        k = mod.keygen(n, r)
+        attr = mod.generate_attributes(k.pk, n, r)
+        sig = mod.issue(k, attr, r)
+        if mod is T.ac_bbs:
+            pres = [mod.pres(b"\x00", attr, sig, I, k.pk, r) for _ in range(2)]
+        elif mod is T.ac_rbbs:
+            rc = mod.redact(attr, sig, I, k.pk)
+            pres = [mod.pres(b"\x00", sig, rc, r) for _ in range(2)]
+        else:
+            rc = mod.redact(attr, sig, I, k.pk)
+            pres = [mod.pres(b"\x00", attr, sig, I, rc, k.pk, r) for _ in range(2)]
+        name = mod.__name__.rsplit(".", 1)[1]
+        yield f"{name}_verify", call(mod.verify_batch, b"\x00", attr, I,
+                                     [pres[i % 2] for i in range(b)], k.pk, device="cpu")
+    r = create_random_engine("bench-ps-n")
+    kn = T.ps.key_gen_n(CS.PS_N_UNITS, r)
+    ms = [bytes(1 + (31 * CS.PS_N_UNITS - 1) * (i % 2)) for i in range(b)]
+    ss = [T.ps.sign_n(kn, m, r) for m in ms]
+    yield "ps_n_verify", call(T.ps.verify_n_batch, kn, ms, ss, device="cpu")
 
 
 def _rounds_calls():
@@ -165,6 +218,7 @@ def _count(name, call, b, rows=False):
 
 def main() -> None:
     b = int(sys.argv[1]) if len(sys.argv) > 1 else 4
+    only = set(sys.argv[2].split(",")) if len(sys.argv) > 2 else None
     for name, kernel in (("fp2_mul", "fp2_mul_plain"), ("fp2_sqr", "fp2_sqr_plain"),
                          ("fp6_mul", "fp6_mul_plain"), ("g1_add", "g1_add_plain"),
                          ("g1_dbl", "g1_dbl_plain"), ("g1_madd", "g1_madd_plain")):
@@ -174,7 +228,11 @@ def main() -> None:
         F.pow_fixed_plain = _as_launch(f"{F.name}_pow_fixed", F.pow_fixed_plain)
 
     for name, call in _calls(b):
-        _count(name, call, b, rows=name in ("g2_pow", "gt_pow", "pair_vec", "pair_prod"))
+        if only is None or name in only:
+            _count(name, call, b, rows=name in ("g2_pow", "gt_pow", "pair_vec", "pair_prod")
+                   or name in SLICE_PATHS)
+    if only is not None:
+        return
 
     draws = create_random_engine("bench-ps")
     t0 = time.perf_counter()
