@@ -5,7 +5,8 @@ parsing, scalar arithmetic, Pointcheval-Sanders, BBS and BBS+ batch
 signing and verification, Shamir secret sharing, G2 scalar
 multiplication and MSM, GT powers and pairing products, the SHA3-512
 sponge and hash to Zp, BBS04 group signatures, the AC-BBS, AC-RBBS and
-AC-RPS credential verifiers and multi-message PS on one CUDA card.
+AC-RPS credential verifiers, multi-message PS, MHAC-BBS presentations and
+their verification, and the SSWU hash to G1 on one CUDA card.
 
     python3 chip_smoke.py            # the smoke run
     python3 chip_smoke.py --trace    # and one profiled call of each path
@@ -17,6 +18,7 @@ Phases, one line each; any failure raises and ends the run non-zero:
            pairing's products at 2B, its power chain x^(p-2) at 512, 1024
            (PS signing's affine), 2048 and 8192 rows, x^((p+1)/4)
            (G1Vec.parse's square root) at 512 (PS verification) and 8192,
+           x^((p-3)/4) (the hash to G1's inverse and square root) at 2048,
            the Fr product and the Fr chain x^(r-2) at 8192;
            K3: the pairing at B = 2048; K2 at each row count the pairing
            launches it at, B to 15B, K4 at 2B and 3B; K5: one MSM bucket
@@ -138,6 +140,22 @@ Phases, one line each; any failure raises and ends the run non-zero:
            key_gen_n(4), 512 messages of 1-4 units signed on the host:
            `verify_n_batch` 512 of 512, rotated messages all rejected, 4
            rows against the host verify_n; verifies/s
+  mhac_bbs MHAC-BBS: the mhac_bbs_flow.json vector through the host
+           functions (iss_setup(4), Prv = {0, 2}, t = 3, n = 6,
+           S = {0, 2, 5}, Rev = {1}); seed "bench-mhac": `cred_pres_batch`
+           of 512 presentations of the flow's credential (counted, then 2
+           timed), its first 4 equal to the host cred_pres on a second
+           engine of the same seed; `verify_pres_batch` of them (counted,
+           then 2 timed, the second with one row carrying another row's z)
+           512 of 512, 4 rows against the host verify_pres, the tampered
+           row rejected alone, other public attributes all rejected (the
+           tallied call); presentations/s, verifies/s
+  hash_g1  `hash_to_g1` of 2,048 SHA3-512 digests, three of them 0, 1 and
+           p - 1 mod p (counted, then 2 timed): 8 rows, the edges among
+           them, against the host G1Element.from_hash, SHA3-512("abc")
+           against reference.json, on_curve and in_subgroup on the card
+           true on every row but the digest 0 mod p (the reference's
+           off-curve point, F7 in ROADMAP.md); digests/s
   rows     every kernel at each row count the paths launched it at that the
            kernels phase did not time, on random canonical operands: held
            bit for bit against its plain version (given at most PLAIN_ROWS
@@ -200,6 +218,10 @@ AC_PRES = 16                   # distinct host presentations, tiled to SCHEME_B
 RPS_N = 64                     # AC-RPS: the reference test's n (and I = {0, 1, 3})
 RPS_PRES = 8
 PS_N_UNITS = 4                 # multi-message PS: key_gen_n(4), messages of 1-4 units
+#: MHAC-BBS: the reference test's parameters (iss_setup(4), Prv = {0, 2},
+#: t = 3, n = 6, S = {0, 2, 5}, Rev = {1}), presentations of one credential
+MHAC_M, MHAC_PRV, MHAC_T, MHAC_N, MHAC_S, MHAC_REV = 4, [0, 2], 3, 6, [0, 2, 5], [1]
+HASH_G1_B = 2048               # hash to G1: digests per call (the pairing's batch)
 SEED = 20261016
 #: H100 SXM5: HBM3 at 3.35 TB/s; 132 SMs x 64 INT32 lanes x 1.98 GHz boost
 #: = 1.673e13 32-bit integer multiply-adds/s (NVIDIA H100 data sheet and
@@ -441,9 +463,11 @@ def phase_kernels(dev):
     # inversion x^(p-2) at the row counts of the MSM (512) and the pairing
     # (2,048) and at 8,192, the square root x^((p+1)/4) of G1Vec.parse at
     # 8,192 and the Fr inversion x^(r-2) of the zp phase at 8,192, each also
-    # at a ragged count; and the PS phase's chains, x^(p-2) at 1,024 (the
+    # at a ragged count; the PS phase's chains, x^(p-2) at 1,024 (the
     # affine of sign's 2B-row ladder) and x^((p+1)/4) at 512 (verify's
-    # parse), each with a ragged count.  Edge rows 0, 1 and m-1 at both ends.
+    # parse), each with a ragged count; and the hash to G1's x^((p-3)/4)
+    # (invsqrt) at its 2,048 rows and a ragged count.  Edge rows 0, 1 and
+    # m-1 at both ends.
     fr = FP.FR_CTX
     r_edge = [0, 1, fr.modulus - 1]
     fr_counts = (G1_B, G1_B + RAGGED)
@@ -453,6 +477,7 @@ def phase_kernels(dev):
     for F, label, e, counts, headline in (
         (FP.FP_CTX, "p-2", P - 2, (B // 4, 2 * PS_B, B, G1_B, B + RAGGED, 2 * PS_B + RAGGED), B),
         (FP.FP_CTX, "(p+1)/4", (P + 1) // 4, (PS_B, G1_B, PS_B + RAGGED, G1_B + RAGGED), G1_B),
+        (FP.FP_CTX, "(p-3)/4", (P - 3) // 4, (HASH_G1_B, HASH_G1_B + RAGGED), HASH_G1_B),
         (fr, "r-2", fr.modulus - 2, fr_counts, G1_B),
     ):
         costs = ((SQR_MULADDS, MULADDS_PER_PRODUCT) if F is FP.FP_CTX
@@ -1860,6 +1885,137 @@ def phase_ps_n(dev, trace: bool):
           f"launch_rows={ROWS_BY_PATH['ps_n_verify']} verify_{ops} {traced}", flush=True)
 
 
+def phase_mhac(dev, trace: bool):
+    """MHAC-BBS: the mhac_bbs_flow.json vector through the host functions;
+    then cred_pres_batch of SCHEME_B presentations of the flow's credential
+    (its first rows against the host cred_pres on a second engine of the
+    same seed) and verify_pres_batch of them with their gates; two counted
+    paths."""
+    import crypto12381_tpu_torch as T
+    from crypto12381_tpu_torch.api.sets import create_random_engine
+
+    mh, vec = T.mhac_bbs, _flow("mhac_bbs")
+    r = create_random_engine("seed")
+    st = mh.iss_setup(MHAC_M, r)
+    pp, keys = st.pp, st.keys
+    Pub = [i for i in range(MHAC_M) if i not in MHAC_PRV]
+    ai = mh.generate_attributes(pp, MHAC_T, MHAC_N, MHAC_PRV, r)
+    creds = mh.cred_iss(pp, keys.sk, MHAC_T, ai.commitments, Pub, ai.public_attributes, r)
+    grp = mh.make_pres_group(creds, MHAC_S)
+    ptype = mh.make_pres_type(pp, MHAC_REV, MHAC_PRV, ai.public_attributes)
+    pres = mh.cred_pres(pp, creds, grp, ptype, MHAC_PRV, ai.public_attributes,
+                        ai.private_attributes_share, r)
+    flow = {
+        "setup": (pp.g1_g2.hex(), [x.hex() for x in pp.h], keys.sk.hex(), keys.pk.hex())
+                 == (vec["g1g2"], vec["h"], vec["sk"], vec["pk"]),
+        "attributes": ([a.hex() for a in ai.public_attributes],
+                       [[x.hex() for x in row_] for row_ in ai.private_attributes_share],
+                       [c.hex() for c in ai.commitments]) == (vec["pub_attrs"], vec["shares"],
+                                                              vec["C"]),
+        "creds": (creds.A.hex(), [x.hex() for x in creds.e_share], [d.hex() for d in creds.D])
+                 == (vec["cred_A"], vec["e_share"], vec["D"]),
+        "group_type": ([x.hex() for x in grp.lam], grp.D.hex(), ptype.C_rev.hex(),
+                       ptype.C_pub.hex()) == (vec["group_lam"], vec["group_D"], vec["C_rev"],
+                                              vec["C_pub"]),
+        "pres": (pres.fixed_part.hex(), [z.hex() for z in pres.z],
+                 [z.hex() for z in pres.z_hid_pub]) == (vec["pres_fixed"], vec["pres_z"],
+                                                        vec["pres_z_hid_pub"]),
+        "verify": mh.verify_pres(pp, keys.pk, ptype, MHAC_PRV, ai.public_attributes, pres)
+                  is vec["verify"] is True,
+    }
+    _fail("mhac_bbs flow", flow)
+
+    args = (pp, [creds] * SCHEME_B, [grp] * SCHEME_B, [ptype] * SCHEME_B, MHAC_PRV,
+            [ai.public_attributes] * SCHEME_B, [ai.private_attributes_share] * SCHEME_B)
+    draws = create_random_engine("bench-mhac")
+    rows, _, prep = _timed_path("mhac_pres", ("fp_mont_mul", "fp_pow_fixed", "g1_add", "g1_dbl"),
+                                lambda: mh.cred_pres_batch(*args, draws),
+                                [lambda: mh.cred_pres_batch(*args, draws)] * 2)
+    t0 = time.perf_counter()
+    host_draws = create_random_engine("bench-mhac")
+    host = [mh.cred_pres(pp, creds, grp, ptype, MHAC_PRV, ai.public_attributes,
+                         ai.private_attributes_share, host_draws) for _ in range(4)]
+    host_pres_s = time.perf_counter() - t0
+    checks = {"host_cred_pres": rows[:4] == host}
+    j = SCHEME_B // 3                       # row j with row j + 1's z
+    bad = list(rows)
+    bad[j] = mh.Pres(rows[j].fixed_part, list(rows[j + 1].z), list(rows[j].z_hid_pub))
+
+    def verify(prs, attrs=ai.public_attributes):
+        return mh.verify_pres_batch(pp, keys.pk, ptype, MHAC_PRV, attrs, prs)
+
+    ok, (_, got), vrep = _timed_path("mhac_verify", G1_PAIRING + ("fr_mont_mul",),
+                                     lambda: verify(rows),
+                                     [lambda: verify(rows), lambda: verify(bad)])
+    host_rows = [0, 1, SCHEME_B // 2 + 1, SCHEME_B - 1]
+    checks.update({
+        "verified": int(ok.sum()) == SCHEME_B and ok.shape == (SCHEME_B,),
+        "host_rows": [mh.verify_pres(pp, keys.pk, ptype, MHAC_PRV, ai.public_attributes, rows[i])
+                      for i in host_rows] == ok[host_rows].tolist(),
+        "other_z_rejected_alone": not got[j] and bool(np.delete(got, j).all())})
+    out = []
+    ops = _op_tally(lambda: out.append(verify(rows, ai.public_attributes[::-1])))
+    checks["other_attributes_rejected"] = not out[0].any()
+    _fail("mhac_bbs", checks)
+    traced = _trace(lambda: verify(rows)) if trace else ""
+    print(f"mhac_bbs: B={SCHEME_B} m={MHAC_M} Prv={MHAC_PRV} t={MHAC_T} n={MHAC_N} S={MHAC_S} "
+          f"Rev={MHAC_REV} flow={flow} checks={checks} host_pres_s_4={host_pres_s:.2f} "
+          f"{_report('pres', SCHEME_B, 'presentations', prep)} "
+          f"{_report('verify', SCHEME_B, 'verifies', vrep)} "
+          f"launch_rows={ {p: ROWS_BY_PATH[p] for p in ('mhac_pres', 'mhac_verify')} } "
+          f"verify_{ops} {traced}", flush=True)
+
+
+def phase_hash_g1(dev, trace: bool):
+    """The hash to G1 on the card: HASH_G1_B SHA3-512 digests of seeded
+    bytes, three of them replaced by digests whose value mod p is 0, 1 and
+    p - 1; 8 rows, the edges among them, against the host
+    G1Element.from_hash; SHA3-512("abc") against reference.json; on the
+    card, every row on the curve and in G1 but the digest 0 mod p, which
+    gives the reference's degenerate point (x0, 0) off the curve (F7);
+    one counted path."""
+    import hashlib
+
+    import torch
+
+    from crypto12381_tpu_torch.api.batch import G1Vec, hash_to_g1
+    from crypto12381_tpu_torch.api.elements import G1Element
+    from crypto12381_tpu_torch.curves import g1 as G1C
+    from crypto12381_tpu_torch.params import P
+
+    rng = np.random.default_rng(SEED + 13)
+    digests = [hashlib.sha3_512(rng.bytes(32)).digest() for _ in range(HASH_G1_B)]
+    edge_rows = {1: 0, HASH_G1_B // 2: 1, HASH_G1_B - 1: P - 1}
+    for i, e in edge_rows.items():
+        digests[i] = (int(rng.integers(1, 1 << 40)) * P + e).to_bytes(64, "big")
+    d = torch.from_numpy(np.frombuffer(b"".join(digests), np.uint8).reshape(-1, 64).copy()).to(dev)
+    pts, _, rep = _timed_path("hash_g1", ("fp_mont_mul", "fp_pow_fixed", "g1_add", "g1_dbl"),
+                              lambda: hash_to_g1(d), [lambda: hash_to_g1(d)] * 2)
+    host_rows = sorted(set(edge_rows) | {0, 2, 3, HASH_G1_B // 3, HASH_G1_B - 2})
+    idx = torch.tensor(host_rows, device=dev)
+    sub = G1Vec(tuple(c.index_select(0, idx) for c in pts.p))
+    member = torch.ones(HASH_G1_B, dtype=torch.bool)
+    member[1] = False                                 # the digest 0 mod p (F7)
+    abc = hashlib.sha3_512(b"abc").digest()
+    abc_dev = torch.from_numpy(np.frombuffer(abc, np.uint8)[None].copy()).to(dev)
+    checks = {
+        "host_rows": [e.pt for e in sub.to_elements()]
+                     == [G1Element.from_hash(digests[i]).pt for i in host_rows],
+        "hash_g1_abc": hash_to_g1(abc_dev).serialize()[0].hex()
+                       == json.loads((pathlib.Path(__file__).resolve().parent / "tests"
+                                      / "vectors" / "reference.json").read_text())["hash_g1_abc"],
+        "on_curve": torch.equal(G1C.on_curve(pts.p).cpu(), member),
+        "in_subgroup": torch.equal(G1C.in_subgroup(pts.p).cpu(), member),
+        "f7_row_is_host_point": G1Element.from_hash(digests[1]).pt[1] == 0,
+    }
+    _fail("hash_g1", checks)
+    ops = _op_tally(lambda: hash_to_g1(d))
+    traced = _trace(lambda: hash_to_g1(d)) if trace else ""
+    print(f"hash_g1: B={HASH_G1_B} edges_mod_p={sorted(edge_rows.values())} checks={checks} "
+          f"{_report('hash', HASH_G1_B, 'digests', rep)} "
+          f"launch_rows={ROWS_BY_PATH['hash_g1']} hash_{ops} {traced}", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -1909,6 +2065,8 @@ def main() -> None:
     timed("ac_rbbs", phase_ac, dev, "ac_rbbs", args.trace)
     timed("ac_rps", phase_ac_rps, dev, args.trace)
     timed("ps_n", phase_ps_n, dev, args.trace)
+    timed("mhac_bbs", phase_mhac, dev, args.trace)
+    timed("hash_g1", phase_hash_g1, dev, args.trace)
     _check_chains_timed(kernels)
     timed("rows", phase_rows, dev, kernels)
     print(f"phases_s: {phase_s}", flush=True)

@@ -31,17 +31,23 @@ kernel, a CPU tensor runs the kernel's plain PyTorch version.
     ok = ac_bbs.verify_batch(m, attr, I, presentations, pk)   # ac_rbbs, ac_rps alike
     ok = ps.verify_n_batch(keys_n, messages, sigs)            # multi-message PS
     gt = pair(g1_element, g2_element)                         # the host pairing (lazy)
+
+    press = mhac_bbs.cred_pres_batch(pp, creds, groups, types, Prv, attrs, shares, rng)
+    ok = mhac_bbs.verify_pres_batch(pp, pk, ptype, Prv, attrs, press)   # MHAC-BBS
+    pts = hash_to_g1(digests)                                 # SSWU hash to G1, (B, 64) uint8
 """
 
 from ._build import LAUNCH_EXPONENTS, LAUNCH_ROWS, LAUNCHES, reset_launches
-from .api.batch import G1Vec, G2Vec, GTVec, ZpVec, pair_prod, pair_prod_fixed, pair_vec
+from .api.batch import (G1Vec, G2Vec, GTVec, ZpVec, hash_to_g1, pair_prod, pair_prod_fixed,
+                        pair_vec)
 from .api.elements import pair
 from .msm.pippenger import msm_g1
 from .pairing.pairing import pair_batch, pairing_affine
-from .schemes import ac_bbs, ac_rbbs, ac_rps, bbs, bbs04, bbs_plus, ps, sss
+from .schemes import ac_bbs, ac_rbbs, ac_rps, bbs, bbs04, bbs_plus, mhac_bbs, ps, sss
 from .schemes.ps import key_gen, randomnize, sign_batch, verify_batch
 
 __all__ = ["LAUNCHES", "LAUNCH_EXPONENTS", "LAUNCH_ROWS", "G1Vec", "G2Vec", "GTVec", "ZpVec",
-           "ac_bbs", "ac_rbbs", "ac_rps", "bbs", "bbs04", "bbs_plus", "key_gen", "msm_g1", "pair",
-           "pair_batch", "pair_prod", "pair_prod_fixed", "pair_vec", "pairing_affine", "ps",
-           "randomnize", "reset_launches", "sign_batch", "sss", "verify_batch"]
+           "ac_bbs", "ac_rbbs", "ac_rps", "bbs", "bbs04", "bbs_plus", "hash_to_g1", "key_gen",
+           "mhac_bbs", "msm_g1", "pair", "pair_batch", "pair_prod", "pair_prod_fixed", "pair_vec",
+           "pairing_affine", "ps", "randomnize", "reset_launches", "sign_batch", "sss",
+           "verify_batch"]

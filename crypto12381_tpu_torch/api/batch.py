@@ -56,8 +56,8 @@ from ..msm import rounds as MR
 from ..pairing import pairing as PAIR
 from ..params import B_G1, LIMBS, MODBYTES, R
 
-__all__ = ["ZpVec", "G1Vec", "G2Vec", "GTVec", "g1_bytes", "gt_bytes", "hash_to_zp",
-           "pair_prod", "pair_prod_fixed", "pair_vec", "zp_bytes"]
+__all__ = ["ZpVec", "G1Vec", "G2Vec", "GTVec", "g1_bytes", "gt_bytes", "hash_to_g1",
+           "hash_to_zp", "pair_prod", "pair_prod_fixed", "pair_vec", "zp_bytes"]
 
 #: Fr scalars: 18 limbs of 16 bits (the JAX package's Fr layout)
 FR_LIMBS = 18
@@ -298,6 +298,14 @@ class G1Vec(_PointVec):
         """49-byte compressed points: g1_bytes on the device, one fetch."""
         return [bytes(r) for r in g1_bytes(self).reshape(-1, 49).cpu().numpy()]
 
+    def to_elements(self) -> list:
+        """Host G1 elements (api/elements.py), the batch flattened: one
+        affine conversion on the device."""
+        from .elements import G1Element
+
+        pts = G1C.to_affine_ints(self.p)
+        return [G1Element(p) for p in (pts.reshape(-1) if isinstance(pts, np.ndarray) else [pts])]
+
     def msm(self, scalars: ZpVec, c: int | None = None, lanes: int = 64) -> "G1Vec":
         """prod_i self[i] ** scalars[i] over the leading axis.  Batch-free
         result.
@@ -505,18 +513,42 @@ def gt_bytes(vec: GTVec) -> torch.Tensor:
     return be.reshape(*cs.shape[:-3], 576)
 
 
+def _digest_halves(digests: torch.Tensor) -> torch.Tensor:
+    """(B, 64) uint8 digests -> (B, 2, 8) int64 32-bit limbs of their
+    big-endian halves [hi, lo], least significant limb first."""
+    be = digests.to(torch.int64).reshape(-1, 2, 8, 4).flip(-2)
+    return (be << torch.tensor(_BYTE_SHIFTS[::-1], device=digests.device)).sum(-1)
+
+
 def hash_to_zp(digests: torch.Tensor) -> ZpVec:
     """(B, 64) uint8 SHA3-512 digests -> their values mod r, on their
     device (ZpNumber.from_hash on every row): hi 2^256 + lo with hi and lo
     the big-endian halves, each reduced below r by two conditional
     subtractions; hi 2^256 = hi R is one `fr_mont_mul` (to_mont), then one
     modular add."""
-    be = digests.to(torch.int64).reshape(-1, 2, 8, 4).flip(-2)       # [hi, lo], limbs LS first
-    limbs = (be << torch.tensor(_BYTE_SHIFTS[::-1], device=digests.device)).sum(-1)
+    limbs = _digest_halves(digests)
     for _ in range(2):                                                # 2^256 < 3 r
         limbs = FR._cond_sub_p(limbs).to(torch.int64) & 0xFFFFFFFF
     limbs = FP._i32(limbs)
     return ZpVec.from_limbs32(FR.add(FR.to_mont(limbs[:, 0]), limbs[:, 1]))
+
+
+def hash_to_g1(digests: torch.Tensor) -> G1Vec:
+    """(B, 64) uint8 digests -> G1 points on their device
+    (G1Element.from_hash on every row): the digest mod p, by the reduction
+    of hash_to_zp on Fp (both halves are below 2^256 < p, and the sum
+    hi 2^256 + lo enters the Montgomery form as hi (2^256 R^2) + lo R^2:
+    ONE `fp_mont_mul` launch and a modular add), then the SSWU map and
+    cofactor clearing (hashing/sswu.py).  Projective points."""
+    from ..hashing import sswu as SSWU
+
+    halves = _digest_halves(digests)
+    limbs = FP._i32(torch.cat([halves, torch.zeros_like(halves[..., :LIMBS - 8])], -1))
+    fac = FP.FP_CTX.limbs_of
+    k = torch.from_numpy(np.stack([fac((1 << 256) * FP.FP_CTX.r2_mod % FP.FP_CTX.modulus),
+                                   fac(FP.FP_CTX.r2_mod)])).to(digests.device)
+    hi, lo = FP.mont_mul(limbs, k.expand_as(limbs)).unbind(-2)
+    return G1Vec(SSWU.hash_field_to_g1(FP.add(hi, lo)))
 
 
 def _masked_miller(g1v: G1Vec, g2v: G2Vec) -> torch.Tensor:

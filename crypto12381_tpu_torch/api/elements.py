@@ -1,5 +1,4 @@
-"""Host elements with the reference's paper notation, as far as the PS,
-BBS, BBS+ and Shamir schemes use them.
+"""Host elements with the reference's paper notation.
 
 Counterpart of the JAX package's `api/elements.py`: integers mod r and
 host G1 and G2 points with the same multiplicative notation (`**` is
@@ -23,6 +22,7 @@ from ..compat.csprng import RandomEngine
 from ..host import curve as C
 from ..host import field as F
 from ..host import pairing as HP
+from ..host import sswu as SS
 from ..params import R
 
 __all__ = ["ZpNumber", "G1Element", "G1Pow", "G2Element", "GTElement", "GTPair", "pair",
@@ -139,6 +139,13 @@ class G1Element:
     def parse(cls, data: bytes) -> "G1Element":
         return cls(codec.g1_parse(bytes(data)))
 
+    @classmethod
+    def from_hash(cls, digest64: bytes) -> "G1Element":
+        """The reference's hash to G1 of a 64-byte digest: mod p, the SSWU
+        map, cofactor clearing; exact, on the host (host/sswu.py).  The
+        batched form is api/batch.py `hash_to_g1`."""
+        return cls(SS.hash_to_g1(bytes(digest64)))
+
     def __mul__(self, other):
         if isinstance(other, (G1Element, G1Pow)):
             return G1Element(C.g1_add(self.pt, other.point().pt))
@@ -153,6 +160,8 @@ class G1Element:
         ei = _zp_int_or_none(e)
         return NotImplemented if ei is None else G1Pow(self, ei)
 
+    __xor__ = __pow__
+
     def __eq__(self, other):
         if isinstance(other, (G1Element, G1Pow)):
             return self.pt == other.point().pt
@@ -163,6 +172,10 @@ class G1Element:
 
     def point(self) -> "G1Element":
         return self
+
+    def in_subgroup(self) -> bool:
+        """On the curve and of order r (the identity included)."""
+        return C.g1_in_subgroup(self.pt)
 
     def inverse(self) -> "G1Element":
         return G1Element(C.g1_neg(self.pt))
@@ -196,6 +209,11 @@ class G1Pow:
         self.exp = exp % R
 
     @classmethod
+    def select(cls, rng: RandomEngine) -> "G1Pow":
+        """g1^u for a draw u."""
+        return cls(G1Element(C.G1_GEN), rng.random_mod(R))
+
+    @classmethod
     def select_except1(cls, rng: RandomEngine) -> "G1Pow":
         """g1^u for a nonzero draw u."""
         return cls(G1Element(C.G1_GEN), rng.random_mod_nonzero(R))
@@ -206,6 +224,8 @@ class G1Pow:
     def __pow__(self, e):
         ei = _zp_int_or_none(e)
         return NotImplemented if ei is None else G1Pow(self.base, self.exp * ei)
+
+    __xor__ = __pow__
 
     def __mul__(self, other):
         if isinstance(other, G1Pow):
@@ -244,8 +264,21 @@ class G2Element:
         self.pt = pt
 
     @classmethod
+    def generator(cls) -> "G2Element":
+        return cls(C.G2_GEN)
+
+    @classmethod
+    def identity(cls) -> "G2Element":
+        return cls(None)
+
+    @classmethod
     def parse(cls, data: bytes) -> "G2Element":
         return cls(codec.g2_parse(bytes(data)))
+
+    @classmethod
+    def select(cls, rng: RandomEngine) -> "G2Element":
+        """g2^u for a draw u."""
+        return cls(C.g2_mul(C.G2_GEN, rng.random_mod(R)))
 
     @classmethod
     def select_except1(cls, rng: RandomEngine) -> "G2Element":
@@ -265,6 +298,8 @@ class G2Element:
     def __pow__(self, e):
         ei = _zp_int_or_none(e)
         return NotImplemented if ei is None else G2Element(C.g2_mul(self.pt, ei))
+
+    __xor__ = __pow__
 
     def __eq__(self, other):
         if isinstance(other, G2Element):

@@ -10,16 +10,36 @@ a time and refilled every 32 bytes.
 `random_mod` is MIRACL's BIG_randomnum: it draws 2 nbits(q) bits, each
 byte read from its low bit up, the first bit drawn the most significant,
 and reduces mod q.  `random_mod_nonzero` draws mod q - 1 and adds 1.
+
+`NativeRandomEngine` draws the same stream from the repository's C twin
+(cpp/compat_csprng.c, built by cpp/Makefile into
+cpp/libcrypto12381_compat.so on first use); `create_random_engine(seed,
+native=True)` takes it when the library loads and this module's engine
+otherwise, as the reference does.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
+import pathlib
+import subprocess
 
 _NK = 21
 _NJ = 6
 _NV = 8
 _M32 = 0xFFFFFFFF
+
+
+#: each byte with its bits in reverse order
+_REVERSED = bytes(int(f"{b:08b}"[::-1], 2) for b in range(256))
+
+
+def _draw_bits(rand_bytes, n: int) -> int:
+    """n bits from ceil(n / 8) bytes, each byte read from its low bit up,
+    the first bit drawn the most significant (BIG_randomnum's order)."""
+    raw = rand_bytes((n + 7) // 8).translate(_REVERSED)
+    return int.from_bytes(raw, "big") >> (8 * len(raw) - n)
 
 
 class RandomEngine:
@@ -71,10 +91,7 @@ class RandomEngine:
             self._sbrand()
 
     def _fill_pool(self) -> None:
-        h = hashlib.sha256()
-        for _ in range(128):
-            h.update(bytes([self._sbrand() & 0xFF]))
-        self._pool = h.digest()
+        self._pool = hashlib.sha256(bytes([self._sbrand() & 0xFF for _ in range(128)])).digest()
         self._pool_ptr = 0
 
     def _seed(self, raw: bytes) -> None:
@@ -100,20 +117,74 @@ class RandomEngine:
 
     def random_mod(self, q: int) -> int:
         """2 nbits(q) bits, the first drawn the most significant, mod q."""
-        d = 0
-        r = 0
-        for j in range(2 * q.bit_length()):
-            if j % 8 == 0:
-                r = self.rand_byte()
-            else:
-                r >>= 1
-            d = (d << 1) + (r & 1)
-        return d % q
+        return _draw_bits(self.rand_bytes, 2 * q.bit_length()) % q
 
     def random_mod_nonzero(self, q: int) -> int:
         """A draw in [1, q): mod q - 1, then plus 1."""
         return self.random_mod(q - 1) + 1
 
 
-def create_random_engine(seed: bytes | str) -> RandomEngine:
+_CPP = pathlib.Path(__file__).resolve().parents[2] / "cpp"
+_NATIVE: list = []          # [library or None], loaded on first use
+
+
+def _native():
+    """The C twin's library, built with make when it is missing; None when
+    it cannot be built or loaded."""
+    if not _NATIVE:
+        so = _CPP / "libcrypto12381_compat.so"
+        lib = None
+        try:
+            if not so.exists():
+                subprocess.run(["make", "-C", str(_CPP)], capture_output=True, check=True,
+                               timeout=120)
+            lib = ctypes.CDLL(str(so))
+            lib.crypto12381_csprng_size.restype = ctypes.c_int
+            lib.crypto12381_csprng_size.argtypes = []
+            lib.crypto12381_csprng_seed.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                                    ctypes.c_int]
+            lib.crypto12381_csprng_seed.restype = None
+            lib.crypto12381_csprng_bytes.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                                     ctypes.c_long]
+            lib.crypto12381_csprng_bytes.restype = None
+        except (OSError, subprocess.SubprocessError):
+            lib = None
+        _NATIVE.append(lib)
+    return _NATIVE[0]
+
+
+class NativeRandomEngine:
+    """RandomEngine's stream from the C twin, through ctypes (raises
+    OSError when its library is absent; create_random_engine falls back)."""
+
+    def __init__(self, seed: bytes | str):
+        if isinstance(seed, str):
+            seed = seed.encode()
+        self._lib = _native()
+        if self._lib is None:
+            raise OSError("cpp/libcrypto12381_compat.so cannot be built or loaded")
+        self._state = ctypes.create_string_buffer(self._lib.crypto12381_csprng_size())
+        self._lib.crypto12381_csprng_seed(self._state, seed, len(seed))
+
+    def rand_bytes(self, n: int) -> bytes:
+        out = ctypes.create_string_buffer(n)
+        self._lib.crypto12381_csprng_bytes(self._state, out, n)
+        return out.raw
+
+    def rand_byte(self) -> int:
+        return self.rand_bytes(1)[0]
+
+    def random_mod(self, q: int) -> int:
+        """RandomEngine.random_mod's draw: 2 nbits(q) bits, mod q."""
+        return _draw_bits(self.rand_bytes, 2 * q.bit_length()) % q
+
+    def random_mod_nonzero(self, q: int) -> int:
+        return self.random_mod(q - 1) + 1
+
+
+def create_random_engine(seed: bytes | str, native: bool = False):
+    """The seeded engine: the C twin with native=True when its library
+    loads, else RandomEngine (the same stream)."""
+    if native and _native() is not None:
+        return NativeRandomEngine(seed)
     return RandomEngine(seed)

@@ -12,7 +12,7 @@ one final inversion.
 
 from __future__ import annotations
 
-from ..params import B_G1, B_G2, G1_GEN_X, G1_GEN_Y, G2_GEN_X, G2_GEN_Y, P, R
+from ..params import B_G1, B_G2, G1_GEN_X, G1_GEN_Y, G2_GEN_X, G2_GEN_Y, H_EFF_G1, P, R
 from . import field as F
 
 G1_GEN = (G1_GEN_X, G1_GEN_Y)
@@ -147,6 +147,11 @@ def _j_mul(pt, k, K, width=4):
 def g1_mul(pt, k):
     """[k]pt on G1, k reduced mod r."""
     return _j_to_affine(_j_mul(pt, k % R, _Fp), _Fp)
+
+
+def g1_clear_cofactor(pt):
+    """[1 + |x|]pt on E(Fp): the effective cofactor, not reduced mod r."""
+    return _j_to_affine(_j_mul(pt, H_EFF_G1, _Fp), _Fp)
 
 
 def g2_mul(pt, k):

@@ -30,6 +30,11 @@ def fp_sqrt(a: int):
     return y if y * y % P == a else None
 
 
+def fp_is_qr(a: int) -> bool:
+    """a is a square mod p (0 included): Euler's criterion."""
+    return a % P == 0 or pow(a, (P - 1) // 2, P) == 1
+
+
 def fp2_add(x, y):
     return ((x[0] + y[0]) % P, (x[1] + y[1]) % P)
 

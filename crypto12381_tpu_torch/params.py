@@ -53,6 +53,13 @@ GT_BYTES = 576         # 12 Fp coefficients
 #: xi = 1 + i: Fp6 = Fp2[v]/(v^3 - xi), Fp12 = Fp6[w]/(w^2 - v).
 XI = (1, 1)
 
+#: Hash to G1: the simplified SWU map with Z = 11 onto the 11-isogenous
+#: curve y^2 = x^3 + A'x + B' (RFC 9380 section 8.8.1), then the isogeny
+#: (its coefficient table is iso11_data.py) and cofactor clearing.
+SSWU_Z = 11
+ISO11_A = 0x144698A3B8E9433D693A02C96D4982B0EA985383EE66A8D8E8981AEFD881AC98936F8DA0E0F97F5CF428082D584C1D
+ISO11_B = 0x12E2908D11688030018B12E8753EEE3B2016C1F0F24F4070A0B9C14FCEF35EF55A23215A316CEAA5D1CC48E98E172BE0
+
 # ---------------------------------------------------------------------------
 # Montgomery constants for 32-bit limbs, R = 2^384
 # ---------------------------------------------------------------------------

@@ -7,7 +7,9 @@ src/ps.cpp): the same algorithms, CSPRNG draw order and byte formats, so
 a seeded flow gives the reference's bytes.  Keys and signatures are
 `bytes` in the reference's layouts: sk = x | y (Zp^2), pk = g2 | X2 | Y2
 (G2^3), a signature s1 | s2 (G1^2).  The multi-message keys (`KeysN`)
-hold one y_i and Y2_i = g2^y_i per 31-byte unit of `encode_to`.
+hold one y_i and Y2_i = g2^y_i per 31-byte unit of `encode_to`.  `As` is
+the sequential aggregate scheme, on the host: each signer in turn checks
+the aggregate so far and folds its own message in.
 
 The batched entry points run their group work on the CUDA card by
 default (and raise without one); `device="cpu"` runs the plain versions.
@@ -20,12 +22,13 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..api import batch as BT
+from ..api.algebra import algebraic, symbols, transform
 from ..api.sets import (G1, G2, Zp, encode_to, hash_, pair, parse, product_, select_in,
                         serialize, sum_)
 from .bbs import parse_points, row
 
-__all__ = ["Keys", "KeysN", "key_gen", "key_gen_n", "sign", "sign_batch", "sign_n", "verify",
-           "verify_n", "verify_batch", "verify_n_batch", "randomnize"]
+__all__ = ["As", "Keys", "KeysN", "key_gen", "key_gen_n", "sign", "sign_batch", "sign_n",
+           "verify", "verify_n", "verify_batch", "verify_n_batch", "randomnize"]
 
 
 @dataclass
@@ -149,17 +152,19 @@ def sign_n(sk: KeysN, message: bytes, random) -> bytes:
 
 
 def verify_n(pk: KeysN, message: bytes, signature: bytes) -> bool:
-    """e(s1, X2 prod_i Y2_i^m_i) == e(s2, g2), on the host (the product over
-    a plain list; the JAX package writes it in the symbolic notation of
-    its api/algebra.py, with the same value).  An empty message raises (an
-    empty product), as in the JAX package."""
+    """e(s1, X2 prod_i Y2_i^m_i) == e(s2, g2), on the host, the product
+    Pi[i.in[n]](Y2_i^m_i) in the reference's symbolic notation.  An empty
+    message raises (an empty product), as in the JAX package."""
     m = encode_to(Zp, message)
-    if len(m) > len(pk.Y2):
+    n = len(m)
+    if n > len(pk.Y2):
         raise ValueError("message is too long")
     g2, X2 = parse(G2, pk.g2), parse(G2, pk.X2)
     Y2 = [parse(G2, b) for b in pk.Y2]
     s1, s2 = parse(G1 ** 2, signature)
-    return pair(s1, X2 * product_([Y2[i] ** m[i] for i in range(len(m))])) == pair(s2, g2)
+    i_, = symbols("i_")
+    return pair(s1, X2 * product_(algebraic(Y2)[i_] ** algebraic(m)[i_], i_.in_[n])) == pair(
+        s2, g2)
 
 
 def verify_n_batch(pk: KeysN, messages, signatures, device=None) -> np.ndarray:
@@ -192,3 +197,60 @@ def verify_n_batch(pk: KeysN, messages, signatures, device=None) -> np.ndarray:
         acc = acc * (Y ** BT.ZpVec(e.std.reshape(n, B, BT.FR_LIMBS))).product(0)
     g2 = BT.G2Vec.from_elements([g2e], dev).broadcast_to((B,))
     return BT.pair_prod((s1, acc), (s2.inverse(), g2)).is_one().cpu().numpy()
+
+
+# -- sequential aggregate ------------------------------------------------------
+
+
+class As:
+    """Sequential aggregate PS over one public parameter set pp = g1 | X1
+    | g2 | X2 (G1^2 | G2^2); a signer's keys are (y, g2^y)."""
+
+    def __init__(self, pp: bytes):
+        self.pp = pp
+
+    @classmethod
+    def setup(cls, random) -> "As":
+        g1 = select_in(~G1, random)
+        g2 = select_in(~G2, random)
+        x = select_in(~Zp, random)
+        return cls(pp=serialize(g1, g1 ** x, g2, g2 ** x))
+
+    def key_gen(self, random):
+        """(sk, pk) = (y, g2^y) for a draw y."""
+        _, _, g2, _ = parse(G1 ** 2, G2 ** 2, self.pp)
+        y = select_in(Zp, random)
+        return serialize(y), serialize(g2 ** y)
+
+    def sign_no_check(self, sk: bytes, message: bytes, signature: bytes, random) -> bytes:
+        """(s1^t, (s2 s1^(y m))^t) for m = H(message) mod r and a draw t."""
+        m = hash_(message).to(Zp)
+        y = parse(Zp, sk)
+        s1, s2 = parse(G1 ** 2, signature)
+        t = select_in(Zp, random)
+        return serialize(s1 ** t, (s2 * (s1 ** (y * m))) ** t)
+
+    def sign(self, keys, message: bytes, pks, messages, signature: bytes, random) -> bytes:
+        """The first signer starts from pp's (g1, X1); a later one checks
+        the aggregate of pks on messages first and raises if it does not
+        verify or if its own pk is among pks."""
+        sk, pk = keys
+        if len(pks) == 0:
+            return self.sign_no_check(sk, message, self.pp[:98], random)
+        if not self.verify(pks, messages, signature):
+            raise ValueError("invalid signature")
+        if any(p == pk for p in pks):
+            raise ValueError("repetitive pk")
+        return self.sign_no_check(sk, message, signature, random)
+
+    def verify(self, pks, messages, signature: bytes) -> bool:
+        """e(s1, X2 prod_i Y2_i^m_i) == e(s2, g2) with m_i = H(messages[i])
+        mod r: the hashes through a transform range and the product in the
+        reference's symbolic notation."""
+        _, _, g2, X2 = parse(G1 ** 2, G2 ** 2, self.pp)
+        Y2 = [parse(G2, b) for b in pks]
+        m = transform(messages, lambda mm: hash_(_as_bytes(mm)).to(Zp))
+        s1, s2 = parse(G1 ** 2, signature)
+        i_, = symbols("i_")
+        acc = product_(algebraic(Y2)[i_] ** m[i_], i_.in_[len(messages)])
+        return pair(s1, X2 * acc) == pair(s2, g2)

@@ -404,10 +404,12 @@ def test_cooperative_curve_kernels(harness, n):
 
 
 @pytest.mark.parametrize("n", [37, 261])
-@pytest.mark.parametrize("field,exponent", [("fp", "p-2"), ("fp", "(p+1)/4"), ("fr", "r-2")])
+@pytest.mark.parametrize("field,exponent", [("fp", "p-2"), ("fp", "(p+1)/4"), ("fp", "(p-3)/4"),
+                                            ("fr", "r-2")])
 def test_chain_kernels(harness, field, exponent, n):
-    """The power chain of one launch, x^e for the Fermat inverse (Fp, Fr)
-    and the square root (Fp), and the product of the same field, run over
+    """The power chain of one launch, x^e for the Fermat inverse (Fp, Fr),
+    the square root (Fp) and the hash to G1's inverse square root (Fp,
+    x^((p-3)/4)), and the product of the same field, run over
     the whole grid with a guard after the output: 37 rows (one ragged
     block of 128 threads) and 261 (two full blocks and a ragged one), with
     rows of 0, 1 and m - 1 at both ends and random canonical values
@@ -415,7 +417,7 @@ def test_chain_kernels(harness, field, exponent, n):
     integers."""
     F = FP.FP_CTX if field == "fp" else FP.FR_CTX
     m = F.modulus
-    e = {"p-2": m - 2, "(p+1)/4": (m + 1) // 4, "r-2": m - 2}[exponent]
+    e = {"p-2": m - 2, "(p+1)/4": (m + 1) // 4, "(p-3)/4": (m - 3) // 4, "r-2": m - 2}[exponent]
     edge = [0, 1, m - 1]
     seed = 300 + len(exponent) + F.limbs + n
     xv = edge + rand_ints(seed, n - 6, m) + edge[::-1]

@@ -381,3 +381,58 @@ def test_multi_message_matches_jax():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="verify_n_batch runs on a CUDA card"):
             PS.verify_n_batch(keys, msgs[:1], sigs[:1])
+
+
+# --------------------------------------------------- sequential aggregate As
+
+
+@pytest.mark.parametrize("seed", ["seed", "as-other"])
+def test_sequential_aggregate_matches_jax(seed):
+    """tests/test_api_ps.py's As flow on one stream: setup, two key pairs,
+    the first and the aggregate signature equal the JAX `ps.As`'s bytes;
+    verify's verdicts (in order, swapped keys, another message) and sign's
+    raises (an aggregate that does not verify, a repeated pk) equal the
+    JAX package's."""
+    out = []
+    for mod, eng in ((PS, CS.create_random_engine), (PSJ, CSJ.RandomEngine)):
+        r = eng(seed)
+        a = mod.As.setup(r)
+        k1, k2 = a.key_gen(r), a.key_gen(r)
+        m = ["message1", "m2"]
+        s1 = a.sign(k1, b"message1", [], [], b"", r)
+        s2 = a.sign(k2, b"m2", [k1[1]], m[:1], s1, r)
+        verdicts = (a.verify([k1[1], k2[1]], m, s2), a.verify([k2[1], k1[1]], m, s2),
+                    a.verify([k1[1], k2[1]], ["message1", "m3"], s2), a.verify([k1[1]], m[:1], s1))
+        raises = []
+        for args in ((k2, b"m2", [k1[1]], ["other"], s1), (k1, b"x", [k1[1]], m[:1], s1)):
+            with pytest.raises(ValueError) as info:
+                a.sign(*args, r)
+            raises.append(str(info.value))
+        out.append((bytes(a.pp), tuple(map(bytes, k1 + k2)), bytes(s1), bytes(s2), verdicts,
+                    raises))
+    assert out[0] == out[1]
+    assert out[0][4] == (True, False, False, True)
+    assert out[0][5] == ["invalid signature", "repetitive pk"]
+
+
+def test_symbolic_verify_n_matches_list_form():
+    """verify_n (the symbolic product) gives the verdicts of the product
+    over a plain list, on valid, rotated and tampered signatures."""
+    from crypto12381_tpu_torch.api.sets import G1, G2, Zp, encode_to, pair, parse, product_
+
+    r = CS.create_random_engine("ps-n-symbolic")
+    keys = PS.key_gen_n(4, r)
+    msgs = [b"a", b"b" * 40, b"c" * 124]
+    sigs = [PS.sign_n(keys, m, r) for m in msgs]
+    rows = [(msgs[0], sigs[0]), (msgs[2], sigs[2]), (msgs[1], sigs[2]),
+            (msgs[1], sigs[1][:49] + sigs[0][49:])]
+
+    def listed(m, s):
+        u = encode_to(Zp, m)
+        Y2 = [parse(G2, b) for b in keys.Y2]
+        s1, s2 = parse(G1 ** 2, s)
+        acc = product_([Y2[i] ** u[i] for i in range(len(u))])
+        return pair(s1, parse(G2, keys.X2) * acc) == pair(s2, parse(G2, keys.g2))
+
+    got = [PS.verify_n(keys, m, s) for m, s in rows]
+    assert got == [listed(m, s) for m, s in rows] == [True, True, False, False]

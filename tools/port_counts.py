@@ -17,7 +17,10 @@ and `open_batch` (`key_gen(16)`, messages of 0 to 300 bytes), AC-BBS and
 AC-RBBS `verify_batch` (n = 32, I = {0, 3}), AC-RPS `verify_batch`
 (n = 64, I = {0, 1, 3}) and multi-message PS `verify_n_batch` (messages
 of 1 to 4 units), their host signatures and presentations tiled to B
-rows.  For each call: the torch ops it
+rows; MHAC-BBS `cred_pres_batch` and `verify_pres_batch` (`mhac_pres`,
+`mhac_verify`: the reference test's parameters, one credential's
+presentations) and `hash_to_g1` (`hash_g1`: B digests).  For each call:
+the torch ops it
 dispatches and the non-view ones, and the kernel launches it would make,
 each kernel's plain version counted as ONE op and one launch (its own ops
 hidden), as its CUDA kernel is on the card; the card's wrappers add a few
@@ -68,7 +71,7 @@ STAND_IN = [False]
 SSS_T, SSS_N = 1000, 16
 #: the paths of _scheme_calls, counted also by row count
 SLICE_PATHS = ("keccak", "bbs04_verify", "bbs04_open", "ac_bbs_verify", "ac_rbbs_verify",
-               "ac_rps_verify", "ps_n_verify")
+               "ac_rps_verify", "ps_n_verify", "mhac_pres", "mhac_verify", "hash_g1")
 #: int32 words of one row of each kernel's first operand
 ROW_WORDS = {"fp_mont_mul": 12, "fr_mont_mul": 8, "fp_pow_fixed": 12, "fr_pow_fixed": 8,
              "fp2_mul": 24, "fp2_sqr": 24, "fp6_mul": 72, "g1_add": 36, "g1_dbl": 36,
@@ -181,6 +184,34 @@ def _scheme_calls(b: int):
     ms = [bytes(1 + (31 * CS.PS_N_UNITS - 1) * (i % 2)) for i in range(b)]
     ss = [T.ps.sign_n(kn, m, r) for m in ms]
     yield "ps_n_verify", call(T.ps.verify_n_batch, kn, ms, ss, device="cpu")
+    yield from _mhac_hash_calls(b)
+
+
+def _mhac_hash_calls(b: int):
+    """(name, call) for MHAC-BBS presentation and verification at
+    chip_smoke.py's parameters, and the hash to G1 of b digests."""
+    import hashlib
+
+    from crypto12381_tpu_torch.api.batch import hash_to_g1
+
+    mh, call = T.mhac_bbs, functools.partial
+    r = create_random_engine("seed")
+    st = mh.iss_setup(CS.MHAC_M, r)
+    Pub = [i for i in range(CS.MHAC_M) if i not in CS.MHAC_PRV]
+    ai = mh.generate_attributes(st.pp, CS.MHAC_T, CS.MHAC_N, CS.MHAC_PRV, r)
+    creds = mh.cred_iss(st.pp, st.keys.sk, CS.MHAC_T, ai.commitments, Pub, ai.public_attributes,
+                        r)
+    grp = mh.make_pres_group(creds, CS.MHAC_S)
+    ptype = mh.make_pres_type(st.pp, CS.MHAC_REV, CS.MHAC_PRV, ai.public_attributes)
+    args = (st.pp, [creds] * b, [grp] * b, [ptype] * b, CS.MHAC_PRV, [ai.public_attributes] * b,
+            [ai.private_attributes_share] * b)
+    pres = mh.cred_pres_batch(*args, r, device="cpu")
+    yield "mhac_pres", call(mh.cred_pres_batch, *args, r, device="cpu")
+    yield "mhac_verify", call(mh.verify_pres_batch, st.pp, st.keys.pk, ptype, CS.MHAC_PRV,
+                              ai.public_attributes, pres, device="cpu")
+    d = torch.tensor([list(hashlib.sha3_512(bytes([i])).digest()) for i in range(b)],
+                     dtype=torch.uint8)
+    yield "hash_g1", call(hash_to_g1, d)
 
 
 def _rounds_calls():
