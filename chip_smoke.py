@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels and drive its batched pairing,
-G1 scalar multiplication, G1 MSM (scan and dense rounds), G1 point
+G1 scalar multiplication, G1 MSM (scan, dense rounds and sorted), G1 point
 parsing, scalar arithmetic, Pointcheval-Sanders, BBS and BBS+ batch
 signing and verification, Shamir secret sharing, G2 scalar
 multiplication and MSM, GT powers and pairing products, the SHA3-512
 sponge and hash to Zp, BBS04 group signatures, the AC-BBS, AC-RBBS and
 AC-RPS credential verifiers, multi-message PS, MHAC-BBS presentations and
-their verification, and the SSWU hash to G1 on one CUDA card.
+their verification, the SSWU hash to G1, and the sharded MSM, pairings
+and PS verification on a world of one, on one CUDA card.
 
     python3 chip_smoke.py            # the smoke run
     python3 chip_smoke.py --trace    # and one profiled call of each path
@@ -58,6 +59,19 @@ Phases, one line each; any failure raises and ends the run non-zero:
            projective call (Z != 1 on every 7th row: the Z-inversion
            front) and one at n = 2^17 with 1,024 equal scalars (runs longer
            than 512: the scan MSM takes it), both against the oracle
+  msm_sorted msm/sorted.py's MSMs, called directly (G1Vec.msm does not
+           route to them): `msm_g1_sorted_staged` (every pass
+           batched-affine: K1 products and one chain per pass; K6, K7 in
+           the finish) on the msm_rounds projective 2^20 vector (tiled
+           points: a merge pair with equal x switches to the GENERAL pass),
+           a counted first call and 2 timed ones beside 2 of G1Vec.msm's
+           rounds route on it; on 2^16 distinct points from one GLV call,
+           FAST throughout, against [sum a_i s_i mod r]G, beside
+           G1Vec.msm's scan route on them; `msm_g1_sorted` (per window, K6
+           merge passes) on them; and the staged MSM, the scan and the
+           rounds MSM on the msm_rounds phase's first 2^17 rows.  Passes,
+           the pass at which GENERAL took over, launches, torch ops, peak
+           device memory, first-call and per-call seconds, points/s
   zp       `ZpVec` + - * neg inverse at 8192 rows (0, 1 and r-1 among
            them): every row against host integers mod r, 4 rows against
            the CPU plain path; launches per call and per operation
@@ -156,6 +170,13 @@ Phases, one line each; any failure raises and ends the run non-zero:
            against reference.json, on_curve and in_subgroup on the card
            true on every row but the digest 0 mod p (the reference's
            off-curve point, F7 in ROADMAP.md); digests/s
+  sharding parallel/sharding.py on a world of ONE rank (NCCL, a file://
+           store in a temporary directory): `sharded_msm` at 2^16 points,
+           `sharded_multi_pairing` and `sharded_batched_pairing` over 2,048
+           pairs (8 tiled), `ps.verify_batch(..., mesh=...)` at B = 512 with
+           a tampered message, each equal to its unsharded call on the card and each
+           making one collective (D > 1 is proved on the CPU only, by
+           tests/test_torch_parallel.py)
   rows     every kernel at each row count the paths launched it at that the
            kernels phase did not time, on random canonical operands: held
            bit for bit against its plain version (given at most PLAIN_ROWS
@@ -165,6 +186,9 @@ Each path runs with the launch counts set to 0 just before it and read
 just after; every kernel of the path must have launched (a scheme's
 signing and verification, Shamir's sharing and reconstruction, are two
 paths each; the rounds MSM's affine, projective and fallback calls three;
+the msm_sorted phase's staged MSM at 2^20, 2^16 and 2^17, per-window
+MSM, scans at 2^16 and 2^17 and rounds MSM at 2^17 seven;
+each sharded call one;
 the G2 ladder and MSM two; pair_vec, gt_pow and pair_prod three).  With
 --trace, each of the pairing, g1, msm, msm_rounds, ps, bbs, bbs_plus, g2
 and algebra lines also gives one call (the schemes: one verify call;
@@ -206,6 +230,10 @@ MSM_LANES, MSM_WINDOWS = 64, 33     # G1Vec.msm's defaults at c = 8
 MSMR_N = 1 << 20               # the rounds MSM: the JAX bench's 2^20 points (bench.py:155-196)
 MSMR_FALLBACK_N = 1 << 17      # the smallest rounds size, with 1,024 equal scalars: the scan
 MSMR_EQUAL = 1024
+MSMS_FAST_N = 1 << 16          # the sorted MSM's distinct points (FAST passes only)
+SHARD_MSM_N = MSM_N            # sharding on a world of one, at the msm,
+SHARD_PAIRS = B                # pairing (8 host pairs tiled)
+SHARD_PS_B = PS_B              # and PS phases' sizes
 G2_B = 2048                    # G2 ladder batch
 G2_MSM_N = 4096
 ALG_B = 2048                   # pair_vec, pair_prod and GT powers
@@ -223,11 +251,6 @@ PS_N_UNITS = 4                 # multi-message PS: key_gen_n(4), messages of 1-4
 MHAC_M, MHAC_PRV, MHAC_T, MHAC_N, MHAC_S, MHAC_REV = 4, [0, 2], 3, 6, [0, 2, 5], [1]
 HASH_G1_B = 2048               # hash to G1: digests per call (the pairing's batch)
 SEED = 20261016
-#: H100 SXM5: HBM3 at 3.35 TB/s; 132 SMs x 64 INT32 lanes x 1.98 GHz boost
-#: = 1.673e13 32-bit integer multiply-adds/s (NVIDIA H100 data sheet and
-#: Hopper architecture white paper).  Both assume the full 700 W limit.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #: 32-bit multiply-adds of one 12-limb CIOS product: 288 wide products
 #: counted twice (low and high halves) plus 12 low products for m
 MULADDS_PER_PRODUCT = 2 * (144 + 144) + 12
@@ -576,39 +599,64 @@ def phase_kernels(dev):
 def _bound(bytes_per_row: int, ops_per_row: int, rows: int):
     """The least time of a launch over `rows` rows: the larger of its bytes
     over the memory rate and its 32-bit multiply-adds over the integer
-    rate, in ms, and which of the two it is."""
-    t_bytes = rows * bytes_per_row / HBM_BYTES_PER_S
-    t_ops = rows * ops_per_row / INT32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    rate (utils/profiling.py `bound`: the H100 SXM5's peaks at 700 W), in
+    ms, and which of the two it is."""
+    from crypto12381_tpu_torch.utils.profiling import bound
+
+    t, by = bound(rows * bytes_per_row, rows * ops_per_row)
+    return t * 1e3, by
 
 
 def phase_rows(dev, kernels) -> None:
     """Each kernel at every row count the paths launched it at that the
     kernels phase did not time: random canonical operands of the kernel's
-    row shapes, held bit for bit against the plain version, then timed."""
+    row shapes, held bit for bit against the plain version, then timed.
+    The operands at r rows are the first r rows of one draw at the
+    kernel's largest such count, and the plain version, which computes
+    each row from that row alone, runs once on the whole draw: its first
+    r rows are its result at r rows (a plain chain is some 600 plain
+    products, so it runs once per kernel, not once per count).  The
+    smallest count is also held on a draw of its own, so that a kernel
+    that read past its rows would disagree there."""
     import torch
 
     rng = np.random.default_rng(SEED + 4)
     done = []
     for k in kernels:
+        t0 = time.perf_counter()
         kern, plain = k["fns"]
         rows = sorted({r for per in _launch_rows(k).values() for r in per}
                       - set(k["ms_by_rows"]))
-        for r in rows:
-            ins = tuple(torch.from_numpy(
-                _rand_fr(rng, r) if shape == (8,) else _rand_fp(rng, r, int(np.prod(shape[:-1])))
+
+        def draw(r):
+            return tuple(torch.from_numpy(
+                _rand_fr(rng, r) if shape == (8,)
+                else _rand_fp(rng, r, int(np.prod(shape[:-1])))
             ).reshape((r,) + shape).to(dev) for shape in k["row_shapes"])
-            got = kern(*ins)
-            # the plain version row block by row block: its int64 columns at
+
+        def plain_of(ins):
+            # row block by row block: the plain version's int64 columns at
             # the largest counts would not fit the card at once
-            want = torch.cat([plain(*(t[i:i + PLAIN_ROWS] for t in ins))
+            r = ins[0].shape[0]
+            return torch.cat([plain(*(t[i:i + PLAIN_ROWS] for t in ins))
                               for i in range(0, r, PLAIN_ROWS)])
+
+        if rows:
+            whole = draw(rows[-1])
+            want = plain_of(whole)
+            own = draw(rows[0])
+            if not torch.equal(kern(*own), plain_of(own)):
+                raise SystemExit(f"rows: {k['name']} disagrees with its plain version at "
+                                 f"{rows[0]} rows on a draw of its own")
+        for r in rows:
+            ins = tuple(t[:r] for t in whole)
+            got = kern(*ins)
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
+            if not torch.equal(got, want[:r]):
                 raise SystemExit(f"rows: {k['name']} disagrees with its plain version at {r} rows")
             k["ms_by_rows"][r] = _device_ms(lambda: kern(*ins))
         k["ms_by_rows"] = dict(sorted(k["ms_by_rows"].items()))
-        done.append(f"{k['name']} timed_rows={rows}")
+        done.append(f"{k['name']} timed_rows={rows} s={time.perf_counter() - t0:.1f}")
     print(f"rows: equal=True {'; '.join(done)}", flush=True)
 
 
@@ -698,10 +746,11 @@ def _trace(fn) -> str:
     clock of the same call, and the kernels with the most device time."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from crypto12381_tpu_torch.utils.profiling import device_trace
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -948,7 +997,9 @@ def phase_msm_rounds(dev, pts, a, trace: bool):
     in the finish), on the g1 phase's points, affine and tiled, an
     identity row under a nonzero scalar and zero scalars; a projective
     call (K1 front); and at MSMR_FALLBACK_N with MSMR_EQUAL equal scalars,
-    which takes the scan MSM.  Each against the host integer oracle."""
+    which takes the scan MSM.  Each against the host integer oracle.
+    Returns the projective 2^20 vector, its scalars and oracle, and the
+    first 2^17 rows with theirs, for the msm_sorted phase."""
     import torch
 
     import crypto12381_tpu_torch as T
@@ -1022,6 +1073,218 @@ def phase_msm_rounds(dev, pts, a, trace: bool):
           f"launch_rows={ROWS_BY_PATH['msm_rounds']} {ops} max_memory_allocated={peak} "
           f"projective_s={proj_s:.3f} projective_launches={proj_launches} "
           f"fallback_n={nf} fallback_s={fb_s:.3f} fallback_launches={fb_launches} {traced}",
+          flush=True)
+    few_e = T.ZpVec(torch.from_numpy(limbs[:nf].copy()).to(dev))
+    return {"proj": proj, "e": e, "expect": expect, "few": few, "few_e": few_e,
+            "few_expect": oracle(s_int[:nf], nf)}
+
+
+def phase_msm_sorted(dev, rounds: dict, trace: bool):
+    """The sorted batched-affine MSMs of msm/sorted.py, called directly
+    (G1Vec.msm does not route to them), each against the host integer
+    oracle: (a) `msm_g1_sorted_staged` (K1 products and one chain per
+    pass, K6 and K7 in the finish) on the msm_rounds phase's projective
+    2^20 vector (tiled points: equal x in a merge pair switches to
+    GENERAL), timed beside G1Vec.msm's rounds route on it; (b) on
+    MSMS_FAST_N distinct points from one GLV call (FAST throughout), timed
+    beside G1Vec.msm's scan route on them; (c) `msm_g1_sorted` (per
+    window, K6 merge passes) on (b)'s points; (d) the staged MSM, the scan
+    and the rounds MSM timed on the msm_rounds phase's first 2^17 rows."""
+    import torch
+
+    import crypto12381_tpu_torch as T
+    from crypto12381_tpu_torch.curves import g1 as G1C
+    from crypto12381_tpu_torch.host import curve as C
+    from crypto12381_tpu_torch.msm import pippenger as MSM
+    from crypto12381_tpu_torch.msm import sorted as MSORT
+    from crypto12381_tpu_torch.params import R
+
+    kernels = ("fp_mont_mul", "fp_pow_fixed", "g1_add", "g1_dbl")
+    scan_kernels = ("fp_mont_mul", "fp_pow_fixed", "g1_madd", "g1_add", "g1_dbl")
+
+    def c_of(n):
+        """The JAX package's window width of the sorted MSM at n points."""
+        return max(6, min(16, n.bit_length() - 5))
+
+    def rate(n, times):
+        return round(n * len(times) / sum(times), 1)
+
+    def secs(times):
+        return [round(t, 4) for t in times]
+
+    # (a) 2^20 projective, GENERAL
+    proj, e = rounds["proj"], rounds["e"]
+    run = {}
+    res, first_s, launches = _counted(
+        "msm_sorted", kernels,
+        lambda: MSORT.msm_g1_sorted_staged(proj.p, e.std, c=c_of(MSMR_N), record=run))
+    checks = {"oracle": G1C.to_affine_ints(res) == rounds["expect"],
+              "general": run["general_from"] is not None}
+    torch.cuda.reset_peak_memory_stats()
+    times = _timed_calls(lambda: MSORT.msm_g1_sorted_staged(proj.p, e.std, c=c_of(MSMR_N)), 2)
+    peak = torch.cuda.max_memory_allocated()
+    rounds_times = _timed_calls(lambda: proj.msm(e), 2)
+    ops = _op_tally(lambda: MSORT.msm_g1_sorted_staged(proj.p, e.std, c=c_of(MSMR_N)))
+    traced = (_trace(lambda: MSORT.msm_g1_sorted_staged(proj.p, e.std, c=c_of(MSMR_N)))
+              if trace else "")
+
+    # (b) distinct points, FAST throughout, and the scan on them
+    rng = np.random.default_rng(SEED + 12)
+    a_limbs = uniform_scalars(rng, MSMS_FAST_N)
+    a = limb_ints(a_limbs)
+    s_limbs = uniform_scalars(rng, MSMS_FAST_N)
+    s = limb_ints(s_limbs)
+    if len(set(a)) != MSMS_FAST_N:
+        raise SystemExit("msm_sorted: the GLV scalars are not distinct")
+    pts = T.G1Vec.generator((MSMS_FAST_N,)) ** T.ZpVec(torch.from_numpy(a_limbs).to(dev))
+    es = T.ZpVec(torch.from_numpy(s_limbs).to(dev))
+    fast_expect = C.g1_mul(C.G1_GEN, sum(u * v for u, v in zip(a, s)) % R)
+    c_fast, fast_run = c_of(MSMS_FAST_N), {}
+    fres, fast_s, fast_launches = _counted(
+        "msm_sorted_fast", kernels,
+        lambda: MSORT.msm_g1_sorted_staged(pts.p, es.std, c=c_fast, record=fast_run))
+    checks["fast_oracle"] = G1C.to_affine_ints(fres) == fast_expect
+    checks["fast_throughout"] = fast_run["general_from"] is None
+    fast_times = _timed_calls(lambda: MSORT.msm_g1_sorted_staged(pts.p, es.std, c=c_fast), 2)
+    sres, scan16_s, scan16_launches = _counted("msm_scan_16", scan_kernels, lambda: pts.msm(es))
+    checks["scan_16_oracle"] = G1C.to_affine_ints(sres.p) == fast_expect
+    scan16_times = _timed_calls(lambda: pts.msm(es), 2)
+
+    # (c) the per-window version, its passes 2+ on K6
+    wres, win_s, win_launches = _counted(
+        "msm_sorted_window", kernels,
+        lambda: MSORT.msm_g1_sorted(pts.p, es.std, c=c_fast))
+    checks["window_oracle"] = G1C.to_affine_ints(wres) == fast_expect
+
+    # (d) 2^17 tiled points: the staged MSM, the scan and the rounds MSM
+    few, few_e, nf = rounds["few"], rounds["few_e"], MSMR_FALLBACK_N
+    mid_run = {}
+    mres, mid_s, mid_launches = _counted(
+        "msm_sorted_17", kernels,
+        lambda: MSORT.msm_g1_sorted_staged(few.p, few_e.std, c=c_of(nf), record=mid_run))
+    checks["sorted_17_oracle"] = G1C.to_affine_ints(mres) == rounds["few_expect"]
+    mid_times = _timed_calls(lambda: MSORT.msm_g1_sorted_staged(few.p, few_e.std, c=c_of(nf)), 2)
+
+    def scan17():
+        return MSM.msm_g1(few.p, few_e.std, c=8, lanes=MSM_LANES)
+
+    sres, scan17_s, scan17_launches = _counted("msm_scan_17", scan_kernels, scan17)
+    checks["scan_17_oracle"] = G1C.to_affine_ints(sres) == rounds["few_expect"]
+    scan17_times = _timed_calls(scan17, 2)
+    rres, _, _ = _counted("msm_rounds_17", ("g1_madd", "g1_add", "g1_dbl"),
+                          lambda: few.msm(few_e))
+    checks["rounds_17_oracle"] = G1C.to_affine_ints(rres.p) == rounds["few_expect"]
+    checks["rounds_17_route"] = set(ROWS_BY_PATH["msm_rounds_17"]["g1_madd"]) != {
+        MSM_LANES * MSM_WINDOWS}
+    rounds17_times = _timed_calls(lambda: few.msm(few_e), 2)
+    _fail("msm_sorted", checks)
+    print(f"msm_sorted: n={MSMR_N} c={c_of(MSMR_N)} checks={checks} passes={run['passes']} "
+          f"general_from_pass={run['general_from']} pass_sizes={run['sizes']} "
+          f"first_s={first_s:.3f} call_s={secs(times)} points_per_s={rate(MSMR_N, times)} "
+          f"rounds_call_s={secs(rounds_times)} rounds_points_per_s={rate(MSMR_N, rounds_times)} "
+          f"launches_per_call={launches} launch_rows={ROWS_BY_PATH['msm_sorted']} {ops} "
+          f"max_memory_allocated={peak} "
+          f"fast_n={MSMS_FAST_N} fast_c={c_fast} fast_passes={fast_run['passes']} "
+          f"fast_general_from_pass={fast_run['general_from']} fast_first_s={fast_s:.3f} "
+          f"fast_call_s={secs(fast_times)} fast_points_per_s={rate(MSMS_FAST_N, fast_times)} "
+          f"fast_launches={fast_launches} scan_16_first_s={scan16_s:.3f} "
+          f"scan_16_call_s={secs(scan16_times)} "
+          f"scan_16_points_per_s={rate(MSMS_FAST_N, scan16_times)} "
+          f"scan_16_launches={scan16_launches} window_s={win_s:.3f} "
+          f"window_launches={win_launches} n17={nf} c17={c_of(nf)} "
+          f"sorted_17_passes={mid_run['passes']} "
+          f"sorted_17_general_from_pass={mid_run['general_from']} sorted_17_first_s={mid_s:.3f} "
+          f"sorted_17_call_s={secs(mid_times)} sorted_17_points_per_s={rate(nf, mid_times)} "
+          f"sorted_17_launches={mid_launches} scan_17_first_s={scan17_s:.3f} "
+          f"scan_17_call_s={secs(scan17_times)} scan_17_points_per_s={rate(nf, scan17_times)} "
+          f"scan_17_launches={scan17_launches} rounds_17_call_s={secs(rounds17_times)} "
+          f"rounds_17_points_per_s={rate(nf, rounds17_times)} {traced}", flush=True)
+
+
+def phase_sharding(dev):
+    """parallel/sharding.py on a world of ONE rank with NCCL (one card; a
+    world of D > 1 is proved on the CPU only, by tests/test_torch_parallel.py):
+    sharded_msm, sharded_multi_pairing, sharded_batched_pairing and
+    ps.verify_batch(..., mesh=...) at the msm, pairing and ps phases'
+    sizes, each equal to its unsharded call on the card, each making
+    exactly one collective."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import crypto12381_tpu_torch as T
+    from crypto12381_tpu_torch.api.sets import create_random_engine
+    from crypto12381_tpu_torch.curves import g1 as G1C
+    from crypto12381_tpu_torch.host import curve as C
+    from crypto12381_tpu_torch.msm import pippenger as MSM
+    from crypto12381_tpu_torch.pairing import pairing as PAIR
+    from crypto12381_tpu_torch.parallel import sharding as SH
+    from crypto12381_tpu_torch.params import R
+    from crypto12381_tpu_torch.schemes import ps
+
+    rng = np.random.default_rng(SEED + 13)
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
+    try:
+        mesh = SH.default_mesh()
+        checks, colls, secs, launches = {}, {}, {}, {}
+
+        def both(name, kernels, sharded, plain):
+            before = SH.COLLECTIVES
+            out, secs[name], launches[name] = _counted(f"sharding_{name}", kernels, sharded)
+            colls[name] = SH.COLLECTIVES - before
+            return out, plain()
+
+        # the MSM: the JAX function's defaults (c = 6, 256 lanes)
+        ks = uniform_scalars(rng, SHARD_MSM_N)
+        pts = T.G1Vec.generator((SHARD_MSM_N,)) ** T.ZpVec(torch.from_numpy(ks).to(dev))
+        sc = uniform_scalars(rng, SHARD_MSM_N)
+        s = torch.from_numpy(sc).to(dev)
+        got, want = both("msm", ("fp_mont_mul", "fp_pow_fixed", "g1_madd", "g1_add", "g1_dbl"),
+                         lambda: SH.sharded_msm(mesh, pts.p, s),
+                         lambda: MSM.msm(pts.p, s, G1C.ops(), c=6, lanes=256,
+                                         gen_affine=MSM._gen_affine_g1(dev)))
+        expect = C.g1_mul(C.G1_GEN, sum(u * v for u, v in zip(limb_ints(ks), limb_ints(sc))) % R)
+        checks["msm"] = all(torch.equal(g, w) for g, w in zip(got, want)) and \
+            G1C.to_affine_ints(got) == expect
+
+        # the pairings over SHARD_PAIRS pairs: 8 host pairs tiled
+        g1 = [C.g1_mul(C.G1_GEN, int(k)) for k in rng.integers(2, 1 << 62, 8)]
+        g2 = [C.g2_mul(C.G2_GEN, int(k)) for k in rng.integers(2, 1 << 62, 8)]
+        g1, g2 = g1 * (SHARD_PAIRS // 8), g2 * (SHARD_PAIRS // 8)
+        p_aff = T.G1Vec.from_affine(g1).p[:2]
+        q_aff = T.G2Vec.from_affine(g2).p[:2]
+        got, want = both("multi_pairing", PAIRING,
+                         lambda: SH.sharded_multi_pairing(mesh, p_aff, q_aff),
+                         lambda: PAIR.multi_pairing(p_aff, q_aff))
+        checks["multi_pairing"] = torch.equal(got, want)
+        got, want = both("batched_pairing", PAIRING,
+                         lambda: SH.sharded_batched_pairing(mesh, p_aff, q_aff),
+                         lambda: PAIR.pairing_affine(p_aff, q_aff))
+        checks["batched_pairing"] = torch.equal(got, want) and got.shape[0] == SHARD_PAIRS
+
+        # PS verification: B signatures, one message tampered
+        r = create_random_engine("bench-ps-sharded")
+        keys = ps.key_gen(r)
+        msgs = [b"shard-%04d" % i for i in range(SHARD_PS_B)]
+        sigs = ps.sign_batch(keys.sk, msgs, r)
+        msgs[3] = b"tampered"
+        got, want = both("ps_verify", PAIRING,
+                         lambda: ps.verify_batch(keys.pk, msgs, sigs, mesh=mesh),
+                         lambda: ps.verify_batch(keys.pk, msgs, sigs))
+        checks["ps_verify"] = (got.tolist() == want.tolist()
+                               == [i != 3 for i in range(SHARD_PS_B)])
+        checks["one_collective_each"] = set(colls.values()) == {1}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    _fail("sharding", checks)
+    print(f"sharding: world=1 backend=nccl device={mesh.device} (D > 1 is proved on the CPU "
+          f"only: tests/test_torch_parallel.py, gloo worlds of 2 and 3) msm_n={SHARD_MSM_N} "
+          f"pairs={SHARD_PAIRS} ps_B={SHARD_PS_B} checks={checks} collectives={colls} "
+          f"sharded_s={ {k: round(v, 3) for k, v in secs.items()} } launches={launches}",
           flush=True)
 
 
@@ -2051,7 +2314,9 @@ def main() -> None:
     timed("pairing", phase_pairing, dev, args.trace)
     pts, a = timed("g1", phase_g1, dev, args.trace)
     timed("msm", phase_msm, dev, pts, a, args.trace)
-    timed("msm_rounds", phase_msm_rounds, dev, pts, a, args.trace)
+    rounds = timed("msm_rounds", phase_msm_rounds, dev, pts, a, args.trace)
+    timed("msm_sorted", phase_msm_sorted, dev, rounds, args.trace)
+    del rounds
     timed("zp", phase_zp, dev)
     timed("ps", phase_ps, dev, args.trace)
     timed("bbs", phase_bbs, dev, "bbs", args.trace)
@@ -2067,6 +2332,7 @@ def main() -> None:
     timed("ps_n", phase_ps_n, dev, args.trace)
     timed("mhac_bbs", phase_mhac, dev, args.trace)
     timed("hash_g1", phase_hash_g1, dev, args.trace)
+    timed("sharding", phase_sharding, dev)
     _check_chains_timed(kernels)
     timed("rows", phase_rows, dev, kernels)
     print(f"phases_s: {phase_s}", flush=True)

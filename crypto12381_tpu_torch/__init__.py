@@ -35,19 +35,40 @@ kernel, a CPU tensor runs the kernel's plain PyTorch version.
     press = mhac_bbs.cred_pres_batch(pp, creds, groups, types, Prv, attrs, shares, rng)
     ok = mhac_bbs.verify_pres_batch(pp, pk, ptype, Prv, attrs, press)   # MHAC-BBS
     pts = hash_to_g1(digests)                                 # SSWU hash to G1, (B, 64) uint8
+
+    x, y = select_in(Zp ** 2, create_random_engine("seed"))   # the paper notation
+    from crypto12381_tpu_torch.msm.sorted import msm_g1_sorted_staged   # batched-affine MSM
+    acc = msm_g1_sorted_staged(pts.p, ZpVec.from_ints(more_scalars).std)
+
+    mesh = sharding.default_mesh()                            # parallel/, after init_process_group
+    ok = verify_batch(keys.pk, messages, sigs, mesh=mesh)     # each rank verifies its shard
 """
 
 from ._build import LAUNCH_EXPONENTS, LAUNCH_ROWS, LAUNCHES, reset_launches
 from .api.batch import (G1Vec, G2Vec, GTVec, ZpVec, hash_to_g1, pair_prod, pair_prod_fixed,
                         pair_vec)
-from .api.elements import pair
+from .api.elements import (G1Element, G1Pow, G2Element, GTElement, GTPair, ZpNumber, inverse,
+                           pair)
+from .api.sets import (G1, G2, GT, Zp, create_random_engine, encode_to, hash_, make_Zp, parse,
+                       polynomial, product_, select_in, serialize, sum_)
 from .msm.pippenger import msm_g1
 from .pairing.pairing import pair_batch, pairing_affine
 from .schemes import ac_bbs, ac_rbbs, ac_rps, bbs, bbs04, bbs_plus, mhac_bbs, ps, sss
 from .schemes.ps import key_gen, randomnize, sign_batch, verify_batch
 
-__all__ = ["LAUNCHES", "LAUNCH_EXPONENTS", "LAUNCH_ROWS", "G1Vec", "G2Vec", "GTVec", "ZpVec",
-           "ac_bbs", "ac_rbbs", "ac_rps", "bbs", "bbs04", "bbs_plus", "hash_to_g1", "key_gen",
-           "mhac_bbs", "msm_g1", "pair", "pair_batch", "pair_prod", "pair_prod_fixed", "pair_vec",
-           "pairing_affine", "ps", "randomnize", "reset_launches", "sign_batch", "sss",
-           "verify_batch"]
+__all__ = [
+    # the paper notation, as the JAX package exports it
+    "G1", "G2", "GT", "Zp",
+    "G1Element", "G1Pow", "G2Element", "GTElement", "GTPair", "ZpNumber",
+    "create_random_engine", "encode_to", "hash_", "inverse", "make_Zp",
+    "pair", "parse", "polynomial", "product_", "select_in", "serialize",
+    "sum_",
+    # the batched vectors, paths, schemes and launch counts
+    "LAUNCHES", "LAUNCH_EXPONENTS", "LAUNCH_ROWS", "G1Vec", "G2Vec", "GTVec", "ZpVec",
+    "ac_bbs", "ac_rbbs", "ac_rps", "bbs", "bbs04", "bbs_plus", "hash_to_g1", "key_gen",
+    "mhac_bbs", "msm_g1", "pair_batch", "pair_prod", "pair_prod_fixed", "pair_vec",
+    "pairing_affine", "ps", "randomnize", "reset_launches", "sign_batch", "sss",
+    "verify_batch",
+]
+
+__version__ = "0.1.0"

@@ -67,39 +67,48 @@ def signed_window_digits(e_std: torch.Tensor, c: int, nbits: int = 258) -> torch
     return window_digits(f, c, K) - (1 << (c - 1))
 
 
-def force_affine(ops: W.FieldOps, points, scalars_std, gen_affine, block: int = 128):
-    """Projective batch -> (x, y) affine batch and adjusted scalars.
-
-    Montgomery batch inversion of the Z column in two levels: the n values
-    are cut into `block` rows of m columns, a running product walks the
-    rows (block product launches over m columns), ONE Fermat inversion
-    inverts the m column totals, and a backward walk hands each Z its
-    inverse (2 * block launches).  Identity points (Z = 0) become
-    `gen_affine` with scalar 0, so the bucket phase never sees a Z != 1
-    operand.  Any coefficient field: elements are (n, *elem)."""
-    X, Y, Z = points
-    n = scalars_std.shape[0]
-    dev = Z.device
-    elem = tuple(Z.shape[1:])
-    is_id = ops.is_zero(Z)
-    m_id = is_id.reshape((n,) + (1,) * len(elem))
-    one = ops.one((n,), dev)
-    safe = torch.where(m_id, one, Z)
+def block_inverse(ops: W.FieldOps, v: torch.Tensor, block: int = 128) -> torch.Tensor:
+    """The inverse of every element of v (n, *elem), none of them 0, by
+    Montgomery's trick in two levels: the n values are cut into `block`
+    rows of m = ceil(n / block) columns, a running product walks the rows
+    (block product launches over m columns), ONE Fermat inversion inverts
+    the m column totals, and a backward walk hands each value its inverse
+    (block launches over 2m rows: the inverse and the next carry stacked).
+    About 3 products per element plus one chain over m rows."""
+    n = v.shape[0]
+    dev = v.device
+    elem = tuple(v.shape[1:])
     pad = (-n) % block
     if pad:
-        safe = torch.cat([safe, ops.one((pad,), dev)], 0)
-    m = safe.shape[0] // block
-    zb = safe.reshape((m, block) + elem).transpose(0, 1)         # (block, m, *elem)
+        v = torch.cat([v, ops.one((pad,), dev)], 0)
+    m = v.shape[0] // block
+    zb = v.reshape((m, block) + elem).transpose(0, 1)            # (block, m, *elem)
     prefix = []
     carry = ops.one((m,), dev)
     for j in range(block):
         prefix.append(carry)
         (carry,) = ops.mul_many([(carry, zb[j])])
     carry = ops.inv(carry)
-    zinv = [None] * block
+    inv = [None] * block
     for j in reversed(range(block)):
-        zinv[j], carry = ops.mul_many([(carry, prefix[j]), (carry, zb[j])])
-    zinv = torch.stack(zinv, 0).transpose(0, 1).reshape((-1,) + elem)[:n]
+        inv[j], carry = ops.mul_many([(carry, prefix[j]), (carry, zb[j])])
+    return torch.stack(inv, 0).transpose(0, 1).reshape((-1,) + elem)[:n]
+
+
+def force_affine(ops: W.FieldOps, points, scalars_std, gen_affine, block: int = 128):
+    """Projective batch -> (x, y) affine batch and adjusted scalars.
+
+    The Z column is inverted by `block_inverse` (2 * block product launches
+    and one chain).  Identity points (Z = 0) become `gen_affine` with
+    scalar 0, so the bucket phase never sees a Z != 1 operand.  Any
+    coefficient field: elements are (n, *elem)."""
+    X, Y, Z = points
+    n = scalars_std.shape[0]
+    dev = Z.device
+    elem = tuple(Z.shape[1:])
+    is_id = ops.is_zero(Z)
+    m_id = is_id.reshape((n,) + (1,) * len(elem))
+    zinv = block_inverse(ops, torch.where(m_id, ops.one((n,), dev), Z), block)
     x, y = ops.mul_many([(X, zinv), (Y, zinv)])
     gx, gy = gen_affine
     x = torch.where(m_id, gx.expand_as(x), x)

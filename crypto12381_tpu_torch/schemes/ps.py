@@ -25,6 +25,7 @@ from ..api import batch as BT
 from ..api.algebra import algebraic, symbols, transform
 from ..api.sets import (G1, G2, Zp, encode_to, hash_, pair, parse, product_, select_in,
                         serialize, sum_)
+from ..parallel import sharding as SH
 from .bbs import parse_points, row
 
 __all__ = ["As", "Keys", "KeysN", "key_gen", "key_gen_n", "sign", "sign_batch", "sign_n",
@@ -100,16 +101,22 @@ def verify_batch(pk: bytes, messages, signatures, mesh=None, device=None) -> np.
     three pairings with precomputed lines sharing one Miller loop
     (pair_prod_fixed), the scalar on a G1 GLV ladder.  The signatures'
     points are decompressed by one batched square-root chain each for s1
-    and s2; a point that does not parse raises ValueError."""
-    if mesh is not None:
-        raise NotImplementedError("verify_batch over a mesh is not ported yet")
-    dev = BT._device(device, "verify_batch runs")
+    and s2; a point that does not parse raises ValueError.
+
+    With `mesh` (parallel/sharding.py `default_mesh`) every rank passes
+    the whole batch, verifies its shard on the mesh's device
+    (`sharded_ps_verify`: the GS G2 ladder X2 Y2^m and a shared Miller
+    loop per row, as the JAX package's sharded path does), and returns
+    every verdict."""
+    dev = mesh.device if mesh is not None else BT._device(device, "verify_batch runs")
     if len(signatures) != len(messages):
         raise ValueError("messages and signatures differ in length")
     g2e, X2e, Y2e = parse(G2 ** 3, pk)
     ms = BT.ZpVec.from_ints([hash_(_as_bytes(m)).to(Zp).value for m in messages], dev)
     s1 = BT.G1Vec.parse((bytes(s)[:49] for s in signatures), dev)
     s2 = BT.G1Vec.parse((bytes(s)[49:98] for s in signatures), dev)
+    if mesh is not None:
+        return SH.sharded_ps_verify(mesh, s1, s2, g2e, X2e, Y2e, ms.std).cpu().numpy()
     X2, Y2, g2 = (BT.G2Vec.from_affine([e.pt], dev) for e in (X2e, Y2e, g2e))
     ok = BT.pair_prod_fixed((s1, X2), (s1 ** ms, Y2), (s2.inverse(), g2)).is_one()
     return ok.cpu().numpy()

@@ -196,7 +196,8 @@ def _check_port_imports_no_jax():
                 "schemes.ps", "schemes.bbs", "schemes.bbs_plus", "schemes.sss",
                 "hashing.keccak", "host.pairing", "schemes.bbs04", "schemes.ac_bbs",
                 "schemes.ac_rbbs", "schemes.ac_rps", "api.algebra", "schemes.mhac_bbs",
-                "hashing.sswu", "host.sswu", "iso11_data"):
+                "hashing.sswu", "host.sswu", "iso11_data", "parallel.sharding",
+                "utils.profiling"):
         assert "crypto12381_tpu_torch." + mod in names, mod
 
 
