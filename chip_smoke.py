@@ -15,19 +15,21 @@ and PS verification on a world of one, on one CUDA card.
 Phases, one line each; any failure raises and ends the run non-zero:
   device   card name and count, nvidia-smi's name and power limit
   build    nvcc seconds; registers, spills and shared memory per kernel
-  kernels  K1-K7 at the row counts their paths give them (K1: the
+  kernels  K1-K11 at the row counts their paths give them (K1: the
            pairing's products at 2B, its power chain x^(p-2) at 512, 1024
            (PS signing's affine), 2048 and 8192 rows, x^((p+1)/4)
            (G1Vec.parse's square root) at 512 (PS verification) and 8192,
            x^((p-3)/4) (the hash to G1's inverse and square root) at 2048,
            the Fr product and the Fr chain x^(r-2) at 8192;
-           K3: the pairing at B = 2048; K2 at each row count the pairing
-           launches it at, B to 15B, K4 at 2B and 3B; K5: one MSM bucket
-           step, 64 lanes x 33 windows; K6, K7: one GLV ladder step at
-           B = 8192; the chains and K2-K7 each also at a row count that
-           leaves its last block ragged), each held bit for bit against its
-           plain PyTorch version on the card (the chains, the Fr product and
-           K2-K4 with edge rows at both ends, K5-K7 with the identity,
+           K3 at 9B, K2 at B to 6B and 15B, K4 at 2B and 3B (the counts
+           the pairing gave them before K8-K11; since then no path launches
+           K3, and K4 only in the final exponentiation's inverse); K5: one
+           MSM bucket step, 64 lanes x 33 windows; K6, K7: one GLV ladder
+           step at B = 8192; K8-K11 at B = 2048; the chains and K2-K11 each
+           also at a row count that leaves its last block ragged), each held
+           bit for bit against its plain PyTorch version on the card (the
+           chains, the Fr product, K2-K4 and K8-K11 with edge rows at both
+           ends, K5-K7 with the identity,
            P = Q and P = -Q in their first and last rows, checked against
            host points); device time of both (CUDA graph replays timed
            with CUDA events) and the kernel's time when issued eagerly from
@@ -38,8 +40,8 @@ Phases, one line each; any failure raises and ends the run non-zero:
            then 2 timed): GT bytes against tests/vectors/reference.json,
            bilinearity, infinity masks, 4 rows recomputed on the CPU,
            pairings/s, launches of
-           each kernel in one batch (K2 and K4 also by row count), peak
-           device memory
+           each kernel in one batch (K2, K4 and K8-K11 also by row count),
+           torch ops of one batch, peak device memory
   g1       `G1Vec.generator((8192,)) ** ZpVec`: 8 rows against the host
            ladder, their bytes against the host codec, 4 rows recomputed on
            the CPU, scalar multiplications/s, launches per call
@@ -266,10 +268,17 @@ FR_SQR_MULADDS = 2 * (36 + 64) + 8
 K2_ROWS_PER_PAIR = (15, 1, 2, 3, 4, 5, 6)
 K4_ROWS_PER_PAIR = (3, 2)
 #: added to a headline row count, leaves the last block of K2 (32 rows per
-#: block), K3 (64), K4 (16), K5 (16), K6 (16) and K7 (32) ragged
+#: block), K3 (64), K4 (16), K5 (16), K6 (16), K7 (32), K8, K9, K11 (8) and
+#: K10 (16) ragged
 RAGGED = 7
 #: the largest row block a plain version is given at once in the rows phase
 PLAIN_ROWS = 32768
+#: kernels of a pairing path (G2 ladders included): K1 and its chain, K2,
+#: K4 (the final exponentiation's inverse), K8-K11
+PAIRING = ("fp_mont_mul", "fp_pow_fixed", "fp2_mul", "fp6_mul", "fp12_mul", "fp12_sqr",
+           "fp12_usqr", "fp12_sparse_mul")
+#: kernels of a verify path with G1 ladders (GLV: K6, K7) and pairings
+G1_PAIRING = PAIRING + ("g1_add", "g1_dbl")
 #: kernel -> launches per path and row count, read right after each path
 ROWS_BY_PATH: dict[str, dict[str, dict[int, int]]] = {}
 #: power chain -> launches per path and (row count, exponent), read alike
@@ -307,7 +316,8 @@ def _ptxas_report(log: str) -> dict:
     named = {}
     for mangled, v in out.items():
         for k in ("mont_mul_kernel", "pow_fixed_kernel", "fp2_mul_kernel", "fp2_sqr_kernel", "fp6_mul_kernel",
-                  "g1_madd_kernel", "g1_add_kernel", "g1_dbl_kernel"):
+                  "g1_madd_kernel", "g1_add_kernel", "g1_dbl_kernel", "fp12_mul_kernel",
+                  "fp12_sqr_kernel", "fp12_usqr_kernel", "fp12_sparse_mul_kernel"):
             if k in mangled:
                 limbs = re.search(r"ILi(\d+)E", mangled)
                 named[f"{k}<{limbs.group(1)}>" if limbs else k] = v
@@ -511,11 +521,11 @@ def phase_kernels(dev):
                       (lambda F, e: lambda x: F.pow_fixed_plain(x, e))(F, e),
                       {r: (field_rows(F, r, [0, 1, F.modulus - 1]),) for r in counts}, headline,
                       least.pop("ops"), None, (e, least)))
-    # K2: 15 rows per pairing row in the sparse multiply, B to 6B in the
-    # line coefficients and G2 steps; K3: 9 (cyclotomic square); K4: 3
-    # (Fp12 product) and 2 (Fp12 square), each also at a ragged count.  Each
-    # carries edge rows at both ends, all p-1 against all p-1 among them (the
-    # largest pre-sums).
+    # K2: B to 6B (the line coefficients, G2 steps and Frobenius maps) and
+    # 15B (the sparse product's rows before K11); K3: 9B (the cyclotomic
+    # square's before K10); K4: 3B and 2B (the Fp12 product's and square's
+    # before K8 and K9), each also at a ragged count.  Each carries edge rows
+    # at both ends, all p-1 against all p-1 among them (the largest pre-sums).
     tower_edge = ([0, 1, P - 1, P - 1], [P - 1, 1, 0, P - 1])
     for name, per_pair, shape, prod, n_in, kern, plain, line in (
         ("K2 fp2_mul", K2_ROWS_PER_PAIR, (2,), 3, 2, FK.fp2_mul, FK.fp2_mul_plain, 379),
@@ -532,6 +542,27 @@ def phase_kernels(dev):
                 for i in range(n_in))
         specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/tower.cu",
                       f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, counts[0],
+                      prod * MULADDS_PER_PRODUCT, None, None))
+    # K8-K11: the pairing's B rows (the Miller loop's square and line
+    # absorbs, the final exponentiation's products and cyclotomic squares)
+    # and a ragged count; edge rows at both ends as K2-K4's, all p-1 against
+    # all p-1 among them (the largest pre-sums).  The rows phase adds every
+    # other count the paths launch them at.
+    for name, shapes, prod, kern, plain, line in (
+        ("K8 fp12_mul", ((2, 3, 2), (2, 3, 2)), 54, FK.fp12_mul, FK.fp12_mul_plain, 394),
+        ("K9 fp12_sqr", ((2, 3, 2),), 36, FK.fp12_sqr, FK.fp12_sqr_plain, 410),
+        ("K10 fp12_usqr", ((2, 3, 2),), 18, FK.fp12_usqr, FK.fp12_usqr_plain, 424),
+        ("K11 fp12_sparse_mul", ((2, 3, 2), (3, 2)), 45, FK.fp12_sparse_mul,
+         FK.fp12_sparse_mul_plain, 464),
+    ):
+        ins = {}
+        for rows in (B, B + RAGGED):
+            ins[rows] = tuple(
+                torch.from_numpy(_edges(_rand_fp(rng, rows, int(np.prod(shape))), tower_edge[i],
+                                        last=True).reshape((rows,) + shape + (12,))).to(dev)
+                for i, shape in enumerate(shapes))
+        specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/fp12.cu",
+                      f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, B,
                       prod * MULADDS_PER_PRODUCT, None, None))
     # K5: one MSM bucket step (lanes x windows rows); K6, K7: one GLV ladder
     # step of the g1 phase's batch; each also at a ragged row count (blocks
@@ -800,8 +831,7 @@ def phase_pairing(dev, trace: bool):
     f = T.pair_batch(*args)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = _path_launches("pairing", ("fp_mont_mul", "fp_pow_fixed", "fp2_mul", "fp2_sqr",
-                                          "fp6_mul"))
+    launches = _path_launches("pairing", PAIRING)
 
     fc = f.cpu()
     if tuple(fc.shape) != (B, 2, 3, 2, 12):
@@ -832,7 +862,7 @@ def phase_pairing(dev, trace: bool):
     print(f"pairing: B={B} distinct={DISTINCT} checks={checks} first_s={first_s:.3f} "
           f"batch_s={[round(t, 4) for t in times]} pairings_per_s={rate:.1f} "
           f"launches_per_batch={launches} launch_rows="
-          f"{ {k: ROWS_BY_PATH['pairing'][k] for k in ('fp2_mul', 'fp6_mul')} } "
+          f"{ {k: ROWS_BY_PATH['pairing'][k] for k in PAIRING if k.startswith(('fp2', 'fp6', 'fp12'))} } "
           f"{ops} max_memory_allocated={peak} {traced}",
           flush=True)
 
@@ -1381,14 +1411,13 @@ def phase_algebra(dev, trace: bool):
     X, Y = T.ZpVec.from_ints(xs), T.ZpVec.from_ints(ys)
     g1, g2 = T.G1Vec.generator((ALG_B,)), T.G2Vec.generator((ALG_B,))
     P, Q = g1 ** X, g2 ** Y
-    pairing = ("fp_mont_mul", "fp_pow_fixed", "fp2_mul", "fp2_sqr", "fp6_mul")
-    lhs, pv_first_s, pv_launches = _counted("pair_vec", pairing, lambda: T.pair_vec(P, Q))
+    lhs, pv_first_s, pv_launches = _counted("pair_vec", PAIRING, lambda: T.pair_vec(P, Q))
     base1 = T.pair_vec(T.G1Vec.generator((1,)), T.G2Vec.generator((1,)))
     base = T.GTVec(base1.f.expand((ALG_B,) + tuple(base1.f.shape[1:])))
     xy = X * Y
-    rhs, pow_first_s, pow_launches = _counted("gt_pow", ("fp2_mul", "fp2_sqr", "fp6_mul"),
+    rhs, pow_first_s, pow_launches = _counted("gt_pow", ("fp2_mul", "fp12_mul", "fp12_usqr"),
                                               lambda: base ** xy)
-    prod, pp_first_s, pp_launches = _counted("pair_prod", pairing,
+    prod, pp_first_s, pp_launches = _counted("pair_prod", PAIRING,
                                              lambda: T.pair_prod((P, Q), (g1, g2)))
     blobs = lhs.serialize()
     checks = {
@@ -1548,8 +1577,7 @@ def phase_ps(dev, trace: bool):
     ok = T.verify_batch(keys.pk, msgs, sigs)
     torch.cuda.synchronize()
     verify_first_s = time.perf_counter() - t0
-    verify_launches = _path_launches("ps_verify", ("fp_mont_mul", "fp_pow_fixed", "fp2_mul",
-                                                   "fp2_sqr", "fp6_mul", "g1_add", "g1_dbl"))
+    verify_launches = _path_launches("ps_verify", G1_PAIRING)
     checks["verified"] = int(ok.sum())
     if ok.shape != (PS_B,) or checks["verified"] != PS_B:
         raise SystemExit(f"ps: {checks['verified']} of {PS_B} signatures verified")
@@ -1697,10 +1725,8 @@ def phase_bbs(dev, name: str, trace: bool):
     sign_times = _timed_calls(lambda: mod.sign_batch(pp, keys.sk, msgs, r), 3)
     sign_peak = torch.cuda.max_memory_allocated()
 
-    verify_kernels = ("fp_mont_mul", "fp_pow_fixed", "fp2_mul", "fp2_sqr", "fp6_mul",
-                      "g1_add", "g1_dbl")
     ok, verify_first_s, verify_launches = _counted(
-        f"{name}_verify", verify_kernels, lambda: mod.verify_batch(pp, keys.pk, msgs, sigs))
+        f"{name}_verify", G1_PAIRING, lambda: mod.verify_batch(pp, keys.pk, msgs, sigs))
     checks["verified"] = int(ok.sum())
     if ok.shape != (BBS_B,) or checks["verified"] != BBS_B:
         raise SystemExit(f"{name}: {checks['verified']} of {BBS_B} signatures verified")
@@ -1813,11 +1839,6 @@ def phase_sss(dev):
           f"launches_per_share_call={share_launches} "
           f"launches_per_reconstruct_call={rec_launches} launch_rows={launch_rows} "
           f"reconstruct_{ops}", flush=True)
-
-#: kernels of a verify path with G1 ladders (GLV: K6, K7) and pairings (K1-K4)
-G1_PAIRING = ("fp_mont_mul", "fp_pow_fixed", "fp2_mul", "fp2_sqr", "fp6_mul", "g1_add", "g1_dbl")
-#: kernels of a verify path with G2 ladders and pairings only
-PAIRING = ("fp_mont_mul", "fp_pow_fixed", "fp2_mul", "fp2_sqr", "fp6_mul")
 
 
 def _flow(name: str) -> dict:

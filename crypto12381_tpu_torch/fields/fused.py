@@ -1,24 +1,28 @@
-"""Tower products and G1 curve operations as single kernels (K2-K7), and
-the row-stacked Fp12 composites built on the tower kernels.
+"""Tower products, Fp12 operations and G1 curve operations as single
+kernels (K2-K11).
 
 Counterpart of the JAX package's `fields/fp32k.py`.  Each kernel computes
-one whole tower product or curve operation per instance, pre-sums and
-combines included, so no intermediate leaves the kernel:
+one whole tower product, Fp12 operation or curve operation per instance,
+pre-sums and combines included, so no intermediate leaves the kernel:
 
   K2 `fp2_mul` (csrc/tower.cu)  (..., 2, 12) x (..., 2, 12): 3 Fp products
   K3 `fp2_sqr`                  (..., 2, 12):                 2 Fp products
   K4 `fp6_mul`                  (..., 3, 2, 12) x same:      18 Fp products
+  K8 `fp12_mul` (csrc/fp12.cu)  (..., 2, 3, 2, 12) x same:   54 Fp products
+  K9 `fp12_sqr`                 (..., 2, 3, 2, 12):          36 Fp products
+  K10 `fp12_usqr`               (..., 2, 3, 2, 12):          18 Fp products
+  K11 `fp12_sparse_mul`         (..., 2, 3, 2, 12) x (..., 3, 2, 12): 45
   K5 `g1_madd` (csrc/g1.cu)     (..., 3, 12) + (..., 2, 12): 11 Fp products
   K6 `g1_add`                   (..., 3, 12) + (..., 3, 12): 12 Fp products
   K7 `g1_dbl`                   (..., 3, 12):                 8 Fp products
 
 Operands are canonical; the outputs are canonical.  A CUDA tensor
 launches the kernel, a CPU tensor runs the plain version beside it, which
-computes the same canonical value through `fp.mont_mul_plain`.
-
-The composites stack the instances of one Fp12-level operation along the
-leading axis into ONE kernel launch, as the TPU path does, and do the
-cross-instance combines with the plain modular ops of fields/fp.py.
+computes the same canonical value through `fp.mont_mul_plain` (the Fp12
+plain versions through the plain versions of K2-K4, so they launch no
+kernel on the card either).  The TPU ran K8-K11 as row-stacked composites
+of K2-K4 with the combines in plain XLA (`fp32k.py` `fp12_mul_c` and its
+siblings); the plain versions keep that algebra.
 """
 
 from __future__ import annotations
@@ -141,87 +145,125 @@ def fp6_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Row-stacked Fp12 composites.  Inputs (n, 2, 3, 2, 12); the halves of an
-# Fp12 x = a + b w are x[:, 0] and x[:, 1].
+# K8-K11: the Fp12 operations.  An Fp12 x = a + b w is (..., 2, 3, 2, 12)
+# with halves a = x[..., 0, :, :, :] and b = x[..., 1, :, :, :]; a sparse
+# Miller line c0 + c3 w^3 + c5 w^5 is (..., 3, 2, 12) [c0, c3, c5].  Each
+# plain version stacks its products into one plain K4, K3 or K2 call and
+# does the combines with the plain modular ops of fields/fp.py.
 # ---------------------------------------------------------------------------
 
 
-def _split(x: torch.Tensor, k: int):
-    return list(x.reshape((k, -1) + tuple(x.shape[1:])).unbind(0))
+def _halves(x: torch.Tensor):
+    return x[..., 0, :, :, :], x[..., 1, :, :, :]
 
 
-def fp12_mul_c(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Fp12 product as ONE fp6_mul launch of 3 stacked instances:
-    a*c, b*d, (a+b)*(c+d)."""
-    a, b = x[:, 0], x[:, 1]
-    c, d = y[:, 0], y[:, 1]
-    lhs = torch.cat([a, b, FP.add(a, b)], 0)
-    rhs = torch.cat([c, d, FP.add(c, d)], 0)
-    t0, t1, m = _split(fp6_mul(lhs, rhs), 3)
-    c0 = FP.add(t0, mul_by_v(t1))
-    c1 = FP.sub(m, FP.add(t0, t1))
-    return torch.stack([c0, c1], 1)
+def _fp12(c0: torch.Tensor, c1: torch.Tensor) -> torch.Tensor:
+    return torch.stack([c0, c1], -4)
 
 
-def fp12_sqr_c(x: torch.Tensor) -> torch.Tensor:
-    """Fp12 square as one 2-instance fp6_mul launch:
-    t = (a+b)(a + v b), m = a b; c0 = t - m - v m, c1 = 2m."""
-    a, b = x[:, 0], x[:, 1]
-    lhs = torch.cat([FP.add(a, b), a], 0)
-    rhs = torch.cat([FP.add(a, mul_by_v(b)), b], 0)
-    t, m = _split(fp6_mul(lhs, rhs), 2)
-    c0 = FP.sub(t, FP.add(m, mul_by_v(m)))
-    return torch.stack([c0, FP.add(m, m)], 1)
+def _launch12(fn: str, *ins: torch.Tensor) -> torch.Tensor:
+    """Launch `fn` of the Fp12 library over the rows of its operands, whose
+    batch dims are those of the first (an Fp12 value): a fresh result of
+    the first operand's shape."""
+    nb = ins[0].dim() - 4
+    flat = [_flat(x, x.dim() - nb) for x in ins]
+    out = torch.empty_like(flat[0])
+    if out.shape[0]:
+        _build.launch("fp12", fn, (*flat, out), out.shape[0])
+    return out.reshape(ins[0].shape)
 
 
-def fp12_usqr_c(x: torch.Tensor) -> torch.Tensor:
-    """Cyclotomic (Granger-Scott) square as one 9-instance fp2_sqr launch.
+def fp12_mul_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x y = t0 + v t1 + (m - t0 - t1) w with t0 = a c, t1 = b d and
+    m = (a + b)(c + d): the three Fp6 products in one plain K4 call."""
+    x, y = torch.broadcast_tensors(x, y)
+    a, b = _halves(x)
+    c, d = _halves(y)
+    t0, t1, m = fp6_mul_plain(torch.stack([a, b, FP.add(a, b)]),
+                              torch.stack([c, d, FP.add(c, d)])).unbind(0)
+    return _fp12(FP.add(t0, mul_by_v(t1)), FP.sub(m, FP.add(t0, t1)))
+
+
+def fp12_sqr_plain(x: torch.Tensor) -> torch.Tensor:
+    """x^2 with t = (a + b)(a + v b), m = a b: c0 = t - m - v m, c1 = 2 m;
+    the two Fp6 products in one plain K4 call."""
+    a, b = _halves(x)
+    t, m = fp6_mul_plain(torch.stack([FP.add(a, b), a]),
+                         torch.stack([FP.add(a, mul_by_v(b)), b])).unbind(0)
+    return _fp12(FP.sub(t, FP.add(m, mul_by_v(m))), FP.add(m, m))
+
+
+def fp12_usqr_plain(x: torch.Tensor) -> torch.Tensor:
+    """The cyclotomic (Granger-Scott) square: the 9 Fp2 squares of
+    X = (b1, a2, b2), Y = (a0, b0, a1) and X + Y in one plain K3 call.
     Valid only in the cyclotomic subgroup; as algebra it is the same
     polynomial for any input."""
-    a, b = x[:, 0], x[:, 1]
-    a0, a1, a2 = a[:, 0], a[:, 1], a[:, 2]
-    b0, b1, b2 = b[:, 0], b[:, 1], b[:, 2]
-    X = torch.stack([b1, a2, b2], 1)
-    Y = torch.stack([a0, b0, a1], 1)
-    ops = torch.stack([X, Y, FP.add(X, Y)], 0)          # (3, n, 3, 2, 12)
-    sq = fp2_sqr(ops)
-    x2, y2, s = sq[0], sq[1], sq[2]
-    cross = FP.sub(s, FP.add(x2, y2))                    # 2XY: t6, t7, t8'
-    t8 = mul_xi(cross[:, 2])
-    T = torch.stack([t8, cross[:, 0], cross[:, 1]], 1)   # (t8, t6, t7)
-    U = FP.add(mul_xi(x2), y2)                           # xi X^2 + Y^2
-    c0 = FP.sub(FP.mul_small(U, 3), FP.double(a))
-    c1 = FP.add(FP.mul_small(T, 3), FP.double(b))
-    return torch.stack([c0, c1], 1)
+    a, b = _halves(x)
+    a0, a1, a2 = a.unbind(-3)
+    b0, b1, b2 = b.unbind(-3)
+    X = torch.stack([b1, a2, b2], -3)
+    Y = torch.stack([a0, b0, a1], -3)
+    x2, y2, s = fp2_sqr_plain(torch.stack([X, Y, FP.add(X, Y)])).unbind(0)
+    cross = FP.sub(s, FP.add(x2, y2)).unbind(-3)          # 2 X Y: t6, t7, t8'
+    T = torch.stack([mul_xi(cross[2]), cross[0], cross[1]], -3)
+    U = FP.add(mul_xi(x2), y2)                            # xi X^2 + Y^2
+    return _fp12(FP.sub(FP.mul_small(U, 3), FP.double(a)),
+                 FP.add(FP.mul_small(T, 3), FP.double(b)))
 
 
-def sparse_mul_c(f: torch.Tensor, c0: torch.Tensor, c3: torch.Tensor,
-                 c5: torch.Tensor) -> torch.Tensor:
-    """f * (c0 + c3 w^3 + c5 w^5) as one 15-instance fp2_mul launch.
-    f: (n, 2, 3, 2, 12); c0, c3, c5: (n, 2, 12)."""
-    a, b = f[:, 0], f[:, 1]
-    a0, a1, a2 = a[:, 0], a[:, 1], a[:, 2]
-    b0, b1, b2 = b[:, 0], b[:, 1], b[:, 2]
+def fp12_sparse_mul_plain(f: torch.Tensor, line: torch.Tensor) -> torch.Tensor:
+    """f (c0 + c3 w^3 + c5 w^5): the 15 Fp2 products in one plain K2 call.
+    t0 = a c0; t1 = (xi (b1 c5 + b2 c3), b0 c3 + xi b2 c5, b0 c5 + b1 c3);
+    m = (a + b)(c0 + c3 v + c5 v^2) as an Fp6 Karatsuba product; the
+    result is t0 + v t1 + (m - t0 - t1) w."""
+    f, line = _expand_line(f, line)
+    a, b = _halves(f)
+    a0, a1, a2 = a.unbind(-3)
+    b0, b1, b2 = b.unbind(-3)
+    c0, c3, c5 = line.unbind(-3)
     s = FP.add(a, b)
-    s0, s1, s2 = s[:, 0], s[:, 1], s[:, 2]
+    s0, s1, s2 = s.unbind(-3)
     s01, s12, s02 = FP.add(torch.stack([s0, s1, s0]), torch.stack([s1, s2, s2])).unbind(0)
     c03, c35, c05 = FP.add(torch.stack([c0, c3, c0]), torch.stack([c3, c5, c5])).unbind(0)
     lhs = torch.stack([a0, a1, a2, b1, b2, b0, b2, b0, b1, s0, s1, s2, s01, s12, s02])
     rhs = torch.stack([c0, c0, c0, c5, c3, c3, c5, c5, c3, c0, c3, c5, c03, c35, c05])
-    (t00, t01, t02, u0, u1, u2, u3, u4, u5,
-     v0, v1, v2, v01, v12, v02) = fp2_mul(lhs, rhs).unbind(0)
-    t1_0 = mul_xi(FP.add(u0, u1))
-    t1_1 = FP.add(u2, mul_xi(u3))
-    t1_2 = FP.add(u4, u5)
-    m_0 = FP.add(v0, mul_xi(FP.sub(v12, FP.add(v1, v2))))
-    m_1 = FP.add(FP.sub(v01, FP.add(v0, v1)), mul_xi(v2))
-    m_2 = FP.add(FP.sub(v02, FP.add(v0, v2)), v1)
-    t0 = torch.stack([t00, t01, t02], 1)
-    t1 = torch.stack([t1_0, t1_1, t1_2], 1)
-    m = torch.stack([m_0, m_1, m_2], 1)
-    out0 = FP.add(t0, mul_by_v(t1))
-    out1 = FP.sub(m, FP.add(t0, t1))
-    return torch.stack([out0, out1], 1)
+    t00, t01, t02, u0, u1, u2, u3, u4, u5, *v = fp2_mul_plain(lhs, rhs).unbind(0)
+    t0 = torch.stack([t00, t01, t02], -3)
+    t1 = torch.stack([mul_xi(FP.add(u0, u1)), FP.add(u2, mul_xi(u3)), FP.add(u4, u5)], -3)
+    m = fp6_combine(torch.stack(v, -3))
+    return _fp12(FP.add(t0, mul_by_v(t1)), FP.sub(m, FP.add(t0, t1)))
+
+
+def _expand_line(f: torch.Tensor, line: torch.Tensor):
+    """Broadcast the batch dims of an Fp12 value and a sparse line."""
+    batch = torch.broadcast_shapes(f.shape[:-4], line.shape[:-3])
+    return f.expand(batch + f.shape[-4:]), line.expand(batch + line.shape[-3:])
+
+
+def fp12_mul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    x, y = torch.broadcast_tensors(x, y)
+    if x.device.type == "cpu":
+        return fp12_mul_plain(x, y)
+    return _launch12("fp12_mul", x, y)
+
+
+def fp12_sqr(x: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return fp12_sqr_plain(x)
+    return _launch12("fp12_sqr", x)
+
+
+def fp12_usqr(x: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return fp12_usqr_plain(x)
+    return _launch12("fp12_usqr", x)
+
+
+def fp12_sparse_mul(f: torch.Tensor, line: torch.Tensor) -> torch.Tensor:
+    f, line = _expand_line(f, line)
+    if f.device.type == "cpu":
+        return fp12_sparse_mul_plain(f, line)
+    return _launch12("fp12_sparse_mul", f, line)
 
 
 # ---------------------------------------------------------------------------

@@ -7,10 +7,10 @@ Counterpart of the JAX package's `fields/tower.py`, with the same tower
   Fp12 : (..., 2, 3, 2, 12)  coefficients of 1, w
 
 Every product of one tower operation is stacked into one kernel launch:
-Fp2 products into K2, squares into K3, Fp6 products into K4, and the Fp12
-operations go through the row-stacked composites of fields/fused.py.
-Products by an Fp element (line evaluation) and the inversion chain go
-through K1.
+Fp2 products into K2, squares into K3, Fp6 products into K4, and each
+Fp12 product, square and cyclotomic square is one launch of K8, K9 or K10
+(fields/fused.py).  Products by an Fp element (line evaluation) and the
+inversion chain go through K1.
 """
 
 from __future__ import annotations
@@ -137,26 +137,12 @@ def fp12_stack(a, b):
     return torch.stack([a, b], -4)
 
 
-def _dispatch12(fn, *xs):
-    """Run a composite over Fp12 tensors of any (broadcast) batch shape."""
-    xs = torch.broadcast_tensors(*xs)
-    batch = xs[0].shape[:-4]
-    flat = [x.reshape((-1, 2, 3, 2, LIMBS)) for x in xs]
-    return fn(*flat).reshape(batch + (2, 3, 2, LIMBS))
-
-
-def fp12_mul(x, y):
-    return _dispatch12(FK.fp12_mul_c, x, y)
-
-
-def fp12_sqr(x):
-    return _dispatch12(FK.fp12_sqr_c, x)
-
-
-def fp12_usqr(x):
-    """Cyclotomic square: valid ONLY in the cyclotomic subgroup (everything
-    past the easy part of the final exponentiation)."""
-    return _dispatch12(FK.fp12_usqr_c, x)
+#: K8, K9, K10 (fields/fused.py); any broadcast batch shape.  The cyclotomic
+#: square is valid ONLY in the cyclotomic subgroup (everything past the
+#: easy part of the final exponentiation).
+fp12_mul = FK.fp12_mul
+fp12_sqr = FK.fp12_sqr
+fp12_usqr = FK.fp12_usqr
 
 
 def fp12_conj(x):

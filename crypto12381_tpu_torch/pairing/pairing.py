@@ -93,11 +93,10 @@ def _line_add(A, Pxy, qx, qy):
 
 
 def _mul_sparse(f, line):
-    """f * line where line has w-coefficients only at positions 0, 3, 5:
-    15 Fp2 products in one K2 launch (fields/fused.sparse_mul_c)."""
-    out = FK.sparse_mul_c(f.reshape(-1, 2, 3, 2, LIMBS),
-                          *[c.reshape(-1, 2, LIMBS) for c in line])
-    return out.reshape(f.shape)
+    """f * line where line = (c0, c3, c5) has w-coefficients only at
+    positions 0, 3, 5: one K11 launch (fields/fused.fp12_sparse_mul) on
+    the line packed as (..., 3, 2, 12)."""
+    return FK.fp12_sparse_mul(f, torch.stack(torch.broadcast_tensors(*line), -3))
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +247,7 @@ def _absorb(f, coeffs, qx, qy, inf):
     """f times k precomputed lines, each evaluated at its pair's G1 points:
     coeffs (3, k, 2, 12); qx, qy (k, batch..., 12); inf (k, batch...) or
     None, a masked pair's line being 1.  The k evaluations are one K1
-    launch; the k sparse products one K2 launch each."""
+    launch; the k sparse products one K11 launch each."""
     k, nb = qx.shape[0], qx.dim() - 2
     aa, bb, cc = (c.reshape((k,) + (1,) * nb + (2, LIMBS)) for c in coeffs)
     t = FP.mont_mul(torch.stack([aa, cc]), torch.stack([qy, qx])[..., None, :])
@@ -326,7 +325,7 @@ def gt_pow(f, e_std):
     on the r-torsion; conjugation is the inverse in the cyclotomic
     subgroup): a 16-entry table of subset products of
     {f, conj(f^p), f^(p^2), conj(f^(p^3))}, then 64 steps of a cyclotomic
-    square (K3) and a product (K4) by the row's entry.  Each level of the
+    square (K10) and a product (K8) by the row's entry.  Each level of the
     table is one stacked Fp12 product over its entries."""
     batch = f.shape[:-4]
     bases = [f, TW.fp12_conj(TW.fp12_frob(f, 1)), TW.fp12_frob(f, 2),

@@ -4,7 +4,7 @@ The device functions and kernel bodies of crypto12381_tpu_torch/csrc/
 are plain C++ once the CUDA keywords are defined away, so a host C++
 compiler can build them into a small program. It runs the one-thread-
 per-row kernel bodies of K1 (the Fp and Fr products and the power chain
-x^e of one launch) once per thread. K2-K7 are block-cooperative:
+x^e of one launch) once per thread. K2-K11 are block-cooperative:
 their threads share operands and products through shared memory, with
 barriers between phases. The program runs each of their blocks phase by
 phase, every thread of a phase before the next, with the block's shared
@@ -19,10 +19,13 @@ ragged one) with edge rows at both ends and a guard after the output,
 the exponent passed as the C entry points pass it; for K2-K4 at row
 counts below, at and between multiples of a block's instances, with rows
 of all-0, all-1 and all-(p-1) operands at both ends of the launch (all
-p-1 gives the largest pre-sums); and for the curve kernels K5-K7 on curve points with
+p-1 gives the largest pre-sums); for the curve kernels K5-K7 on curve points with
 the identity, P = Q and P = -Q among them, also at row counts below, at
 and between multiples of a block, with those rows at both ends of the
-launch. The header's copies of p, r and their n0' must equal params.py's.
+launch; and for the Fp12 kernels K8-K11 (csrc/fp12.cu) likewise at row
+counts below, at and between multiples of their blocks, with rows of
+all-0, all-1 and all-(p-1) operands at both ends. The header's copies of
+p, r and their n0' must equal params.py's.
 The launch code (the `<<<...>>>` wrappers) and the card itself are
 exercised only by chip_smoke.py.
 """
@@ -40,15 +43,16 @@ from crypto12381_tpu.params import P
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "crypto12381_tpu_torch" / "csrc"
 R_INV = pow(1 << 384, -1, P)        # the port's Montgomery R = 2^384
 
-torch = FP = FK = C = G1C = None    # bound by _port
+torch = FP = FK = C = G1C = params = None    # bound by _port
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _port():
     """Import torch and the port when this file's test runs, not when the
     file is collected (every test worker collects every file)."""
-    global torch, FP, FK, C, G1C
+    global torch, FP, FK, C, G1C, params
     import torch
+    from crypto12381_tpu_torch import params
     from crypto12381_tpu_torch.curves import g1 as G1C
     from crypto12381_tpu_torch.fields import fp as FP
     from crypto12381_tpu_torch.fields import fused as FK
@@ -147,7 +151,36 @@ int chains(const char* in, const char* outp) {
   fclose(g);
   return 0;
 }
+// K8-K11 on n rows: Fp12 operands x and y (144 words a row) and the
+// sparse line (72 words a row); the four outputs one after another.
+int fp12s(const char* in, const char* outp) {
+  FILE* f = fopen(in, "rb");
+  int64_t n;
+  if (fread(&n, 8, 1, f) != 1) return 1;
+  std::vector<uint32_t> x(n * 144), y(n * 144), l(n * 72), o8, o9, o10, o11;
+  if (fread(x.data(), 4, n * 144, f) != (size_t)(n * 144)) return 1;
+  if (fread(y.data(), 4, n * 144, f) != (size_t)(n * 144)) return 1;
+  if (fread(l.data(), 4, n * 72, f) != (size_t)(n * 72)) return 1;
+  fclose(f);
+  if (!coop(o8, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
+        fp12_mul_phase(ph, sm, x.data(), y.data(), out, n, blk, t); },
+      n, K8_ROWS, K8_BLOCK, K8_PHASES, K8_SMEM, 144)) return 2;
+  if (!coop(o9, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
+        fp12_sqr_phase(ph, sm, x.data(), out, n, blk, t); },
+      n, K9_ROWS, K9_BLOCK, K9_PHASES, K9_SMEM, 144)) return 2;
+  if (!coop(o10, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
+        fp12_usqr_phase(ph, sm, x.data(), out, n, blk, t); },
+      n, K10_ROWS, K10_BLOCK, K10_PHASES, K10_SMEM, 144)) return 2;
+  if (!coop(o11, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
+        fp12_sparse_mul_phase(ph, sm, x.data(), l.data(), out, n, blk, t); },
+      n, K11_ROWS, K11_BLOCK, K11_PHASES, K11_SMEM, 144)) return 2;
+  FILE* g = fopen(outp, "wb");
+  for (auto* o : {&o8, &o9, &o10, &o11}) fwrite(o->data(), 4, n * 144, g);
+  fclose(g);
+  return 0;
+}
 int main(int argc, char** argv) {
+  if (argc == 4 && !strcmp(argv[1], "fp12")) return fp12s(argv[2], argv[3]);
   if (argc == 5 && !strcmp(argv[1], "chain"))
     return argv[2][0] == '8' ? chains<8>(argv[3], argv[4]) : chains<12>(argv[3], argv[4]);
   FILE* f = fopen(argv[1], "rb");
@@ -199,12 +232,14 @@ def harness(tmp_path_factory):
     (d / "inc").mkdir()
     (d / "inc" / "cuda_runtime.h").write_text(SHIM)
     bodies = []
-    for name in ("fp.cu", "tower.cu", "g1.cu"):
+    for name in ("fp.cu", "tower.cu", "g1.cu", "fp12.cu"):
         text = (CSRC / name).read_text()
         text = text[: text.index('extern "C"')]
-        bodies.append(text.replace('#include "fp381.cuh"', "").replace("using namespace fp381;", ""))
-    src = (f'#include "{CSRC / "fp381.cuh"}"\nusing namespace fp381;\n'
-           + "\n".join(bodies) + MAIN)
+        for line in ('#include "fp381.cuh"', '#include "tower.cuh"', "using namespace fp381;"):
+            text = text.replace(line, "")
+        bodies.append(text)
+    src = (f'#include "{CSRC / "fp381.cuh"}"\n#include "{CSRC / "tower.cuh"}"\n'
+           "using namespace fp381;\n" + "\n".join(bodies) + MAIN)
     (d / "harness.cpp").write_text(src)
     exe = d / "harness"
     subprocess.run([cxx, "-std=c++17", "-O1", f"-I{d / 'inc'}",
@@ -358,6 +393,52 @@ def test_cooperative_tower_kernels(harness, n):
     assert torch.equal(k2, FK.fp2_mul_plain(a2, b[: 2 * n].reshape(n, 2, 12)))
     assert torch.equal(k3, FK.fp2_sqr_plain(a2))
     assert torch.equal(k4, FK.fp6_mul_plain(a.reshape(n, 3, 2, 12), b.reshape(n, 3, 2, 12)))
+
+
+def run_fp12(harness, x, y, line):
+    """K8-K11 on the host over the rows of the Fp12 operands x, y and the
+    sparse line: (fp12_mul(x, y), fp12_sqr(x), fp12_usqr(x),
+    fp12_sparse_mul(x, line))."""
+    d, exe = harness
+    n = x.shape[0]
+    with open(d / "fp12.bin", "wb") as f:
+        f.write(np.int64(n).tobytes() + x.numpy().tobytes() + y.numpy().tobytes()
+                + line.numpy().tobytes())
+    subprocess.run([str(exe), "fp12", str(d / "fp12.bin"), str(d / "fp12.out")], check=True,
+                   timeout=300)
+    o = torch.from_numpy(np.fromfile(d / "fp12.out", np.int32))
+    return o.reshape(4, n, 2, 3, 2, 12).unbind(0)
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 13, 16, 17, 40])
+def test_cooperative_fp12_kernels(harness, n):
+    """K8, K9, K11 (8 instances per block) and K10 (16) at row counts
+    below, at, between and on multiples of a block: random canonical
+    operands, with rows of all p-1 against all p-1 (the largest pre-sums),
+    all 0 and all 1 against p-1 at the start of the launch, and p-1 against
+    1 and against p-1 at its end, so in its ragged last block (the line of
+    a row takes the second operand's value). Each output equals the plain
+    version bit for bit; K10 as a polynomial, on inputs outside the
+    cyclotomic subgroup."""
+    rng = np.random.default_rng(400 + n)
+
+    def rand(shape):
+        w = rng.integers(0, 1 << 32, size=shape + (12,), dtype=np.uint64)
+        w[..., 11] %= params.P_LIMBS[11]
+        return torch.from_numpy(w.astype(np.uint32).view(np.int32))
+
+    x, y, line = rand((n, 2, 3, 2)), rand((n, 2, 3, 2)), rand((n, 3, 2))
+    edges = {0: (P - 1, P - 1), 1: (0, P - 1), 2: (1, P - 1), n - 2: (P - 1, 1),
+             n - 1: (P - 1, P - 1)}
+    for r, (u, v) in edges.items():
+        if 0 <= r < n:
+            x[r] = torch.from_numpy(FP.limbs_of(u))
+            y[r] = line[r] = torch.from_numpy(FP.limbs_of(v))
+    k8, k9, k10, k11 = run_fp12(harness, x, y, line)
+    assert torch.equal(k8, FK.fp12_mul_plain(x, y))
+    assert torch.equal(k9, FK.fp12_sqr_plain(x))
+    assert torch.equal(k10, FK.fp12_usqr_plain(x))
+    assert torch.equal(k11, FK.fp12_sparse_mul_plain(x, line))
 
 
 @pytest.mark.parametrize("n", [1, 15, 16, 33, 47, 96])

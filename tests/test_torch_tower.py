@@ -2,8 +2,9 @@
 fields/fp32k.py.
 
 K2, K3 and K4's plain versions are held against `fp32k._fused_xla`, the
-TPU programs run as XLA on the CPU; the row-stacked composites and the
-Fp12 operations against `fp32k.*_c` and `tower.py` at B = 2.  Inputs are
+TPU programs run as XLA on the CPU; K8-K11's plain versions against the
+JAX row-stacked composites `fp32k.*_c`, and the Fp12 operations against
+`tower.py`, at B = 2.  Inputs are
 made once from a numpy seed and fed to both through convert.py; results
 are compared exactly as canonical values.
 """
@@ -103,15 +104,17 @@ def f12(seed):
 
 
 def _check_composites_match_fp32k_and_pairing():
+    """The Fp12 kernels' plain versions (K8-K11) against the JAX
+    row-stacked composites and the JAX pairing's sparse product."""
     x, y = f12(5), f12(6)
-    for name in ("fp12_mul_c", "fp12_sqr_c", "fp12_usqr_c"):
-        args = (x, y) if name == "fp12_mul_c" else (x,)
-        got = getattr(FK, name)(*args)
-        want = getattr(FKJ, name)(*[comps(t) for t in args])
+    for name in ("fp12_mul", "fp12_sqr", "fp12_usqr"):
+        args = (x, y) if name == "fp12_mul" else (x,)
+        got = getattr(FK, name + "_plain")(*args)
+        want = getattr(FKJ, name + "_c")(*[comps(t) for t in args])
         assert torch.equal(got, from_comps(want, got.shape)), name
     f = f12(7)
     line = [rand_fp(8 + i, (B, 2)) for i in range(3)]
-    got = FK.sparse_mul_c(f, *line)
+    got = FK.fp12_sparse_mul_plain(f, torch.stack(line, -3))
     want = FKJ.sparse_mul_c(comps(f), [c for t in line for c in comps(t)])
     assert torch.equal(got, from_comps(want, got.shape))
     want2 = PAIRJ._mul_sparse(J(f), tuple(J(t) for t in line))

@@ -75,7 +75,8 @@ SLICE_PATHS = ("keccak", "bbs04_verify", "bbs04_open", "ac_bbs_verify", "ac_rbbs
 #: int32 words of one row of each kernel's first operand
 ROW_WORDS = {"fp_mont_mul": 12, "fr_mont_mul": 8, "fp_pow_fixed": 12, "fr_pow_fixed": 8,
              "fp2_mul": 24, "fp2_sqr": 24, "fp6_mul": 72, "g1_add": 36, "g1_dbl": 36,
-             "g1_madd": 36}
+             "g1_madd": 36, "fp12_mul": 144, "fp12_sqr": 144, "fp12_usqr": 144,
+             "fp12_sparse_mul": 144}
 
 
 def _as_launch(name, fn):
@@ -89,6 +90,8 @@ def _as_launch(name, fn):
             ts = [t for t in a if isinstance(t, torch.Tensor)]
             if name.startswith("g1_"):            # (..., 3, 12) out of any operand rows
                 shape = torch.broadcast_shapes(*[t.shape[:-2] for t in ts]) + (3, 12)
+            elif name.startswith("fp12_"):        # the Fp12 operand's shape (its wrapper
+                shape = ts[0].shape               # broadcasts; a sparse line is narrower)
             else:
                 shape = torch.broadcast_shapes(*[t.shape for t in ts])
             rows = math.prod(shape) // ROW_WORDS[name]
@@ -250,10 +253,9 @@ def _count(name, call, b, rows=False):
 def main() -> None:
     b = int(sys.argv[1]) if len(sys.argv) > 1 else 4
     only = set(sys.argv[2].split(",")) if len(sys.argv) > 2 else None
-    for name, kernel in (("fp2_mul", "fp2_mul_plain"), ("fp2_sqr", "fp2_sqr_plain"),
-                         ("fp6_mul", "fp6_mul_plain"), ("g1_add", "g1_add_plain"),
-                         ("g1_dbl", "g1_dbl_plain"), ("g1_madd", "g1_madd_plain")):
-        setattr(FK, kernel, _as_launch(name, getattr(FK, kernel)))
+    for name in ("fp2_mul", "fp2_sqr", "fp6_mul", "g1_add", "g1_dbl", "g1_madd", "fp12_mul",
+                 "fp12_sqr", "fp12_usqr", "fp12_sparse_mul"):
+        setattr(FK, name + "_plain", _as_launch(name, getattr(FK, name + "_plain")))
     for F in (FP.FP_CTX, FP.FR_CTX):
         F.mont_mul_plain = _as_launch(f"{F.name}_mont_mul", F.mont_mul_plain)
         F.pow_fixed_plain = _as_launch(f"{F.name}_pow_fixed", F.pow_fixed_plain)
