@@ -15,7 +15,7 @@ and PS verification on a world of one, on one CUDA card.
 Phases, one line each; any failure raises and ends the run non-zero:
   device   card name and count, nvidia-smi's name and power limit
   build    nvcc seconds; registers, spills and shared memory per kernel
-  kernels  K1-K11 at the row counts their paths give them (K1: the
+  kernels  K1-K14 at the row counts their paths give them (K1: the
            pairing's products at 2B, its power chain x^(p-2) at 512, 1024
            (PS signing's affine), 2048 and 8192 rows, x^((p+1)/4)
            (G1Vec.parse's square root) at 512 (PS verification) and 8192,
@@ -25,22 +25,26 @@ Phases, one line each; any failure raises and ends the run non-zero:
            the pairing gave them before K8-K11; since then no path launches
            K3, and K4 only in the final exponentiation's inverse); K5: one
            MSM bucket step, 64 lanes x 33 windows; K6, K7: one GLV ladder
-           step at B = 8192; K8-K11 at B = 2048; the chains and K2-K11 each
-           also at a row count that leaves its last block ragged), each held
-           bit for bit against its plain PyTorch version on the card (the
-           chains, the Fr product, K2-K4 and K8-K11 with edge rows at both
-           ends, K5-K7 with the identity,
-           P = Q and P = -Q in their first and last rows, checked against
-           host points); device time of both (CUDA graph replays timed
+           step at B = 8192; K8-K11 at B = 2048; K12-K14, the G2 group
+           law, at B = 2048 (the pairing's Miller loop, the G2 ladder); the
+           chains and K2-K14 each also at a row count that leaves its last
+           block ragged), each held bit for bit against its plain PyTorch
+           version on the card (the chains, the Fr product, K2-K4 and
+           K8-K11 with edge rows at both ends, K5-K7 and K12-K14 with the
+           identity, P = Q and P = -Q in their first and last rows, checked
+           against host points); device time of both (CUDA graph replays timed
            with CUDA events) and the kernel's time when issued eagerly from
            Python.  A chain's bound counts the least work of x^e: the
            sliding-window chain with the fewest multiply-adds, squarings at
-           their own count
+           their own count; a doubling's bound (K7, K14) prices its Y^2 and
+           Z^2 as squarings (an Fp2 one as the complex squaring's two
+           products)
   pairing  `pair_batch` at B = 2048 (32 distinct pairs, tiled; counted,
            then 2 timed): GT bytes against tests/vectors/reference.json,
            bilinearity, infinity masks, 4 rows recomputed on the CPU,
            pairings/s, launches of
-           each kernel in one batch (K2, K4 and K8-K11 also by row count),
+           each kernel in one batch (K2, K4, K8-K11, K13 and K14 also by
+           row count),
            torch ops of one batch, peak device memory
   g1       `G1Vec.generator((8192,)) ** ZpVec`: 8 rows against the host
            ladder, their bytes against the host codec, 4 rows recomputed on
@@ -113,12 +117,14 @@ Phases, one line each; any failure raises and ends the run non-zero:
            equals the host reconstruction; shares/s, reconstructs/s,
            first-call seconds, peak device memory, launches per call and
            by row count, the torch ops of one reconstruct call
-  g2       `G2Vec.generator((2048,)) ** ZpVec` (the GS ladder): 8 rows
-           against the host ladder and codec, 4 against the CPU path;
+  g2       `G2Vec.generator((2048,)) ** ZpVec` (the GS ladder, K12 and
+           K14): 8 rows against the host ladder and codec, 4 against the
+           CPU path;
            `in_subgroup` true on all 2048, false on a point of E'(Fp2)
            outside G2, `clear_cofactor` of it in G2; scalar
            multiplications/s; `G2Vec.msm` at n = 4096 (the ladder's points,
-           affine, tiled, two zero scalars) against the host oracle
+           affine, tiled, two zero scalars; K12-K14) against the host
+           oracle
   algebra  at B = 2048, P = g1^x, Q = g2^y: `pair_vec(P, Q)` equals
            `pair_vec(g1, g2) ** (x y)` on every row and is not one,
            `pair_prod((P, Q), (g1, g2))` equals the product of the two
@@ -263,22 +269,30 @@ FR_MULADDS_PER_PRODUCT = 2 * (64 + 64) + 8
 #: twice, plus the low products for m
 SQR_MULADDS = 2 * (78 + 144) + 12
 FR_SQR_MULADDS = 2 * (36 + 64) + 8
+#: the least multiply-adds of one Fp2 squaring: the complex squaring's two
+#: products (a0 + a1)(a0 - a1) and a0 a1, fewer than three squarings or
+#: two squarings and a product
+FP2_SQR_MULADDS = min(2 * MULADDS_PER_PRODUCT, 3 * SQR_MULADDS,
+                      2 * SQR_MULADDS + MULADDS_PER_PRODUCT)
 #: K2 and K4's row counts per pairing row: every count the pairing launches
 #: them at; the first is the headline
 K2_ROWS_PER_PAIR = (15, 1, 2, 3, 4, 5, 6)
 K4_ROWS_PER_PAIR = (3, 2)
 #: added to a headline row count, leaves the last block of K2 (32 rows per
-#: block), K3 (64), K4 (16), K5 (16), K6 (16), K7 (32), K8, K9, K11 (8) and
-#: K10 (16) ragged
+#: block), K3 (64), K4 (16), K5 (16), K6 (16), K7 (32), K8, K9, K11 (8),
+#: K10 (16) and K12-K14 (8) ragged
 RAGGED = 7
 #: the largest row block a plain version is given at once in the rows phase
 PLAIN_ROWS = 32768
-#: kernels of a pairing path (G2 ladders included): K1 and its chain, K2,
-#: K4 (the final exponentiation's inverse), K8-K11
+#: kernels of a pairing path: K1 and its chain, K2, K4 (the final
+#: exponentiation's inverse), K8-K11, and the Miller loop's G2 steps K13
+#: (mixed add) and K14 (doubling)
 PAIRING = ("fp_mont_mul", "fp_pow_fixed", "fp2_mul", "fp6_mul", "fp12_mul", "fp12_sqr",
-           "fp12_usqr", "fp12_sparse_mul")
+           "fp12_usqr", "fp12_sparse_mul", "g2_madd", "g2_dbl")
 #: kernels of a verify path with G1 ladders (GLV: K6, K7) and pairings
 G1_PAIRING = PAIRING + ("g1_add", "g1_dbl")
+#: kernels of a pairing path with G2 ladders (GS: K12 and K14)
+G2_PAIRING = PAIRING + ("g2_add",)
 #: kernel -> launches per path and row count, read right after each path
 ROWS_BY_PATH: dict[str, dict[str, dict[int, int]]] = {}
 #: power chain -> launches per path and (row count, exponent), read alike
@@ -317,7 +331,8 @@ def _ptxas_report(log: str) -> dict:
     for mangled, v in out.items():
         for k in ("mont_mul_kernel", "pow_fixed_kernel", "fp2_mul_kernel", "fp2_sqr_kernel", "fp6_mul_kernel",
                   "g1_madd_kernel", "g1_add_kernel", "g1_dbl_kernel", "fp12_mul_kernel",
-                  "fp12_sqr_kernel", "fp12_usqr_kernel", "fp12_sparse_mul_kernel"):
+                  "fp12_sqr_kernel", "fp12_usqr_kernel", "fp12_sparse_mul_kernel",
+                  "g2_madd_kernel", "g2_add_kernel", "g2_dbl_kernel"):
             if k in mangled:
                 limbs = re.search(r"ILi(\d+)E", mangled)
                 named[f"{k}<{limbs.group(1)}>" if limbs else k] = v
@@ -419,6 +434,46 @@ def _curve_inputs(rng, kind: str, rows: int, dev):
     return (p, fill(3, [proj(B, z2), proj(A, z2), proj(A, z2), O])), [B, A2, None, None] * 2
 
 
+def _curve2_inputs(rng, kind: str, rows: int, dev):
+    """_curve_inputs on G2: operands of K13 (projective, affine), K12
+    (projective, projective) or K14 (projective), random canonical
+    coordinates with G2 points in the first 4 rows and again in the last 4,
+    and the host's affine results for those 8 rows: O + B, A + A (the two A
+    with different Z), (-A) + A, O + O (K13: O + B in the fourth row); K14
+    doubles the first operand."""
+    import torch
+    from crypto12381_tpu_torch.fields import fp as FP
+    from crypto12381_tpu_torch.host import curve as C
+    from crypto12381_tpu_torch.host import field as HF
+    from crypto12381_tpu_torch.params import P
+
+    k_a, k_b = (int(k) for k in rng.integers(2, 1 << 62, size=2))
+    A, B = C.g2_mul(C.G2_GEN, k_a), C.g2_mul(C.G2_GEN, k_b)
+    z1, z2 = (tuple(int.from_bytes(rng.bytes(48), "big") % P for _ in range(2))
+              for _ in range(2))
+    A2 = C.g2_add(A, A)
+
+    def proj(pt, z):
+        return [list(HF.fp2_mul(pt[0], z)), list(HF.fp2_mul(pt[1], z)), list(z)]
+
+    def aff(pt):
+        return [list(pt[0]), list(pt[1])]
+
+    O = [[0, 0], [1, 0], [0, 0]]
+
+    def fill(k, pts):
+        x = torch.from_numpy(_rand_fp(rng, rows, 2 * k)).reshape(rows, k, 2, 12)
+        x[:4] = x[-4:] = FP.from_int(pts)
+        return x.to(dev)
+
+    p = fill(3, [O, proj(A, z1), proj(C.g2_neg(A), z1), O])
+    if kind == "g2_dbl":
+        return (p,), [None, A2, C.g2_neg(A2), None] * 2
+    if kind == "g2_madd":
+        return (p, fill(2, [aff(B), aff(A), aff(A), aff(B)])), [B, A2, None, B] * 2
+    return (p, fill(3, [proj(B, z2), proj(A, z2), proj(A, z2), O])), [B, A2, None, None] * 2
+
+
 def _eager_ms(fn, reps: int = 20) -> float:
     """CUDA-event time per call of fn issued from Python, after a warm-up:
     at these sizes the rate at which the host issues the launches."""
@@ -465,6 +520,7 @@ def phase_kernels(dev):
     import torch
     from crypto12381_tpu_torch import _build
     from crypto12381_tpu_torch.curves import g1 as G1C
+    from crypto12381_tpu_torch.curves import g2 as G2C
     from crypto12381_tpu_torch.fields import fp as FP
     from crypto12381_tpu_torch.fields import fused as FK
     from crypto12381_tpu_torch.params import P
@@ -566,18 +622,36 @@ def phase_kernels(dev):
                       prod * MULADDS_PER_PRODUCT, None, None))
     # K5: one MSM bucket step (lanes x windows rows); K6, K7: one GLV ladder
     # step of the g1 phase's batch; each also at a ragged row count (blocks
-    # of 16, 16 and 32 instances), with the edge rows in the last block
-    for name, rows, prod, kern, plain, line in (
-        ("K5 g1_madd", MSM_LANES * MSM_WINDOWS, 11, FK.g1_madd, FK.g1_madd_plain, 660),
-        ("K6 g1_add", G1_B, 12, FK.g1_add, FK.g1_add_plain, 771),
-        ("K7 g1_dbl", G1_B, 8, FK.g1_dbl, FK.g1_dbl_plain, 734),
+    # of 16, 16 and 32 instances), with the edge rows in the last block.
+    # The bound's work: the Fp products, a doubling's Y^2 and Z^2 (K7, K14)
+    # at a squaring's least count
+    M = MULADDS_PER_PRODUCT
+    for name, rows, muladds, kern, plain, line in (
+        ("K5 g1_madd", MSM_LANES * MSM_WINDOWS, 11 * M, FK.g1_madd, FK.g1_madd_plain, 660),
+        ("K6 g1_add", G1_B, 12 * M, FK.g1_add, FK.g1_add_plain, 771),
+        ("K7 g1_dbl", G1_B, 6 * M + 2 * SQR_MULADDS, FK.g1_dbl, FK.g1_dbl_plain, 734),
     ):
         ins, edge_want = {}, {}
         for r in (rows, rows + RAGGED):
             ins[r], edge_want[r] = _curve_inputs(rng, name.split()[1], r, dev)
         specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/g1.cu",
                       f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, rows,
-                      prod * MULADDS_PER_PRODUCT, edge_want, None))
+                      muladds, edge_want, None))
+    # K12-K14: the G2 group law at the pairing's and the G2 ladder's 2,048
+    # rows and at a ragged count (blocks of 8), the edge rows in the first
+    # and the last block; the rows phase adds the other counts (the Miller
+    # loops' fixed points at 1 row, the MSM's bucket steps and trees)
+    for name, muladds, kern, plain, line in (
+        ("K12 g2_add", 36 * M, FK.g2_add, FK.g2_add_plain, 781),
+        ("K13 g2_madd", 33 * M, FK.g2_madd, FK.g2_madd_plain, 667),
+        ("K14 g2_dbl", 18 * M + 2 * FP2_SQR_MULADDS, FK.g2_dbl, FK.g2_dbl_plain, 741),
+    ):
+        ins, edge_want = {}, {}
+        for r in (B, B + RAGGED):
+            ins[r], edge_want[r] = _curve2_inputs(rng, name.split()[1], r, dev)
+        specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/g2.cu",
+                      f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, B,
+                      muladds, edge_want, None))
     results = []
     for (name, fn_c, src, repl, kern, plain, ins_by_rows, rows, ops_per_row, edge_want,
          chain) in specs:
@@ -593,7 +667,9 @@ def phase_kernels(dev):
             err = max(err, float((got.to(torch.int64) - want.to(torch.int64)).abs().max().item()))
             if edge_want is not None:
                 ends = torch.cat([got[:4], got[-4:]])
-                edge_got = list(G1C.to_affine_ints(tuple(ends.unbind(-2))))
+                g2 = fn_c.startswith("g2_")
+                edge_got = list((G2C if g2 else G1C).to_affine_ints(
+                    tuple(ends.unbind(-3 if g2 else -2))))
                 if edge_got != edge_want[r]:
                     raise SystemExit(f"kernels: {name} gives wrong points at the identity, "
                                      f"P = Q or P = -Q at {r} rows: {edge_got} != "
@@ -862,7 +938,7 @@ def phase_pairing(dev, trace: bool):
     print(f"pairing: B={B} distinct={DISTINCT} checks={checks} first_s={first_s:.3f} "
           f"batch_s={[round(t, 4) for t in times]} pairings_per_s={rate:.1f} "
           f"launches_per_batch={launches} launch_rows="
-          f"{ {k: ROWS_BY_PATH['pairing'][k] for k in PAIRING if k.startswith(('fp2', 'fp6', 'fp12'))} } "
+          f"{ {k: ROWS_BY_PATH['pairing'][k] for k in PAIRING if k.startswith(('fp2', 'fp6', 'fp12', 'g2'))} } "
           f"{ops} max_memory_allocated={peak} {traced}",
           flush=True)
 
@@ -1301,7 +1377,7 @@ def phase_sharding(dev):
         msgs = [b"shard-%04d" % i for i in range(SHARD_PS_B)]
         sigs = ps.sign_batch(keys.sk, msgs, r)
         msgs[3] = b"tampered"
-        got, want = both("ps_verify", PAIRING,
+        got, want = both("ps_verify", G2_PAIRING,
                          lambda: ps.verify_batch(keys.pk, msgs, sigs, mesh=mesh),
                          lambda: ps.verify_batch(keys.pk, msgs, sigs))
         checks["ps_verify"] = (got.tolist() == want.tolist()
@@ -1333,8 +1409,9 @@ def _off_g2_point():
 
 
 def phase_g2(dev, trace: bool):
-    """G2Vec ** ZpVec at G2_B (the GS ladder, K2), its checks, membership
-    and cofactor clearing, and G2Vec.msm at G2_MSM_N (K1, K2)."""
+    """G2Vec ** ZpVec at G2_B (the GS ladder: K12, K14 and K2 for psi), its
+    checks, membership and cofactor clearing, and G2Vec.msm at G2_MSM_N
+    (K1, K2, K12-K14)."""
     import torch
 
     import crypto12381_tpu_torch as T
@@ -1348,7 +1425,7 @@ def phase_g2(dev, trace: bool):
     a = [int.from_bytes(rng.bytes(32), "big") % R for _ in range(G2_B)]
     gen = T.G2Vec.generator((G2_B,))
     e = T.ZpVec.from_ints(a)
-    pts, first_s, launches = _counted("g2", ("fp2_mul",), lambda: gen ** e)
+    pts, first_s, launches = _counted("g2", ("fp2_mul", "g2_add", "g2_dbl"), lambda: gen ** e)
 
     rows = [0, 1, 2, 3, G2_B // 8, G2_B // 2 + 1, G2_B - 2, G2_B - 1]
     sub = T.G2Vec(tuple(c[rows] for c in pts.p))
@@ -1378,7 +1455,8 @@ def phase_g2(dev, trace: bool):
     se = T.ZpVec.from_ints(s)
     expect = C.g2_mul(C.G2_GEN, sum(a[i % G2_B] * s[i] for i in range(G2_MSM_N)) % R)
     res, msm_first_s, msm_launches = _counted(
-        "g2_msm", ("fp_mont_mul", "fp_pow_fixed", "fp2_mul"), lambda: mv.msm(se))
+        "g2_msm", ("fp_mont_mul", "fp_pow_fixed", "fp2_mul", "g2_madd", "g2_add", "g2_dbl"),
+        lambda: mv.msm(se))
     checks["msm_oracle"] = G2C.to_affine_ints(res.p) == expect
     if not all(checks.values()):
         raise SystemExit(f"g2: checks failed: {checks}")
@@ -1396,9 +1474,10 @@ def phase_g2(dev, trace: bool):
 
 
 def phase_algebra(dev, trace: bool):
-    """pair_vec, GT powers and pair_prod at ALG_B (K1-K4): bilinearity
-    e(g1^x, g2^y) = e(g1, g2)^(x y) on every row, pair_prod as the product
-    of pair_vecs, GTVec.parse of serialize, and e(G1, G2)'s bytes."""
+    """pair_vec, GT powers and pair_prod at ALG_B (K1, K2, K4, K8-K11, K13,
+    K14): bilinearity e(g1^x, g2^y) = e(g1, g2)^(x y) on every row,
+    pair_prod as the product of pair_vecs, GTVec.parse of serialize, and
+    e(G1, G2)'s bytes."""
     import torch
 
     import crypto12381_tpu_torch as T
@@ -2094,7 +2173,7 @@ def phase_ac_rps(dev, trace: bool):
             "t2": (l2 == r2) is vec["verify_t2"] is False}
     _fail("ac_rps flow", flow)
     rows = [pres[1 + i % RPS_PRES] for i in range(SCHEME_B)]
-    ok, _, rep = _timed_path("ac_rps_verify", PAIRING,
+    ok, _, rep = _timed_path("ac_rps_verify", G2_PAIRING,
                              lambda: mod.verify_batch(m, attr, I, rows, keys.pk),
                              [lambda: mod.verify_batch(m, attr, I, rows, keys.pk)] * 2)
     host_rows = [0, 1, SCHEME_B // 2 + 1, SCHEME_B - 1]
@@ -2153,7 +2232,7 @@ def phase_ps_n(dev, trace: bool):
             for i in range(SCHEME_B)]
     sigs = [ps.sign_n(keys, mm, r) for mm in msgs]
     host_sign_s = time.perf_counter() - t0
-    ok, _, rep = _timed_path("ps_n_verify", PAIRING, lambda: ps.verify_n_batch(keys, msgs, sigs),
+    ok, _, rep = _timed_path("ps_n_verify", G2_PAIRING, lambda: ps.verify_n_batch(keys, msgs, sigs),
                              [lambda: ps.verify_n_batch(keys, msgs, sigs)] * 2)
     host_rows = [0, 1, SCHEME_B // 2 + 1, SCHEME_B - 1]
     checks = {"verified": int(ok.sum()) == SCHEME_B and ok.shape == (SCHEME_B,),

@@ -38,8 +38,9 @@ _LIBS_SPEC = {
     "tower": ("tower.cu", {"fp2_mul": 3, "fp2_sqr": 2, "fp6_mul": 3}),
     "curve": ("g1.cu", {"g1_madd": 3, "g1_add": 3, "g1_dbl": 2}),
     "fp12": ("fp12.cu", {"fp12_mul": 3, "fp12_sqr": 2, "fp12_usqr": 2, "fp12_sparse_mul": 3}),
+    "curve2": ("g2.cu", {"g2_madd": 3, "g2_add": 3, "g2_dbl": 2}),
 }
-_HEADERS = ("fp381.cuh", "tower.cuh")
+_HEADERS = ("fp381.cuh", "tower.cuh", "curve.cuh")
 #: C functions that take a public exponent after their tensors
 EXPONENT_FNS = frozenset({"fp_pow_fixed", "fr_pow_fixed"})
 NVCC_FLAGS = (

@@ -11,8 +11,8 @@ lower to the batched curve code:
     from 2^17 on
   * ``G1Vec * G1Vec``     -> the group operation (K6)
   * ``G2Vec ** ZpVec``, ``G2Vec * G2Vec``, ``G2Vec.msm(ZpVec)`` -> the GS
-    ladder, the group operation and the scan Pippenger over Fp2 (K2, and
-    K1 for the affine conversions)
+    ladder, the group operation and the scan Pippenger over Fp2 (K12-K14;
+    K2 for psi, K1 and K2 for the affine conversions)
   * ``GTVec ** ZpVec``, ``GTVec * GTVec``, ``/``, ``inverse``,
     ``product`` -> the GS power ladder with cyclotomic squarings and the
     Fp12 products (K2-K4, K1)

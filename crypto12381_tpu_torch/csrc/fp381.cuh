@@ -173,7 +173,7 @@ __device__ __forceinline__ void store(uint32_t* g, const uint32_t* r) {
 
 // ------------------------------------------------------ shared memory
 //
-// The block-cooperative kernels (K2-K7) stage their operands and
+// The block-cooperative kernels (K2-K14) stage their operands and
 // products in shared memory and move them with 16-byte accesses.
 
 // 16 bytes from s to d, both 16-byte aligned.
@@ -252,13 +252,13 @@ __device__ __forceinline__ int block_rows(int64_t n, int64_t blk, int per) {
 }
 
 // Operand k of a Karatsuba product of the pair x = (x0, x1) of Fp values
-// in shared memory: x0 (k = 0), x1 (k = 1) or the raw sum x0 + x1 (k = 2,
-// < 2p).
-__device__ __forceinline__ void kara_operand(uint32_t* r, const uint32_t* x, int k) {
-  ld_fp(r, x + (k == 1 ? NL : 0));
+// in shared memory, x1 at x0 + d: x0 (k = 0), x1 (k = 1) or the raw sum
+// x0 + x1 (k = 2, < 2p).
+__device__ __forceinline__ void kara_operand(uint32_t* r, const uint32_t* x, int k, int d = NL) {
+  ld_fp(r, x + (k == 1 ? d : 0));
   if (k == 2) {
     uint32_t s[NL];
-    ld_fp(s, x + NL);
+    ld_fp(s, x + d);
     add_raw<NL>(r, r, s);
   }
 }

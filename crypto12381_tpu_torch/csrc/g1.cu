@@ -44,7 +44,9 @@
 //              (t0m, y3a, e8, 12 Z^2) and runs one of the four products;
 //   combine 2  X3, Y3 and Z3, one per thread;
 //   store      the outputs from shared memory, 16 bytes per thread.
-// K5 and K6 share one copy of their last three phases (rcb_round2_phase).
+// K5 and K6 share one copy of their last three phases (rcb_round2_phase);
+// mul12 and the round-2 operand tables rcb_lhs/rcb_rhs are in curve.cuh,
+// shared with the G2 kernels (g2.cu).
 // Each phase is a function of (phase, block, thread), and the __global__
 // body only calls the phases with a barrier after each.  A projective row
 // in shared memory is 144 bytes and an affine row is padded from 96 to 112,
@@ -62,20 +64,12 @@
 // [x, y].  Inputs are canonical; outputs are canonical.
 
 #include "fp381.cuh"
+#include "curve.cuh"
 
 using namespace fp381;
 
 constexpr int PT = 3 * NL;   // limbs of one projective point
 constexpr int AF = 2 * NL;   // limbs of one affine point
-
-// r = 12 x mod p: 2x, 4x, 8x, then 8x + 4x.
-__device__ __forceinline__ void mul12(uint32_t* r, const uint32_t* x) {
-  uint32_t x4[NL];
-  add_mod<NL>(x4, x, x);
-  add_mod<NL>(x4, x4, x4);
-  add_mod<NL>(r, x4, x4);
-  add_mod<NL>(r, r, x4);
-}
 
 // --------------------------------------------- K5 and K6: round 2
 //
@@ -103,11 +97,6 @@ __device__ __forceinline__ void rcb_wz(uint32_t* r, const uint32_t* t, int d,
     if (j == 4) add_mod<NL>(r, r, bz); else sub_mod<NL>(r, r, bz);
   }
 }
-
-// The operands (indices j of U) of round-2 product k:
-// t1m t3, bt5 t4, t1m z3a, bt5 w, z3a t4, w t3.
-__device__ __forceinline__ int rcb_lhs(int k) { return (0x342525 >> 4 * k) & 15; }
-__device__ __forceinline__ int rcb_rhs(int k) { return (0x013410 >> 4 * k) & 15; }
 
 // Phases 3-5 of K5 and K6 (product 2, combine 2, store) for thread `tid` of
 // a block of `rows` live instances whose round-2 operands lie at sm + U;

@@ -1,0 +1,472 @@
+// K12, K13, K14: the G2 curve operations.
+//
+// Replace the TPU programs of crypto12381_tpu/fields/fp32k.py that its
+// program table marks [xla-only]: `prog_g2_add` (K12, `_rcb_add_generic`
+// over Fp2), `prog_g2_madd` (K13, `_rcb_madd_generic`) and `prog_g2_dbl`
+// (K14, `_rcb_dbl_generic`).  Mosaic's compile of such a program did not
+// finish, so the TPU ran the composites `g2_add_c`, `g2_madd_c` and
+// `g2_dbl_c`: three rounds of stacked K2 launches (3b' as a Montgomery
+// product) with the combines in plain XLA.  Here each is one kernel.
+//
+// They are K5-K7's formulas (g1.cu) over Fp2, for the twist
+// y^2 = x^3 + 4(1 + i): 3b' = 12(1 + i) = 12 xi is folded into an operand
+// as 12 xi(x) = (12 (x0 - x1), 12 (x0 + x1)), mul12 of a sub_mod and of an
+// add_mod, so each is two rounds of Fp2 products, 6 + 6 (K12), 5 + 6 (K13)
+// and 4 + 4 (K14), each Fp2 product a Karatsuba of 3 Fp products: 36, 33
+// and 24 Fp products per point.  Complete: no branch, the identity
+// (0 : 1 : 0), P = Q and P = -Q included (the twist's group has no point
+// of order two).  K13's affine operand must not be the identity.
+//
+// Bound on the card: per point K12 reads 576 bytes and writes 288 for 36
+// products, K13 480 and 288 for 33, K14 288 and 288 for 24, at 588 32-bit
+// multiply-adds per product: about 25 multiply-adds per byte, above the
+// card's 5 (1.673e13 per s over 3.35e12 bytes per s), so the integer
+// multiply rate bounds all three.  One thread per point would run 24 to
+// 36 products as one dependent chain, and the paths launch these kernels
+// at 1 to 4,096 rows: far from filling the card.
+//
+// Each kernel therefore gives each Fp product of a round its own thread, as
+// K5-K11 do: 18 threads per K12 or K13 instance (K13's round 1 runs 15
+// products and leaves 3 threads idle), 12 per K14 instance.  A block takes
+// G2_ROWS consecutive instances and runs in phases with a barrier between
+// each two:
+//   stage      the block's span of each operand into shared memory, 16
+//              bytes per thread, consecutive threads on consecutive bytes;
+//   product 1  Fp product q = 3 j + k of instance i, piece k of the Fp2
+//              Karatsuba of round-1 product j, its two operands read from
+//              the shared rows with the reduced pre-sums (X1 + Y1 and the
+//              like) formed in the thread: a point (X, Y, Z) has the
+//              layout of an Fp6 value, and K12's round 1 is the six pair
+//              products of an Fp6 Karatsuba (tower.cuh `fp6_operand`);
+//   combine 1  the round-2 operands, one Fp coefficient per item (12 per
+//              instance), each item reading the round-1 Fp2 products it
+//              needs from their three Fp products (tower.cuh `fp2_coeff`);
+//   product 2  the round-2 Fp products, operands from combine 1
+//              (fp381.cuh `kara_operand`; K12 and K13 through curve.cuh's
+//              rcb_lhs/rcb_rhs, the same six products as K5 and K6);
+//   combine 2  X3, Y3 and Z3, one Fp coefficient per item (6 per instance);
+//   store      the outputs from shared memory, 16 bytes per thread.
+// K12 and K13 share one copy of their last three phases (rcb2_round2_phase).
+// Each phase is a function of (phase, block, thread), and the __global__
+// body only calls the phases with a barrier after each.  A projective row
+// in shared memory is padded from 288 to 304 bytes and an affine row from
+// 192 to 208, so that the 16-byte accesses of 8 consecutive threads fall in
+// 32 distinct banks; products and coefficients take 48-byte slots,
+// consecutive instances in consecutive slots.  No phase writes over data of
+// another: shared memory per block is 25,728 bytes (K12), 23,808 (K13)
+// and 18,688 (K14).  The last block of a ragged launch masks its copies,
+// products and combines; every thread reaches every barrier.
+//
+// Bound proof of the product operands: each is a canonical coordinate,
+// reduced pre-sum (add_mod) or combine, or the Fp2 Karatsuba's raw sum of
+// two canonical values, below 2p, which mont_mul takes (fp381.cuh).  The
+// combines are add_mod, sub_mod and mul12 of canonical values, so every
+// output is canonical.  The TPU programs' 2^16 p offsets and `tighten`
+// calls kept signed float digits in range and have no counterpart here.
+//
+// Layouts (int32 limbs, row-major, contiguous, 16-byte aligned): a
+// projective point is (n, 3, 2, 12) [X, Y, Z], an affine point
+// (n, 2, 2, 12) [x, y], each coordinate (re, im).  Inputs are canonical;
+// outputs are canonical.
+
+#include "fp381.cuh"
+#include "tower.cuh"
+#include "curve.cuh"
+
+using namespace fp381;
+
+constexpr int G2P = F6;             // limbs of a projective G2 point
+constexpr int G2A = 2 * F2;         // limbs of an affine G2 point
+constexpr int SA2 = G2A + 4;        // a padded shared affine row (208 bytes: 13 16-byte units)
+constexpr int G2_ROWS = 8;          // instances per block, all three kernels
+constexpr int G2_D = G2_ROWS * NL;  // from one product's (or item's) slot to the next's
+
+// ---------------------------------------------- pieces of K12-K14
+
+// Component f of 12 xi x for x = (s0, s1) in registers: 12 (s0 - s1)
+// (f = 0) or 12 (s0 + s1) (f = 1).
+__device__ __forceinline__ void xi12(uint32_t* r, const uint32_t* s0, const uint32_t* s1, int f) {
+  if (f == 0) sub_mod<NL>(r, s0, s1); else add_mod<NL>(r, s0, s1);
+  mul12(r, r);
+}
+
+// Component g of Fp2 product m of a round, from its Fp products
+// 3 m + k at t + (3 m + k) d.
+__device__ __forceinline__ void fp2_of(uint32_t* r, const uint32_t* t, int m, int g) {
+  fp2_coeff(r, t + 3 * m * G2_D, G2_D, g);
+}
+
+// Component g of Fp2 products m - a - b of a round.
+__device__ __forceinline__ void fp2_diff(uint32_t* r, const uint32_t* t, int m, int a, int b,
+                                         int g) {
+  uint32_t s[NL];
+  fp2_of(r, t, m, g);
+  fp2_of(s, t, a, g);
+  sub_mod<NL>(r, r, s);
+  fp2_of(s, t, b, g);
+  sub_mod<NL>(r, r, s);
+}
+
+// Round-2 operand j >= 3 of K12 and K13, component f: w = 3 t0 (j = 3),
+// z3a = t1 + 12 xi z (j = 4) or t1m = t1 - 12 xi z (j = 5), for the
+// round-1 Fp2 products t0, t1 (products 0 and 1 at t) and z = (z0, z1).
+__device__ __forceinline__ void rcb2_wz(uint32_t* r, const uint32_t* t, const uint32_t* z0,
+                                        const uint32_t* z1, int j, int f) {
+  if (j == 3) {
+    uint32_t t0[NL];
+    fp2_of(t0, t, 0, f);
+    add_mod<NL>(r, t0, t0);
+    add_mod<NL>(r, r, t0);
+  } else {
+    uint32_t bz[NL];
+    xi12(bz, z0, z1, f);
+    fp2_of(r, t, 1, f);
+    if (j == 4) add_mod<NL>(r, r, bz); else sub_mod<NL>(r, r, bz);
+  }
+}
+
+// Phases 3-5 of K12 and K13 (product 2, combine 2, store) for thread `tid`
+// of a block of `rows` live instances.  Component f of round-2 operand j of
+// instance i lies at sm + U + ((2 j + f) ROWS + i) NL; the round-2 Fp
+// products go to sm + V, the outputs to the padded rows at sm + O; out
+// points at the block's first output row.
+template <int U, int V, int O>
+__device__ __forceinline__ void rcb2_round2_phase(int ph, uint32_t* sm, uint32_t* out, int rows,
+                                                  int tid) {
+  const int q = tid / G2_ROWS, i = tid % G2_ROWS;
+  if (ph == 3) {                            // piece q % 3 of Fp2 product q / 3
+    if (i < rows) {
+      const int k = q / 3;
+      const uint32_t* u = sm + U + i * NL;
+      uint32_t x[NL], y[NL];
+      kara_operand(x, u + 2 * rcb_lhs(k) * G2_D, q % 3, G2_D);
+      kara_operand(y, u + 2 * rcb_rhs(k) * G2_D, q % 3, G2_D);
+      mont_mul<NL>(x, x, y);
+      st_fp(sm + V + tid * NL, x);
+    }
+  } else if (ph == 4) {                     // component q % 2 of coordinate q / 2
+    if (q < 6 && i < rows) {                // X3 = V0 - V1, Y3 = V2 + V3, Z3 = V4 + V5
+      const int c = q / 2, f = q % 2;
+      const uint32_t* v = sm + V + i * NL;
+      uint32_t r[NL], s[NL];
+      fp2_of(r, v, 2 * c, f);
+      fp2_of(s, v, 2 * c + 1, f);
+      if (c == 0) sub_mod<NL>(r, r, s); else add_mod<NL>(r, r, s);
+      st_fp(sm + O + i * S6 + c * F2 + f * NL, r);
+    }
+  } else {                                  // store
+    stage_out<G2P, S6, 18 * G2_ROWS>(out, sm + O, rows, tid);
+  }
+}
+
+// ------------------------------------------------------------ K12
+//
+// P1 + P2, 6 + 6 Fp2 products:
+//   round 1   t0 = X1 X2, t1 = Y1 Y2, t2 = Z1 Z2, m3 = (X1 + Y1)(X2 + Y2),
+//             m4 = (Y1 + Z1)(Y2 + Z2), m5 = (X1 + Z1)(X2 + Z2);
+//   combine 1 t3 = m3 - t0 - t1, t4 = m4 - t1 - t2, bt5 = 12 xi (m5 - t0 - t2),
+//             w = 3 t0, z3a = t1 + 12 xi t2, t1m = t1 - 12 xi t2;
+//   round 2   the six products of curve.cuh's rcb_lhs/rcb_rhs.
+
+constexpr int K12_BLOCK = 18 * G2_ROWS;      // one thread per Fp product of a round
+// shared layout (limbs): P rows, Q rows, the round-1 products T[q][i], the
+// round-2 operands U[o][i], the round-2 products V[q][i], the outputs
+constexpr int K12_P = 0, K12_Q = G2_ROWS * S6, K12_T = 2 * G2_ROWS * S6;
+constexpr int K12_U = K12_T + 18 * G2_D, K12_V = K12_U + 12 * G2_D;
+constexpr int K12_O = K12_V + 18 * G2_D;
+constexpr int K12_SMEM = K12_O + G2_ROWS * S6;
+constexpr int K12_PHASES = 6;
+
+// Round-2 operand j of K12 (t3, t4, bt5, w, z3a, t1m), component f, from
+// the round-1 Fp2 products t0, t1, t2, m3, m4, m5 (Fp products at t).
+__device__ __forceinline__ void k12_operand(uint32_t* r, const uint32_t* t, int j, int f) {
+  if (j < 2) {                     // t3 = m3 - t0 - t1, t4 = m4 - t1 - t2
+    fp2_diff(r, t, 3 + j, j, j + 1, f);
+  } else if (j == 2) {             // bt5 = 12 xi (m5 - t0 - t2)
+    uint32_t s0[NL], s1[NL];
+    fp2_diff(s0, t, 5, 0, 2, 0);
+    fp2_diff(s1, t, 5, 0, 2, 1);
+    xi12(r, s0, s1, f);
+  } else {                         // w, z3a, t1m with z = t2
+    uint32_t z0[NL], z1[NL];
+    fp2_of(z0, t, 2, 0);
+    fp2_of(z1, t, 2, 1);
+    rcb2_wz(r, t, z0, z1, j, f);
+  }
+}
+
+// Phase `ph` of K12 for thread `tid` of block `blk`.
+__device__ __forceinline__ void g2_add_phase(int ph, uint32_t* sm, const uint32_t* p,
+                                             const uint32_t* q, uint32_t* out, int64_t n,
+                                             int64_t blk, int tid) {
+  const int64_t row0 = blk * G2_ROWS;
+  const int rows = block_rows(n, blk, G2_ROWS);
+  const int e = tid / G2_ROWS, i = tid % G2_ROWS;
+  if (ph == 0) {                            // stage
+    stage_in<G2P, S6, K12_BLOCK>(sm + K12_P, p + row0 * G2P, rows, tid);
+    stage_in<G2P, S6, K12_BLOCK>(sm + K12_Q, q + row0 * G2P, rows, tid);
+  } else if (ph == 1) {                     // round-1 Fp product e of instance i
+    if (i < rows) {
+      uint32_t x[NL], y[NL];
+      fp6_operand(x, sm + K12_P + i * S6, e);
+      fp6_operand(y, sm + K12_Q + i * S6, e);
+      mont_mul<NL>(x, x, y);
+      st_fp(sm + K12_T + tid * NL, x);
+    }
+  } else if (ph == 2) {                     // component e % 2 of round-2 operand e / 2
+    if (e < 12 && i < rows) {
+      uint32_t r[NL];
+      k12_operand(r, sm + K12_T + i * NL, e / 2, e % 2);
+      st_fp(sm + K12_U + tid * NL, r);
+    }
+  } else {                                  // round 2, combine 2, store
+    rcb2_round2_phase<K12_U, K12_V, K12_O>(ph, sm, out + row0 * G2P, rows, tid);
+  }
+}
+
+__global__ void __launch_bounds__(K12_BLOCK)
+g2_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
+              uint32_t* __restrict__ out, int64_t n) {
+  __shared__ __align__(16) uint32_t sm[K12_SMEM];
+#pragma unroll
+  for (int ph = 0; ph < K12_PHASES; ++ph) {
+    g2_add_phase(ph, sm, p, q, out, n, blockIdx.x, threadIdx.x);
+    if (ph + 1 < K12_PHASES) __syncthreads();
+  }
+}
+
+// ------------------------------------------------------------ K13
+//
+// P + (x2 : y2 : 1), 5 + 6 Fp2 products:
+//   round 1   t0 = X1 x2, t1 = Y1 y2, m3 = (X1 + Y1)(x2 + y2), zx = Z1 x2,
+//             zy = Z1 y2;
+//   combine 1 t3 = m3 - t0 - t1, t4 = zy + Y1, bt5 = 12 xi (zx + X1),
+//             w = 3 t0, z3a = t1 + 12 xi Z1, t1m = t1 - 12 xi Z1;
+//   round 2   as K12's.
+
+constexpr int K13_BLOCK = 18 * G2_ROWS;      // one thread per Fp product of round 2
+// shared layout (limbs): P rows, Q rows, the round-1 products T[q][i], the
+// round-2 operands U[o][i], the round-2 products V[q][i], the outputs
+constexpr int K13_P = 0, K13_Q = G2_ROWS * S6, K13_T = K13_Q + G2_ROWS * SA2;
+constexpr int K13_U = K13_T + 15 * G2_D, K13_V = K13_U + 12 * G2_D;
+constexpr int K13_O = K13_V + 18 * G2_D;
+constexpr int K13_SMEM = K13_O + G2_ROWS * S6;
+constexpr int K13_PHASES = 6;
+
+// Round-1 Fp2 product j of K13 multiplies the Fp6-layout pair
+// (k13_lhs(j) of P, k13_rhs(j) of Q): pairs 0, 1, 2 are a row's
+// coordinates, pair 3 the sum of the first two (fp6_presum).
+// X1 x2, Y1 y2, (X1 + Y1)(x2 + y2), Z1 x2, Z1 y2.
+__device__ __forceinline__ int k13_lhs(int j) { return (0x22310 >> 4 * j) & 15; }
+__device__ __forceinline__ int k13_rhs(int j) { return (0x10310 >> 4 * j) & 15; }
+
+// Round-2 operand j of K13 (t3, t4, bt5, w, z3a, t1m), component f, from
+// the shared row p = (X1, Y1, Z1) and the round-1 Fp2 products t0, t1, m3,
+// zx, zy (Fp products at t).
+__device__ __forceinline__ void k13_operand(uint32_t* r, const uint32_t* p, const uint32_t* t,
+                                            int j, int f) {
+  if (j == 0) {                    // t3 = m3 - t0 - t1
+    fp2_diff(r, t, 2, 0, 1, f);
+  } else if (j == 1) {             // t4 = zy + Y1
+    fp2_of(r, t, 4, f);
+    add_sh(r, p + F2 + f * NL);
+  } else if (j == 2) {             // bt5 = 12 xi (zx + X1)
+    uint32_t s0[NL], s1[NL];
+    fp2_of(s0, t, 3, 0);
+    add_sh(s0, p);
+    fp2_of(s1, t, 3, 1);
+    add_sh(s1, p + NL);
+    xi12(r, s0, s1, f);
+  } else {                         // w, z3a, t1m with z = Z1
+    uint32_t z0[NL], z1[NL];
+    ld_fp(z0, p + 2 * F2);
+    ld_fp(z1, p + 2 * F2 + NL);
+    rcb2_wz(r, t, z0, z1, j, f);
+  }
+}
+
+// Phase `ph` of K13 for thread `tid` of block `blk`.
+__device__ __forceinline__ void g2_madd_phase(int ph, uint32_t* sm, const uint32_t* p,
+                                              const uint32_t* q, uint32_t* out, int64_t n,
+                                              int64_t blk, int tid) {
+  const int64_t row0 = blk * G2_ROWS;
+  const int rows = block_rows(n, blk, G2_ROWS);
+  const int e = tid / G2_ROWS, i = tid % G2_ROWS;
+  if (ph == 0) {                            // stage
+    stage_in<G2P, S6, K13_BLOCK>(sm + K13_P, p + row0 * G2P, rows, tid);
+    stage_in<G2A, SA2, K13_BLOCK>(sm + K13_Q, q + row0 * G2A, rows, tid);
+  } else if (ph == 1) {                     // round-1 Fp product e of instance i
+    if (e < 15 && i < rows) {
+      const int j = e / 3, k = e % 3;
+      uint32_t x[NL], y[NL];
+      fp6_operand(x, sm + K13_P + i * S6, 3 * k13_lhs(j) + k);
+      fp6_operand(y, sm + K13_Q + i * SA2, 3 * k13_rhs(j) + k);
+      mont_mul<NL>(x, x, y);
+      st_fp(sm + K13_T + tid * NL, x);
+    }
+  } else if (ph == 2) {                     // component e % 2 of round-2 operand e / 2
+    if (e < 12 && i < rows) {
+      uint32_t r[NL];
+      k13_operand(r, sm + K13_P + i * S6, sm + K13_T + i * NL, e / 2, e % 2);
+      st_fp(sm + K13_U + tid * NL, r);
+    }
+  } else {                                  // round 2, combine 2, store
+    rcb2_round2_phase<K13_U, K13_V, K13_O>(ph, sm, out + row0 * G2P, rows, tid);
+  }
+}
+
+__global__ void __launch_bounds__(K13_BLOCK)
+g2_madd_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
+               uint32_t* __restrict__ out, int64_t n) {
+  __shared__ __align__(16) uint32_t sm[K13_SMEM];
+#pragma unroll
+  for (int ph = 0; ph < K13_PHASES; ++ph) {
+    g2_madd_phase(ph, sm, p, q, out, n, blockIdx.x, threadIdx.x);
+    if (ph + 1 < K13_PHASES) __syncthreads();
+  }
+}
+
+// ------------------------------------------------------------ K14
+//
+// 2P, 4 + 4 Fp2 products:
+//   round 1   t0 = Y^2, t1 = Y Z, xy = X Y, z2 = Z^2;
+//   combine 1 t2 = 12 xi z2, t0m = t0 - 3 t2, y3a = t0 + t2, e8 = 8 t0;
+//   round 2   t0m xy, t0m y3a, e8 t2, e8 t1;
+//   combine 2 X3 = 2 t0m xy, Y3 = t0m y3a + e8 t2, Z3 = e8 t1.
+
+constexpr int K14_BLOCK = 12 * G2_ROWS;      // one thread per Fp product of a round
+// shared layout (limbs): P rows, the round-1 products T[q][i], the round-2
+// operands U[o][i] (t0m, xy, y3a, e8, t2, t1), the round-2 products V[q][i],
+// the outputs
+constexpr int K14_P = 0, K14_T = G2_ROWS * S6, K14_U = K14_T + 12 * G2_D;
+constexpr int K14_V = K14_U + 12 * G2_D, K14_O = K14_V + 12 * G2_D;
+constexpr int K14_SMEM = K14_O + G2_ROWS * S6;
+constexpr int K14_PHASES = 6;
+
+// Round-1 Fp2 product j of K14 squares or multiplies the coordinates
+// k14_lhs(j) and k14_rhs(j) of P: Y Y, Y Z, X Y, Z Z.
+__device__ __forceinline__ int k14_lhs(int j) { return (0x2011 >> 4 * j) & 15; }
+__device__ __forceinline__ int k14_rhs(int j) { return (0x2121 >> 4 * j) & 15; }
+// Round-2 Fp2 product k multiplies the operands k14_u2(k) and
+// k14_v2(k): t0m xy, t0m y3a, e8 t2, e8 t1.
+__device__ __forceinline__ int k14_u2(int k) { return k < 2 ? 0 : 3; }
+__device__ __forceinline__ int k14_v2(int k) { return (0x5421 >> 4 * k) & 15; }
+
+// Round-2 operand j of K14 (t0m, xy, y3a, e8, t2, t1), component f, from
+// the round-1 Fp2 products t0, t1, xy, z2 (Fp products at t).
+__device__ __forceinline__ void k14_operand(uint32_t* r, const uint32_t* t, int j, int f) {
+  if (j == 1 || j == 5) {          // xy, t1
+    fp2_of(r, t, j == 1 ? 2 : 1, f);
+    return;
+  }
+  uint32_t t0[NL];
+  fp2_of(t0, t, 0, f);
+  if (j == 3) {                    // e8 = 8 t0
+    add_mod<NL>(r, t0, t0);
+    add_mod<NL>(r, r, r);
+    add_mod<NL>(r, r, r);
+    return;
+  }
+  uint32_t z0[NL], z1[NL];
+  fp2_of(z0, t, 3, 0);
+  fp2_of(z1, t, 3, 1);
+  xi12(r, z0, z1, f);              // t2 = 12 xi z2
+  if (j == 0) {                    // t0m = t0 - 3 t2
+    add_mod<NL>(z0, r, r);
+    add_mod<NL>(z0, z0, r);
+    sub_mod<NL>(r, t0, z0);
+  } else if (j == 2) {             // y3a = t0 + t2
+    add_mod<NL>(r, t0, r);
+  }
+}
+
+// Phase `ph` of K14 for thread `tid` of block `blk`.
+__device__ __forceinline__ void g2_dbl_phase(int ph, uint32_t* sm, const uint32_t* p,
+                                             uint32_t* out, int64_t n, int64_t blk, int tid) {
+  const int64_t row0 = blk * G2_ROWS;
+  const int rows = block_rows(n, blk, G2_ROWS);
+  const int e = tid / G2_ROWS, i = tid % G2_ROWS;
+  if (ph == 0) {                            // stage
+    stage_in<G2P, S6, K14_BLOCK>(sm + K14_P, p + row0 * G2P, rows, tid);
+  } else if (ph == 1) {                     // round-1 Fp product e of instance i
+    if (i < rows) {
+      const int j = e / 3, k = e % 3;
+      const uint32_t* pi = sm + K14_P + i * S6;
+      uint32_t x[NL], y[NL];
+      fp6_operand(x, pi, 3 * k14_lhs(j) + k);
+      fp6_operand(y, pi, 3 * k14_rhs(j) + k);
+      mont_mul<NL>(x, x, y);
+      st_fp(sm + K14_T + tid * NL, x);
+    }
+  } else if (ph == 2) {                     // component e % 2 of round-2 operand e / 2
+    if (i < rows) {
+      uint32_t r[NL];
+      k14_operand(r, sm + K14_T + i * NL, e / 2, e % 2);
+      st_fp(sm + K14_U + tid * NL, r);
+    }
+  } else if (ph == 3) {                     // piece e % 3 of round-2 Fp2 product e / 3
+    if (i < rows) {
+      const int k = e / 3;
+      const uint32_t* u = sm + K14_U + i * NL;
+      uint32_t x[NL], y[NL];
+      kara_operand(x, u + 2 * k14_u2(k) * G2_D, e % 3, G2_D);
+      kara_operand(y, u + 2 * k14_v2(k) * G2_D, e % 3, G2_D);
+      mont_mul<NL>(x, x, y);
+      st_fp(sm + K14_V + tid * NL, x);
+    }
+  } else if (ph == 4) {                     // component e % 2 of coordinate e / 2
+    if (e < 6 && i < rows) {
+      const int c = e / 2, f = e % 2;
+      const uint32_t* v = sm + K14_V + i * NL;
+      uint32_t r[NL];
+      fp2_of(r, v, c == 2 ? 3 : c, f);
+      if (c == 0) {                         // X3 = 2 (t0m xy)
+        add_mod<NL>(r, r, r);
+      } else if (c == 1) {                  // Y3 = t0m y3a + e8 t2
+        uint32_t s[NL];
+        fp2_of(s, v, 2, f);
+        add_mod<NL>(r, r, s);
+      }
+      st_fp(sm + K14_O + i * S6 + c * F2 + f * NL, r);
+    }
+  } else {                                  // store
+    stage_out<G2P, S6, K14_BLOCK>(out + row0 * G2P, sm + K14_O, rows, tid);
+  }
+}
+
+__global__ void __launch_bounds__(K14_BLOCK)
+g2_dbl_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ out, int64_t n) {
+  __shared__ __align__(16) uint32_t sm[K14_SMEM];
+#pragma unroll
+  for (int ph = 0; ph < K14_PHASES; ++ph) {
+    g2_dbl_phase(ph, sm, p, out, n, blockIdx.x, threadIdx.x);
+    if (ph + 1 < K14_PHASES) __syncthreads();
+  }
+}
+
+extern "C" int g2_add(const void* p, const void* q, void* out, int64_t n, void* stream) {
+  if (n > 0) {
+    g2_add_kernel<<<(unsigned)((n + G2_ROWS - 1) / G2_ROWS), K12_BLOCK, 0,
+                    (cudaStream_t)stream>>>(
+        (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int g2_madd(const void* p, const void* q, void* out, int64_t n, void* stream) {
+  if (n > 0) {
+    g2_madd_kernel<<<(unsigned)((n + G2_ROWS - 1) / G2_ROWS), K13_BLOCK, 0,
+                     (cudaStream_t)stream>>>(
+        (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int g2_dbl(const void* p, void* out, int64_t n, void* stream) {
+  if (n > 0) {
+    g2_dbl_kernel<<<(unsigned)((n + G2_ROWS - 1) / G2_ROWS), K14_BLOCK, 0,
+                    (cudaStream_t)stream>>>(
+        (const uint32_t*)p, (uint32_t*)out, n);
+  }
+  return (int)cudaGetLastError();
+}

@@ -9,7 +9,7 @@ of one doubling (K7) and one complete addition (K6) each, with a row-wise
 table gather per step.  On G2 the scalar splits into four 64-bit digits,
 e = sum_i d_i |x|^i, and the digits walk one ladder of 64 steps over the
 16 subset sums of {Q, -psi(Q), psi^2(Q), -psi^3(Q)}: each step a doubling
-and a complete add over Fp2, three K2 launches each.  The complete
+(K14) and a complete add (K12) over Fp2.  The complete
 formulas need no branch for identity entries or equal points.
 
   phi(x, y) = (beta x, y) = [lambda] P on G1, lambda = x^2 - 1, beta a cube

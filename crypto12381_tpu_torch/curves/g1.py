@@ -38,12 +38,6 @@ def _mul_many(pairs):
     return list(FP.mont_mul(a, b).unbind(-2))
 
 
-def _fused(kernel, *points):
-    """Run a curve kernel on points given as coordinate tuples."""
-    o = ops()
-    return W.unstack_point(o, kernel(*(W.stack_point(o, p) for p in points)))
-
-
 @functools.lru_cache(maxsize=1)
 def ops() -> W.FieldOps:
     return W.FieldOps(
@@ -57,9 +51,9 @@ def ops() -> W.FieldOps:
         zero=FP.zero,
         one=FP.one,
         elem_ndim=1,
-        fused_add=lambda p, q: _fused(FK.g1_add, p, q),
-        fused_madd=lambda p, q: _fused(FK.g1_madd, p, q),
-        fused_dbl=lambda p: _fused(FK.g1_dbl, p),
+        fused_add=lambda p, q: W.on_stacked(ops(), FK.g1_add, p, q),
+        fused_madd=lambda p, q: W.on_stacked(ops(), FK.g1_madd, p, q),
+        fused_dbl=lambda p: W.on_stacked(ops(), FK.g1_dbl, p),
         inv=FP.inv,
     )
 

@@ -3,10 +3,14 @@
 Counterpart of the JAX package's `curves/g2.py`: the ops table, the
 generator and the identity, affine input, the group law, the GS scalar
 multiplication, the subgroup check, cofactor clearing and the affine
-conversion.  The JAX package's G2 point programs (`g2_add`, `g2_madd`,
-`g2_dbl`) are XLA graphs, not Pallas kernels; here the complete formulas
-of curves/weierstrass.py run over the Fp2 ops table, every product round
-ONE K2 launch with the round's Fp2 products stacked.
+conversion.  The ops table sends every complete addition, mixed addition
+and doubling to the single-kernel operations of fields/fused.py (K12,
+K13, K14): the JAX package's Pallas programs `prog_g2_add`,
+`prog_g2_madd` and `prog_g2_dbl`, which the TPU could not compile and ran
+as three stacked K2 rounds instead.  CUDA kernels on the card, their
+plain versions on the CPU.  Other products (the affine conversion, psi,
+equality, the curve check) are K2 launches with a round's Fp2 products
+stacked.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import numpy as np
 import torch
 
 from ..fields import fp as FP
+from ..fields import fused as FK
 from ..fields import tower as TW
 from ..params import B_G2, G2_GEN_X, G2_GEN_Y, X_ABS
 from . import weierstrass as W
@@ -47,6 +52,9 @@ def ops() -> W.FieldOps:
         zero=TW.fp2_zero,
         one=TW.fp2_one,
         elem_ndim=2,
+        fused_add=lambda p, q: W.on_stacked(ops(), FK.g2_add, p, q),
+        fused_madd=lambda p, q: W.on_stacked(ops(), FK.g2_madd, p, q),
+        fused_dbl=lambda p: W.on_stacked(ops(), FK.g2_dbl, p),
         inv=TW.fp2_inv,
     )
 

@@ -6,11 +6,13 @@ branch-free formula per operation, identity included), over a pluggable
 field-ops table.  Points are tuples (X, Y, Z): x = X/Z, y = Y/Z; identity
 is (0, 1, 0).
 
-A table with `fused_add`, `fused_madd` and `fused_dbl` (G1's) sends every
+A table with `fused_add`, `fused_madd` and `fused_dbl` sends every
 addition, mixed addition and doubling to those single-kernel operations
-(K6, K5, K7).  Otherwise each `mul_many` call is one multiplication round;
-for G2 it is one K2 launch with the round's products stacked (the TPU
-path's g2_dbl_c and g2_madd_c composites are these same three rounds).
+(G1's: K6, K5, K7; G2's: K12, K13, K14).  Both tables have them; without
+them (a table made without, as the tests make one) each `mul_many` call is
+one multiplication round, over Fp2 one K2 launch with the round's
+products stacked (the TPU path's `g2_add_c`, `g2_madd_c` and `g2_dbl_c`
+composites are these same three rounds).
 """
 
 from __future__ import annotations
@@ -56,6 +58,12 @@ def unstack_point(ops: FieldOps, t: torch.Tensor):
     return t.unbind(-1 - ops.elem_ndim)
 
 
+def on_stacked(ops: FieldOps, kernel, *points):
+    """A single-kernel point operation (stacked (..., k, *elem) tensors in
+    and out) on points given as coordinate tuples."""
+    return unstack_point(ops, kernel(*(stack_point(ops, p) for p in points)))
+
+
 def identity(ops: FieldOps, batch=(), device="cpu"):
     return (ops.zero(batch, device), ops.one(batch, device), ops.zero(batch, device))
 
@@ -76,8 +84,8 @@ def select_point(ops: FieldOps, mask, p, q):
 
 def add(ops: FieldOps, p, q):
     """Complete addition (RCB15 Alg. 7): 14 field products in three rounds
-    here; the G1 kernel K6 folds 3b into its operands (12 products, two
-    rounds)."""
+    here; the kernels K6 and K12 fold 3b into their operands (12 products,
+    two rounds)."""
     if ops.fused_add is not None:
         return ops.fused_add(p, q)
     X1, Y1, Z1 = p
@@ -103,7 +111,7 @@ def add(ops: FieldOps, p, q):
 def double(ops: FieldOps, p):
     """Dedicated exception-free doubling (RCB15 Alg. 9, j-invariant 0):
     X3 = 2XY(Y^2 - 9bZ^2); Y3 = (Y^2 - 9bZ^2)(Y^2 + 3bZ^2) + 24bY^2Z^2;
-    Z3 = 8Y^3Z.  Three multiplication rounds, or K7 for G1."""
+    Z3 = 8Y^3Z.  Three multiplication rounds, or K7 (G1) and K14 (G2)."""
     if ops.fused_dbl is not None:
         return ops.fused_dbl(p)
     X, Y, Z = p
@@ -122,7 +130,7 @@ def double(ops: FieldOps, p):
 def madd(ops: FieldOps, p, q):
     """Mixed complete addition p + (X2 : Y2 : 1) (RCB15 Alg. 7 with Z2 = 1).
     q must not be the identity, which has no Z = 1 form.  Three
-    multiplication rounds, or K5 for G1."""
+    multiplication rounds, or K5 (G1) and K13 (G2)."""
     if ops.fused_madd is not None:
         return ops.fused_madd(p, q)
     X1, Y1, Z1 = p

@@ -1,5 +1,5 @@
-"""Tower products, Fp12 operations and G1 curve operations as single
-kernels (K2-K11).
+"""Tower products, Fp12 operations and G1 and G2 curve operations as
+single kernels (K2-K14).
 
 Counterpart of the JAX package's `fields/fp32k.py`.  Each kernel computes
 one whole tower product, Fp12 operation or curve operation per instance,
@@ -15,6 +15,9 @@ pre-sums and combines included, so no intermediate leaves the kernel:
   K5 `g1_madd` (csrc/g1.cu)     (..., 3, 12) + (..., 2, 12): 11 Fp products
   K6 `g1_add`                   (..., 3, 12) + (..., 3, 12): 12 Fp products
   K7 `g1_dbl`                   (..., 3, 12):                 8 Fp products
+  K12 `g2_add` (csrc/g2.cu)     (..., 3, 2, 12) + same:      36 Fp products
+  K13 `g2_madd`                 (..., 3, 2, 12) + (..., 2, 2, 12): 33
+  K14 `g2_dbl`                  (..., 3, 2, 12):             24 Fp products
 
 Operands are canonical; the outputs are canonical.  A CUDA tensor
 launches the kernel, a CPU tensor runs the plain version beside it, which
@@ -22,7 +25,11 @@ computes the same canonical value through `fp.mont_mul_plain` (the Fp12
 plain versions through the plain versions of K2-K4, so they launch no
 kernel on the card either).  The TPU ran K8-K11 as row-stacked composites
 of K2-K4 with the combines in plain XLA (`fp32k.py` `fp12_mul_c` and its
-siblings); the plain versions keep that algebra.
+siblings); the plain versions keep that algebra.  It ran K12-K14 as the
+composites `g2_add_c`, `g2_madd_c` and `g2_dbl_c`, three K2 rounds each
+with 3b' as a third round of products; here, as in its programs
+`prog_g2_*`, 3b' = 12 xi is folded into the operands, and the plain
+versions are two stacked K2 plain calls.
 """
 
 from __future__ import annotations
@@ -281,17 +288,21 @@ def _mul12(x: torch.Tensor) -> torch.Tensor:
     return FP.add(FP.double(x4), x4)
 
 
-def _rcb_round2(t1m, z3a, t3, t4, w, bt5) -> torch.Tensor:
-    """X3 = t1m t3 - bt5 t4, Y3 = t1m z3a + bt5 w, Z3 = z3a t4 + w t3."""
-    c = FP.mont_mul_plain(torch.stack([t1m, bt5, t1m, bt5, z3a, w], -2),
-                          torch.stack([t3, t4, z3a, w, t4, t3], -2)).unbind(-2)
-    return torch.stack([FP.sub(c[0], c[1]), FP.add(c[2], c[3]), FP.add(c[4], c[5])], -2)
+def _rcb_round2(t1m, z3a, t3, t4, w, bt5, mul=FP.mont_mul_plain, dim=-2) -> torch.Tensor:
+    """X3 = t1m t3 - bt5 t4, Y3 = t1m z3a + bt5 w, Z3 = z3a t4 + w t3: the six
+    products in one plain call of `mul` (K1's over Fp, K2's over Fp2, the
+    coordinates along `dim`)."""
+    c = mul(torch.stack([t1m, bt5, t1m, bt5, z3a, w], dim),
+            torch.stack([t3, t4, z3a, w, t4, t3], dim)).unbind(dim)
+    return torch.stack([FP.sub(c[0], c[1]), FP.add(c[2], c[3]), FP.add(c[4], c[5])], dim)
 
 
-def _expand_mixed(p: torch.Tensor, q: torch.Tensor):
-    """Broadcast the batch dims of a projective and an affine point."""
-    batch = torch.broadcast_shapes(p.shape[:-2], q.shape[:-2])
-    return p.expand(batch + p.shape[-2:]), q.expand(batch + q.shape[-2:])
+def _expand_mixed(p: torch.Tensor, q: torch.Tensor, elem: int = 1):
+    """Broadcast the batch dims of a projective and an affine point whose
+    coordinates have `elem` dims (1 for Fp, 2 for Fp2)."""
+    k = 1 + elem
+    batch = torch.broadcast_shapes(p.shape[:-k], q.shape[:-k])
+    return p.expand(batch + p.shape[-k:]), q.expand(batch + q.shape[-k:])
 
 
 def g1_madd_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -338,15 +349,15 @@ def g1_dbl_plain(p: torch.Tensor) -> torch.Tensor:
     return torch.stack([FP.double(x3b), FP.add(y3b, x3a), z3], -2)
 
 
-def _launch_rows(fn: str, out_shape, *ins: torch.Tensor) -> torch.Tensor:
-    """Flatten each operand to (rows, k, 12), launch `fn` of the curve
-    library over the rows, and shape the (rows, 3, 12) result."""
-    flat = [_flat(x, 2) for x in ins]
-    out = torch.empty((flat[0].shape[0], 3, flat[0].shape[-1]), dtype=torch.int32,
-                      device=flat[0].device)
+def _launch_rows(lib: str, fn: str, elem: int, *ins: torch.Tensor) -> torch.Tensor:
+    """Flatten each point operand to (rows, k, *coordinate) (a coordinate of
+    `elem` dims), launch `fn` of the curve library `lib` over the rows, and
+    give the projective result the first operand's shape."""
+    flat = [_flat(x, 1 + elem) for x in ins]
+    out = torch.empty_like(flat[0])
     if out.shape[0]:
-        _build.launch("curve", fn, (*flat, out), out.shape[0])
-    return out.reshape(out_shape)
+        _build.launch(lib, fn, (*flat, out), out.shape[0])
+    return out.reshape(ins[0].shape)
 
 
 def g1_madd(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -355,17 +366,102 @@ def g1_madd(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     p, q = _expand_mixed(p, q)
     if p.device.type == "cpu":
         return g1_madd_plain(p, q)
-    return _launch_rows("g1_madd", p.shape, p, q)
+    return _launch_rows("curve", "g1_madd", 1, p, q)
 
 
 def g1_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     p, q = torch.broadcast_tensors(p, q)
     if p.device.type == "cpu":
         return g1_add_plain(p, q)
-    return _launch_rows("g1_add", p.shape, p, q)
+    return _launch_rows("curve", "g1_add", 1, p, q)
 
 
 def g1_dbl(p: torch.Tensor) -> torch.Tensor:
     if p.device.type == "cpu":
         return g1_dbl_plain(p)
-    return _launch_rows("g1_dbl", p.shape, p)
+    return _launch_rows("curve", "g1_dbl", 1, p)
+
+
+# ---------------------------------------------------------------------------
+# K12, K13, K14: complete G2 curve operations over Fp2 (the same RCB15
+# formulas, 3b' = 12 xi folded into the operands).  Points are
+# (..., 3, 2, 12) [X, Y, Z]; the mixed add's second operand is affine
+# (..., 2, 2, 12) [x, y] with Z = 1 implied, never the identity.  Each
+# plain version runs the kernel's two product rounds as two stacked K2
+# plain calls.
+# ---------------------------------------------------------------------------
+
+
+def _mul12xi(x: torch.Tensor) -> torch.Tensor:
+    """12 xi x for Fp2 x: (12 (x0 - x1), 12 (x0 + x1))."""
+    return _mul12(mul_xi(x))
+
+
+def _g2_round2(t1m, z3a, t3, t4, w, bt5) -> torch.Tensor:
+    return _rcb_round2(t1m, z3a, t3, t4, w, bt5, mul=fp2_mul_plain, dim=-3)
+
+
+def g2_madd_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    p, q = _expand_mixed(p, q, 2)
+    X1, Y1, Z1 = p.unbind(-3)
+    x2, y2 = q.unbind(-3)
+    t0, t1, m3, zx, zy = fp2_mul_plain(
+        torch.stack([X1, Y1, FP.add(X1, Y1), Z1, Z1], -3),
+        torch.stack([x2, y2, FP.add(x2, y2), x2, y2], -3)).unbind(-3)
+    t3 = FP.sub(FP.sub(m3, t0), t1)
+    t4 = FP.add(zy, Y1)
+    bt5 = _mul12xi(FP.add(zx, X1))
+    w = FP.add(FP.double(t0), t0)
+    bt2 = _mul12xi(Z1)
+    return _g2_round2(FP.sub(t1, bt2), FP.add(t1, bt2), t3, t4, w, bt5)
+
+
+def g2_add_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    p, q = torch.broadcast_tensors(p, q)
+    X1, Y1, Z1 = p.unbind(-3)
+    X2, Y2, Z2 = q.unbind(-3)
+    t0, t1, t2, m3, m4, m5 = fp2_mul_plain(
+        torch.stack([X1, Y1, Z1, FP.add(X1, Y1), FP.add(Y1, Z1), FP.add(X1, Z1)], -3),
+        torch.stack([X2, Y2, Z2, FP.add(X2, Y2), FP.add(Y2, Z2), FP.add(X2, Z2)], -3),
+    ).unbind(-3)
+    t3 = FP.sub(FP.sub(m3, t0), t1)
+    t4 = FP.sub(FP.sub(m4, t1), t2)
+    bt5 = _mul12xi(FP.sub(FP.sub(m5, t0), t2))
+    w = FP.add(FP.double(t0), t0)
+    bt2 = _mul12xi(t2)
+    return _g2_round2(FP.sub(t1, bt2), FP.add(t1, bt2), t3, t4, w, bt5)
+
+
+def g2_dbl_plain(p: torch.Tensor) -> torch.Tensor:
+    X, Y, Z = p.unbind(-3)
+    t0, t1, xy, z2 = fp2_mul_plain(torch.stack([Y, Y, X, Z], -3),
+                                   torch.stack([Y, Z, Y, Z], -3)).unbind(-3)
+    t2 = _mul12xi(z2)                                          # 3b' Z^2
+    e8 = FP.double(FP.double(FP.double(t0)))                   # 8 Y^2
+    y3a = FP.add(t0, t2)
+    t0m = FP.sub(t0, FP.add(FP.double(t2), t2))
+    x3b, y3b, x3a, z3 = fp2_mul_plain(torch.stack([t0m, t0m, e8, e8], -3),
+                                      torch.stack([xy, y3a, t2, t1], -3)).unbind(-3)
+    return torch.stack([FP.double(x3b), FP.add(y3b, x3a), z3], -3)
+
+
+def g2_madd(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """P + (x2 : y2 : 1) for projective p (..., 3, 2, 12) and affine q
+    (..., 2, 2, 12), broadcast over the batch."""
+    p, q = _expand_mixed(p, q, 2)
+    if p.device.type == "cpu":
+        return g2_madd_plain(p, q)
+    return _launch_rows("curve2", "g2_madd", 2, p, q)
+
+
+def g2_add(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    p, q = torch.broadcast_tensors(p, q)
+    if p.device.type == "cpu":
+        return g2_add_plain(p, q)
+    return _launch_rows("curve2", "g2_add", 2, p, q)
+
+
+def g2_dbl(p: torch.Tensor) -> torch.Tensor:
+    if p.device.type == "cpu":
+        return g2_dbl_plain(p)
+    return _launch_rows("curve2", "g2_dbl", 2, p)

@@ -3,20 +3,20 @@
 Counterpart of the JAX package's `msm/pippenger.py` (the scan Pippenger:
 `window_digits`, `signed_window_digits`, `force_affine`, `pad_affine`,
 `msm`, `_suffix_weighted`, `_collapse_buckets`, `msm_g1`, `msm_g2`), with
-the same algorithm and parameters, over G1 (K5-K7) or G2 (the RCB
-formulas over Fp2, one K2 launch per product round):
+the same algorithm and parameters, over G1 (K5-K7) or G2 (K13, K12,
+K14):
   * scalars split into K signed c-bit window digits in [-2^(c-1), 2^(c-1)]
     (the offset trick: no sequential borrow chain);
   * points go affine up front by a Montgomery batch inversion of the Z
     column (identity points become the generator with scalar 0), so every
-    bucket update is a mixed add (K5 on G1);
+    bucket update is a mixed add (K5 on G1, K13 on G2);
   * G lanes each own a private (K, 2^(c-1) + 1) bucket grid; a Python loop
     walks the n / G point blocks, and per step each lane adds its point,
-    sign-corrected per window, into one bucket of each window (on G1 one K5
+    sign-corrected per window, into one bucket of each window (one K5 or K13
     launch over G * K rows);
-  * lanes reduce by a log2(G) tree of complete adds (K6 on G1), buckets
+  * lanes reduce by a log2(G) tree of complete adds (K6, K12), buckets
     collapse by the suffix-sum split into O(sqrt(nbuck)) steps, windows
-    combine Horner-style with c doublings (K7 on G1) and one add per
+    combine Horner-style with c doublings (K7, K14) and one add per
     window.
 The complete formulas keep every step exception-free: identity buckets,
 repeated points and doubling collisions need no branch.

@@ -4,7 +4,7 @@ The device functions and kernel bodies of crypto12381_tpu_torch/csrc/
 are plain C++ once the CUDA keywords are defined away, so a host C++
 compiler can build them into a small program. It runs the one-thread-
 per-row kernel bodies of K1 (the Fp and Fr products and the power chain
-x^e of one launch) once per thread. K2-K11 are block-cooperative:
+x^e of one launch) once per thread. K2-K14 are block-cooperative:
 their threads share operands and products through shared memory, with
 barriers between phases. The program runs each of their blocks phase by
 phase, every thread of a phase before the next, with the block's shared
@@ -22,10 +22,14 @@ of all-0, all-1 and all-(p-1) operands at both ends of the launch (all
 p-1 gives the largest pre-sums); for the curve kernels K5-K7 on curve points with
 the identity, P = Q and P = -Q among them, also at row counts below, at
 and between multiples of a block, with those rows at both ends of the
-launch; and for the Fp12 kernels K8-K11 (csrc/fp12.cu) likewise at row
+launch; for the Fp12 kernels K8-K11 (csrc/fp12.cu) likewise at row
 counts below, at and between multiples of their blocks, with rows of
-all-0, all-1 and all-(p-1) operands at both ends. The header's copies of
-p, r and their n0' must equal params.py's.
+all-0, all-1 and all-(p-1) operands at both ends; and for the G2 curve
+kernels K12-K14 (csrc/g2.cu) at row counts below, at, between and on
+multiples of their block, on G2 points with the identity, P = Q and
+P = -Q at both ends of the launch, against the plain versions and, made
+affine, the host's P + Q and 2P. The header's copies of p, r and their
+n0' must equal params.py's.
 The launch code (the `<<<...>>>` wrappers) and the card itself are
 exercised only by chip_smoke.py.
 """
@@ -43,17 +47,18 @@ from crypto12381_tpu.params import P
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "crypto12381_tpu_torch" / "csrc"
 R_INV = pow(1 << 384, -1, P)        # the port's Montgomery R = 2^384
 
-torch = FP = FK = C = G1C = params = None    # bound by _port
+torch = FP = FK = C = G1C = G2C = params = None    # bound by _port
 
 
 @pytest.fixture(scope="module", autouse=True)
 def _port():
     """Import torch and the port when this file's test runs, not when the
     file is collected (every test worker collects every file)."""
-    global torch, FP, FK, C, G1C, params
+    global torch, FP, FK, C, G1C, G2C, params
     import torch
     from crypto12381_tpu_torch import params
     from crypto12381_tpu_torch.curves import g1 as G1C
+    from crypto12381_tpu_torch.curves import g2 as G2C
     from crypto12381_tpu_torch.fields import fp as FP
     from crypto12381_tpu_torch.fields import fused as FK
     from crypto12381_tpu_torch.host import curve as C
@@ -179,8 +184,35 @@ int fp12s(const char* in, const char* outp) {
   fclose(g);
   return 0;
 }
+// K12-K14 on n rows: projective P and Q (72 words a row) and affine Q'
+// (48 words a row); the outputs K12 P + Q, K13 P + Q', K14 2P one after
+// another.
+int g2s(const char* in, const char* outp) {
+  FILE* f = fopen(in, "rb");
+  int64_t n;
+  if (fread(&n, 8, 1, f) != 1) return 1;
+  std::vector<uint32_t> p(n * 72), q(n * 72), qa(n * 48), o12, o13, o14;
+  if (fread(p.data(), 4, n * 72, f) != (size_t)(n * 72)) return 1;
+  if (fread(q.data(), 4, n * 72, f) != (size_t)(n * 72)) return 1;
+  if (fread(qa.data(), 4, n * 48, f) != (size_t)(n * 48)) return 1;
+  fclose(f);
+  if (!coop(o12, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
+        g2_add_phase(ph, sm, p.data(), q.data(), out, n, blk, t); },
+      n, G2_ROWS, K12_BLOCK, K12_PHASES, K12_SMEM, 72)) return 2;
+  if (!coop(o13, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
+        g2_madd_phase(ph, sm, p.data(), qa.data(), out, n, blk, t); },
+      n, G2_ROWS, K13_BLOCK, K13_PHASES, K13_SMEM, 72)) return 2;
+  if (!coop(o14, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
+        g2_dbl_phase(ph, sm, p.data(), out, n, blk, t); },
+      n, G2_ROWS, K14_BLOCK, K14_PHASES, K14_SMEM, 72)) return 2;
+  FILE* g = fopen(outp, "wb");
+  for (auto* o : {&o12, &o13, &o14}) fwrite(o->data(), 4, n * 72, g);
+  fclose(g);
+  return 0;
+}
 int main(int argc, char** argv) {
   if (argc == 4 && !strcmp(argv[1], "fp12")) return fp12s(argv[2], argv[3]);
+  if (argc == 4 && !strcmp(argv[1], "g2")) return g2s(argv[2], argv[3]);
   if (argc == 5 && !strcmp(argv[1], "chain"))
     return argv[2][0] == '8' ? chains<8>(argv[3], argv[4]) : chains<12>(argv[3], argv[4]);
   FILE* f = fopen(argv[1], "rb");
@@ -232,14 +264,15 @@ def harness(tmp_path_factory):
     (d / "inc").mkdir()
     (d / "inc" / "cuda_runtime.h").write_text(SHIM)
     bodies = []
-    for name in ("fp.cu", "tower.cu", "g1.cu", "fp12.cu"):
+    headers = ("fp381.cuh", "tower.cuh", "curve.cuh")
+    for name in ("fp.cu", "tower.cu", "g1.cu", "fp12.cu", "g2.cu"):
         text = (CSRC / name).read_text()
         text = text[: text.index('extern "C"')]
-        for line in ('#include "fp381.cuh"', '#include "tower.cuh"', "using namespace fp381;"):
+        for line in [f'#include "{h}"' for h in headers] + ["using namespace fp381;"]:
             text = text.replace(line, "")
         bodies.append(text)
-    src = (f'#include "{CSRC / "fp381.cuh"}"\n#include "{CSRC / "tower.cuh"}"\n'
-           "using namespace fp381;\n" + "\n".join(bodies) + MAIN)
+    src = ("".join(f'#include "{CSRC / h}"\n' for h in headers)
+           + "using namespace fp381;\n" + "\n".join(bodies) + MAIN)
     (d / "harness.cpp").write_text(src)
     exe = d / "harness"
     subprocess.run([cxx, "-std=c++17", "-O1", f"-I{d / 'inc'}",
@@ -482,6 +515,66 @@ def test_cooperative_curve_kernels(harness, n):
                       (k7, [2 * sp for sp, _, _ in scalars])):
         assert list(G1C.to_affine_ints(tuple(got.unbind(-2)))) == [
             C.g1_mul(C.G1_GEN, k) for k in want]
+
+
+def run_g2(harness, p, q, qa):
+    """K12-K14 on the host over the rows of projective P, Q (n, 3, 2, 12)
+    and affine Q' (n, 2, 2, 12): (g2_add(P, Q), g2_madd(P, Q'), g2_dbl(P))."""
+    d, exe = harness
+    n = p.shape[0]
+    with open(d / "g2.bin", "wb") as f:
+        f.write(np.int64(n).tobytes() + p.numpy().tobytes() + q.numpy().tobytes()
+                + qa.numpy().tobytes())
+    subprocess.run([str(exe), "g2", str(d / "g2.bin"), str(d / "g2.out")], check=True,
+                   timeout=300)
+    o = torch.from_numpy(np.fromfile(d / "g2.out", np.int32))
+    return o.reshape(3, n, 3, 2, 12).unbind(0)
+
+
+@pytest.mark.parametrize("n", [1, 5, 8, 13, 16, 17, 40])
+def test_cooperative_g2_kernels(harness, n):
+    """K12, K13 and K14 (8 instances per block) at row counts below, at,
+    between and on multiples of a block: P + Q and 2P for projective P
+    (random Z), affine Q (K13) and projective Q (K12, another random Z) on
+    G2, with the rows O + B, A + A, (-A) + A and O + O (K12) or O + B (K13)
+    at the start of the launch and again at its end, so in its ragged last
+    block, and random G2 points between. Each output equals the plain
+    version bit for bit and, made affine, the host's P + Q and 2P."""
+    from crypto12381_tpu_torch.host import field as HF
+
+    rng = np.random.default_rng(500 + n)
+    k_a, k_b = (int(k) for k in rng.integers(2, 1 << 62, size=2))
+    # scalars of (P, K13's Q, K12's Q): O + B, A + A, (-A) + A, O + O or O + B
+    edges = [(0, k_b, k_b), (k_a, k_a, k_a), (-k_a, k_a, k_a), (0, k_b, 0)]
+    mid = [tuple(int(k) for k in row)
+           for row in rng.integers(2, 1 << 62, size=(max(n - 8, 0), 3))]
+    scalars = (edges + mid + edges)[:n] if n >= 8 else (edges + edges)[:n]
+
+    def fp2(v):
+        return [v[0], v[1]]
+
+    def proj(k):                          # [k]G2 with a random Z in Fp2
+        pt = C.g2_mul(C.G2_GEN, k % params.R)
+        if pt is None:
+            return [[0, 0], [1, 0], [0, 0]]
+        z = tuple(int.from_bytes(rng.bytes(48), "little") % P for _ in range(2))
+        return [fp2(HF.fp2_mul(pt[0], z)), fp2(HF.fp2_mul(pt[1], z)), fp2(z)]
+
+    pv, qv, av = [], [], []
+    for sp, s13, s12 in scalars:
+        pv.append(proj(sp))
+        qv.append(proj(s12))
+        av.append([fp2(c) for c in C.g2_mul(C.G2_GEN, s13 % params.R)])
+    p, q, qa = FP.from_int(pv), FP.from_int(qv), FP.from_int(av)
+    k12, k13, k14 = run_g2(harness, p, q, qa)
+    assert torch.equal(k12, FK.g2_add_plain(p, q))
+    assert torch.equal(k13, FK.g2_madd_plain(p, qa))
+    assert torch.equal(k14, FK.g2_dbl_plain(p))
+    for got, want in ((k12, [sp + s12 for sp, _, s12 in scalars]),
+                      (k13, [sp + s13 for sp, s13, _ in scalars]),
+                      (k14, [2 * sp for sp, _, _ in scalars])):
+        assert list(G2C.to_affine_ints(tuple(got.unbind(-3)))) == [
+            C.g2_mul(C.G2_GEN, k % params.R) for k in want]
 
 
 @pytest.mark.parametrize("n", [37, 261])
