@@ -25,27 +25,30 @@ Phases, one line each; any failure raises and ends the run non-zero:
            the pairing gave them before K8-K11; since then no path launches
            K3, and K4 only in the final exponentiation's inverse); K5: one
            MSM bucket step, 64 lanes x 33 windows; K6, K7: one GLV ladder
-           step at B = 8192; K8-K11 at B = 2048; K12-K14, the G2 group
-           law, at B = 2048 (the pairing's Miller loop, the G2 ladder); the
-           chains and K2-K14 each also at a row count that leaves its last
-           block ragged), each held bit for bit against its plain PyTorch
-           version on the card (the chains, the Fr product, K2-K4 and
-           K8-K11 with edge rows at both ends, K5-K7 and K12-K14 with the
-           identity, P = Q and P = -Q in their first and last rows, checked
-           against host points); device time of both (CUDA graph replays timed
-           with CUDA events) and the kernel's time when issued eagerly from
-           Python.  A chain's bound counts the least work of x^e: the
-           sliding-window chain with the fewest multiply-adds, squarings at
-           their own count; a doubling's bound (K7, K14) prices its Y^2 and
-           Z^2 as squarings (an Fp2 one as the complex squaring's two
-           products)
+           step at B = 8192; K8-K10 at B = 2048; K10's cyclotomic power
+           x^|x| of one launch (the final exponentiation's g^|x|) at
+           B = 2048 and 512, and at 2048 also x^(2^63) (its 63 squares
+           alone); K11 over k stacked lines, k = 1 at B = 2048, k = 2 and
+           3 at 512 (the verifies' shared Miller loops); K12-K14, the G2
+           group law, at B = 2048 (the pairing's Miller loop, the G2
+           ladder); the chains, the power and K2-K14 each also at a row
+           count that leaves its last block ragged), each held bit for bit
+           against its plain PyTorch version on the card (the chains, the
+           Fr product, K2-K4 and K8-K11 with edge rows at both ends, K5-K7
+           and K12-K14 with the identity, P = Q and P = -Q in their first
+           and last rows, checked against host points); device time of both
+           (CUDA graph replays timed with CUDA events) and the kernel's time
+           when issued eagerly from Python.  A chain's bound counts the
+           least work of x^e: the sliding-window chain with the fewest
+           multiply-adds, squarings at their own count; a doubling's bound
+           (K7, K14) prices its Y^2 and Z^2 as squarings (an Fp2 one as
+           the complex squaring's two products)
   pairing  `pair_batch` at B = 2048 (32 distinct pairs, tiled; counted,
            then 2 timed): GT bytes against tests/vectors/reference.json,
            bilinearity, infinity masks, 4 rows recomputed on the CPU,
-           pairings/s, launches of
-           each kernel in one batch (K2, K4, K8-K11, K13 and K14 also by
-           row count),
-           torch ops of one batch, peak device memory
+           pairings/s, launches of each kernel in one batch (K2, K4, K8,
+           K9, the power, K11, K13 and K14 also by row count), torch ops
+           of one batch, peak device memory
   g1       `G1Vec.generator((8192,)) ** ZpVec`: 8 rows against the host
            ladder, their bytes against the host codec, 4 rows recomputed on
            the CPU, scalar multiplications/s, launches per call
@@ -207,7 +210,8 @@ Then the wall seconds of each phase, a JSON line of per-kernel numbers
 (with each kernel's device ms at each row count it was timed at, and per
 path the launch-weighted device ms and bound of one call, every launch at
 its own measured row count; a power chain has an entry per exponent, and
-a path's chain launches count only under the entry of their exponent),
+a path's chain launches count only under the entry of their exponent;
+K11 likewise an entry per line count k),
 nvidia-smi's line, and as the last line {"ok": true, "device": {...}}.
 Imports nothing of the JAX package.
 """
@@ -279,16 +283,18 @@ FP2_SQR_MULADDS = min(2 * MULADDS_PER_PRODUCT, 3 * SQR_MULADDS,
 K2_ROWS_PER_PAIR = (15, 1, 2, 3, 4, 5, 6)
 K4_ROWS_PER_PAIR = (3, 2)
 #: added to a headline row count, leaves the last block of K2 (32 rows per
-#: block), K3 (64), K4 (16), K5 (16), K6 (16), K7 (32), K8, K9, K11 (8),
-#: K10 (16) and K12-K14 (8) ragged
+#: block), K3 (64), K4 (16), K5 (16), K6 (16), K7 (32), K8, K9 (8), K10,
+#: K11 and the power (8 from 1,024 rows on, 4 from 512, else 2) and
+#: K12-K14 (8) ragged
 RAGGED = 7
 #: the largest row block a plain version is given at once in the rows phase
 PLAIN_ROWS = 32768
 #: kernels of a pairing path: K1 and its chain, K2, K4 (the final
-#: exponentiation's inverse), K8-K11, and the Miller loop's G2 steps K13
-#: (mixed add) and K14 (doubling)
+#: exponentiation's inverse), K8, K9, the cyclotomic power (the final
+#: exponentiation's g^|x|), K11, and the Miller loop's G2 steps K13 (mixed
+#: add) and K14 (doubling)
 PAIRING = ("fp_mont_mul", "fp_pow_fixed", "fp2_mul", "fp6_mul", "fp12_mul", "fp12_sqr",
-           "fp12_usqr", "fp12_sparse_mul", "g2_madd", "g2_dbl")
+           "fp12_cyc_pow_fixed", "fp12_sparse_mul", "g2_madd", "g2_dbl")
 #: kernels of a verify path with G1 ladders (GLV: K6, K7) and pairings
 G1_PAIRING = PAIRING + ("g1_add", "g1_dbl")
 #: kernels of a pairing path with G2 ladders (GS: K12 and K14)
@@ -297,6 +303,8 @@ G2_PAIRING = PAIRING + ("g2_add",)
 ROWS_BY_PATH: dict[str, dict[str, dict[int, int]]] = {}
 #: power chain -> launches per path and (row count, exponent), read alike
 EXPS_BY_PATH: dict[str, dict[str, dict[tuple[int, int], int]]] = {}
+#: stacked kernel (K11) -> launches per path and (row count, k), read alike
+STACKS_BY_PATH: dict[str, dict[str, dict[tuple[int, int], int]]] = {}
 #: aten ops that only make a view (no kernel launch)
 _VIEW_OPS = {"select", "slice", "unsqueeze", "view", "expand", "unbind", "alias",
              "as_strided", "_unsafe_view", "t", "transpose", "permute", "squeeze",
@@ -332,6 +340,7 @@ def _ptxas_report(log: str) -> dict:
         for k in ("mont_mul_kernel", "pow_fixed_kernel", "fp2_mul_kernel", "fp2_sqr_kernel", "fp6_mul_kernel",
                   "g1_madd_kernel", "g1_add_kernel", "g1_dbl_kernel", "fp12_mul_kernel",
                   "fp12_sqr_kernel", "fp12_usqr_kernel", "fp12_sparse_mul_kernel",
+                  "fp12_cyc_pow_kernel",
                   "g2_madd_kernel", "g2_add_kernel", "g2_dbl_kernel"):
             if k in mangled:
                 limbs = re.search(r"ILi(\d+)E", mangled)
@@ -523,7 +532,7 @@ def phase_kernels(dev):
     from crypto12381_tpu_torch.curves import g2 as G2C
     from crypto12381_tpu_torch.fields import fp as FP
     from crypto12381_tpu_torch.fields import fused as FK
-    from crypto12381_tpu_torch.params import P
+    from crypto12381_tpu_torch.params import X_ABS, P
 
     rng = np.random.default_rng(SEED)
     edge = [0, 1, P - 1]
@@ -540,7 +549,7 @@ def phase_kernels(dev):
     b[q + 1] = 0
     k1 = ("crypto12381_tpu_torch/csrc/fp.cu", "crypto12381_tpu/fields/fp32.py:354")
     specs.append(("K1 mont_mul (Fp)", "fp_mont_mul", *k1, FP.mont_mul, FP.mont_mul_plain,
-                  {n: (a, b)}, n, MULADDS_PER_PRODUCT, None, None))
+                  {n: (a, b)}, n, MULADDS_PER_PRODUCT, None, {}))
 
     def field_rows(F, r, vals):
         """r random canonical rows of F, the values vals at both ends."""
@@ -562,7 +571,7 @@ def phase_kernels(dev):
     fr_counts = (G1_B, G1_B + RAGGED)
     specs.append(("K1 mont_mul (Fr)", "fr_mont_mul", *k1, fr.mont_mul, fr.mont_mul_plain,
                   {r: (field_rows(fr, r, r_edge), field_rows(fr, r, r_edge[::-1]))
-                   for r in fr_counts}, G1_B, FR_MULADDS_PER_PRODUCT, None, None))
+                   for r in fr_counts}, G1_B, FR_MULADDS_PER_PRODUCT, None, {}))
     for F, label, e, counts, headline in (
         (FP.FP_CTX, "p-2", P - 2, (B // 4, 2 * PS_B, B, G1_B, B + RAGGED, 2 * PS_B + RAGGED), B),
         (FP.FP_CTX, "(p+1)/4", (P + 1) // 4, (PS_B, G1_B, PS_B + RAGGED, G1_B + RAGGED), G1_B),
@@ -576,7 +585,7 @@ def phase_kernels(dev):
                       *k1, (lambda F, e: lambda x: F.pow_fixed(x, e))(F, e),
                       (lambda F, e: lambda x: F.pow_fixed_plain(x, e))(F, e),
                       {r: (field_rows(F, r, [0, 1, F.modulus - 1]),) for r in counts}, headline,
-                      least.pop("ops"), None, (e, least)))
+                      least.pop("ops"), None, {"exponent": e, "least_chain": least}))
     # K2: B to 6B (the line coefficients, G2 steps and Frobenius maps) and
     # 15B (the sparse product's rows before K11); K3: 9B (the cyclotomic
     # square's before K10); K4: 3B and 2B (the Fp12 product's and square's
@@ -598,28 +607,51 @@ def phase_kernels(dev):
                 for i in range(n_in))
         specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/tower.cu",
                       f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, counts[0],
-                      prod * MULADDS_PER_PRODUCT, None, None))
-    # K8-K11: the pairing's B rows (the Miller loop's square and line
-    # absorbs, the final exponentiation's products and cyclotomic squares)
-    # and a ragged count; edge rows at both ends as K2-K4's, all p-1 against
-    # all p-1 among them (the largest pre-sums).  The rows phase adds every
+                      prod * MULADDS_PER_PRODUCT, None, {}))
+    # K8-K10: the pairing's B rows (the Miller loop's squares, the final
+    # exponentiation's products, the GT power's cyclotomic squares) and a
+    # ragged count; edge rows at both ends as K2-K4's, all p-1 against all
+    # p-1 among them (the largest pre-sums).  The rows phase adds every
     # other count the paths launch them at.
+    def fp12_ins(rows, shapes, k=None):
+        """Operands of these row shapes at `rows` rows with tower_edge's
+        edge rows at both ends; with k, the second is a stack of k such
+        operands (K11's lines, (k, rows, 3, 2, 12))."""
+        def one(i, shape):
+            return _edges(_rand_fp(rng, rows, int(np.prod(shape))), tower_edge[i],
+                          last=True).reshape((rows,) + shape + (12,))
+        return tuple(torch.from_numpy(np.stack([one(i, shape) for _ in range(k)])
+                                      if k and i == 1 else one(i, shape)).to(dev)
+                     for i, shape in enumerate(shapes))
+
+    fp12 = ("crypto12381_tpu_torch/csrc/fp12.cu", "crypto12381_tpu/fields/fp32k.py:")
     for name, shapes, prod, kern, plain, line in (
         ("K8 fp12_mul", ((2, 3, 2), (2, 3, 2)), 54, FK.fp12_mul, FK.fp12_mul_plain, 394),
         ("K9 fp12_sqr", ((2, 3, 2),), 36, FK.fp12_sqr, FK.fp12_sqr_plain, 410),
         ("K10 fp12_usqr", ((2, 3, 2),), 18, FK.fp12_usqr, FK.fp12_usqr_plain, 424),
-        ("K11 fp12_sparse_mul", ((2, 3, 2), (3, 2)), 45, FK.fp12_sparse_mul,
-         FK.fp12_sparse_mul_plain, 464),
     ):
-        ins = {}
-        for rows in (B, B + RAGGED):
-            ins[rows] = tuple(
-                torch.from_numpy(_edges(_rand_fp(rng, rows, int(np.prod(shape))), tower_edge[i],
-                                        last=True).reshape((rows,) + shape + (12,))).to(dev)
-                for i, shape in enumerate(shapes))
-        specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/fp12.cu",
-                      f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, B,
-                      prod * MULADDS_PER_PRODUCT, None, None))
+        specs.append((name, name.split()[1], fp12[0], f"{fp12[1]}{line}", kern, plain,
+                      {rows: fp12_ins(rows, shapes) for rows in (B, B + RAGGED)}, B,
+                      prod * MULADDS_PER_PRODUCT, None, {}))
+    # K10's power x^|x| of one launch (the final exponentiation's g^|x|; it
+    # replaces 63 K10 and 5 K8 launches): at the pairing's B rows, the
+    # verifies' 512 and a ragged count; its bound the chain's own products,
+    # (bits - 1) squares of 18 and (set bits - 1) products of 54
+    e = X_ABS
+    specs.append(("K10 fp12_cyc_pow_fixed x^|x|", "fp12_cyc_pow_fixed", fp12[0],
+                  f"{fp12[1]}424", (lambda x: FK.fp12_cyc_pow_fixed(x, e)),
+                  (lambda x: FK.fp12_cyc_pow_fixed_plain(x, e)),
+                  {rows: fp12_ins(rows, ((2, 3, 2),)) for rows in (B, SCHEME_B, B + RAGGED)}, B,
+                  ((e.bit_length() - 1) * 18 + (bin(e).count("1") - 1) * 54)
+                  * MULADDS_PER_PRODUCT, None, {"exponent": e}))
+    # K11 over k stacked lines (one launch per Miller digit step): k = 1 at
+    # the pairing's B rows, k = 2 and 3 at the verifies' 512 (BBS and PS),
+    # each also at a ragged count, every line with the edge rows
+    for k, rows in ((1, B), (2, SCHEME_B), (3, SCHEME_B)):
+        specs.append((f"K11 fp12_sparse_mul k={k}", "fp12_sparse_mul", fp12[0], f"{fp12[1]}464",
+                      FK.fp12_sparse_mul, FK.fp12_sparse_mul_plain,
+                      {r: fp12_ins(r, ((2, 3, 2), (3, 2)), k) for r in (rows, rows + RAGGED)},
+                      rows, k * 45 * MULADDS_PER_PRODUCT, None, {"stack": k, "row_dims": (0, 1)}))
     # K5: one MSM bucket step (lanes x windows rows); K6, K7: one GLV ladder
     # step of the g1 phase's batch; each also at a ragged row count (blocks
     # of 16, 16 and 32 instances), with the edge rows in the last block.
@@ -636,7 +668,7 @@ def phase_kernels(dev):
             ins[r], edge_want[r] = _curve_inputs(rng, name.split()[1], r, dev)
         specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/g1.cu",
                       f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, rows,
-                      muladds, edge_want, None))
+                      muladds, edge_want, {}))
     # K12-K14: the G2 group law at the pairing's and the G2 ladder's 2,048
     # rows and at a ragged count (blocks of 8), the edge rows in the first
     # and the last block; the rows phase adds the other counts (the Miller
@@ -651,10 +683,10 @@ def phase_kernels(dev):
             ins[r], edge_want[r] = _curve2_inputs(rng, name.split()[1], r, dev)
         specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/g2.cu",
                       f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, B,
-                      muladds, edge_want, None))
+                      muladds, edge_want, {}))
     results = []
     for (name, fn_c, src, repl, kern, plain, ins_by_rows, rows, ops_per_row, edge_want,
-         chain) in specs:
+         extra) in specs:
         ms_by_rows, outs, err = {}, {}, 0.0
         for r, ins in sorted(ins_by_rows.items()):
             got = outs[r] = kern(*ins)
@@ -676,26 +708,39 @@ def phase_kernels(dev):
                                      f"{edge_want[r]}")
             ms_by_rows[r] = _device_ms(lambda: kern(*ins))
         ins, got = ins_by_rows[rows], outs[rows]
+        more = {}
+        if fn_c == "fp12_cyc_pow_fixed":
+            # the power's squares alone, x^(2^(bits - 1)): what its product steps cost
+            sq = 1 << (extra["exponent"].bit_length() - 1)
+            if not torch.equal(FK.fp12_cyc_pow_fixed(ins[0], sq),
+                               FK.fp12_cyc_pow_fixed_plain(ins[0], sq)):
+                raise SystemExit(f"kernels: {name} disagrees with its plain version at "
+                                 f"e = 2^{sq.bit_length() - 1}")
+            more["ms_squares_only"] = _device_ms(lambda: FK.fp12_cyc_pow_fixed(ins[0], sq))
         eager_ms = _eager_ms(lambda: kern(*ins))
         # a plain chain is hundreds of plain products: one per graph
         plain_ms = _device_ms(lambda: plain(*ins),
                               reps=1 if fn_c in _build.EXPONENT_FNS else 20)
         bytes_per_row = 4 * (sum(t.numel() for t in ins) + got.numel()) // rows
         bound_ms, bound_by = _bound(bytes_per_row, ops_per_row, rows)
+        row_dims = extra.get("row_dims", (0,) * len(ins))
         results.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "c_function": fn_c, "rows": rows, "max_abs_err": err, "ms": ms_by_rows[rows],
             "ms_by_rows": ms_by_rows, "eager_ms": eager_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "bytes_per_row": bytes_per_row, "ops_per_row": ops_per_row,
-            "fns": (kern, plain), "row_shapes": [tuple(t.shape[1:]) for t in ins],
-            "exponent": chain and chain[0],
-            **({"least_chain": chain[1]} if chain else {}),
+            "fns": (kern, plain), "row_dims": row_dims,
+            "row_shapes": [tuple(t.shape[:d] + t.shape[d + 1:]) for t, d in zip(ins, row_dims)],
+            "exponent": extra.get("exponent"), "stack": extra.get("stack"),
+            **({"least_chain": extra["least_chain"]} if "least_chain" in extra else {}),
+            **more,
         })
     line = "; ".join(
         f"{r['name']} rows={r['rows']} equal=True ms={r['ms']:.6f} eager_ms={r['eager_ms']:.6f} "
         f"plain_ms={r['plain_ms']:.6f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']})"
         + (f" least_chain={r['least_chain']}" if "least_chain" in r else "")
+        + (f" ms_squares_only={r['ms_squares_only']:.6f}" if "ms_squares_only" in r else "")
         + (f" ms_by_rows={ {k: round(v, 6) for k, v in r['ms_by_rows'].items()} }"
            if len(r["ms_by_rows"]) > 1 else "")
         for r in results)
@@ -736,16 +781,21 @@ def phase_rows(dev, kernels) -> None:
                       - set(k["ms_by_rows"]))
 
         def draw(r):
+            # each operand's rows along its row dim (K11's lines: dim 1)
             return tuple(torch.from_numpy(
                 _rand_fr(rng, r) if shape == (8,)
-                else _rand_fp(rng, r, int(np.prod(shape[:-1])))
-            ).reshape((r,) + shape).to(dev) for shape in k["row_shapes"])
+                else _rand_fp(rng, r * int(np.prod(shape[:d])), int(np.prod(shape[d:-1])))
+            ).reshape(shape[:d] + (r,) + shape[d:]).to(dev)
+                for shape, d in zip(k["row_shapes"], k["row_dims"]))
+
+        def rows_of(ins, i, j):
+            return tuple(t.narrow(d, i, j - i).contiguous() for t, d in zip(ins, k["row_dims"]))
 
         def plain_of(ins):
             # row block by row block: the plain version's int64 columns at
             # the largest counts would not fit the card at once
             r = ins[0].shape[0]
-            return torch.cat([plain(*(t[i:i + PLAIN_ROWS] for t in ins))
+            return torch.cat([plain(*rows_of(ins, i, min(i + PLAIN_ROWS, r)))
                               for i in range(0, r, PLAIN_ROWS)])
 
         if rows:
@@ -756,7 +806,7 @@ def phase_rows(dev, kernels) -> None:
                 raise SystemExit(f"rows: {k['name']} disagrees with its plain version at "
                                  f"{rows[0]} rows on a draw of its own")
         for r in rows:
-            ins = tuple(t[:r] for t in whole)
+            ins = rows_of(whole, 0, r)
             got = kern(*ins)
             torch.cuda.synchronize()
             if not torch.equal(got, want[:r]):
@@ -769,29 +819,31 @@ def phase_rows(dev, kernels) -> None:
 
 def _launch_rows(k: dict) -> dict:
     """Per path, the kernel's launches in one call by row count; a power
-    chain's only those at its own exponent."""
-    fn, e = k["c_function"], k["exponent"]
-    if e is None:
+    chain's only those at its own exponent, K11's those at its own k."""
+    fn, e, st = k["c_function"], k["exponent"], k["stack"]
+    if e is None and st is None:
         return {path: rows[fn] for path, rows in ROWS_BY_PATH.items() if fn in rows}
+    key, by_path = (e, EXPS_BY_PATH) if e is not None else (st, STACKS_BY_PATH)
     out = {}
-    for path, chains in EXPS_BY_PATH.items():
-        rows = {r: c for (r, ee), c in sorted(chains.get(fn, {}).items()) if ee == e}
+    for path, keyed in by_path.items():
+        rows = {r: c for (r, kk), c in sorted(keyed.get(fn, {}).items()) if kk == key}
         if rows:
             out[path] = rows
     return out
 
 
 def _check_chains_timed(kernels) -> None:
-    """Fails if a path launched a power chain at an exponent that has no
-    entry in the kernels phase (then it was never held against its plain
-    version, nor timed)."""
-    have = {(k["c_function"], k["exponent"]) for k in kernels}
-    for path, chains in EXPS_BY_PATH.items():
-        for fn, counts in chains.items():
-            for _, e in counts:
-                if (fn, e) not in have:
-                    raise SystemExit(f"{path}: {fn} launched at an exponent the kernels phase "
-                                     f"did not check: {e:#x}")
+    """Fails if a path launched a power chain at an exponent, or K11 at a
+    line count k, that has no entry in the kernels phase (then it was never
+    held against its plain version, nor timed)."""
+    for field, by_path in (("exponent", EXPS_BY_PATH), ("stack", STACKS_BY_PATH)):
+        have = {(k["c_function"], k[field]) for k in kernels}
+        for path, keyed in by_path.items():
+            for fn, counts in keyed.items():
+                for _, key in counts:
+                    if (fn, key) not in have:
+                        raise SystemExit(f"{path}: {fn} launched at {field} {key:#x}, which "
+                                         f"the kernels phase did not check")
 
 
 def _weighted(k: dict) -> None:
@@ -822,6 +874,8 @@ def _path_launches(path: str, kernels) -> dict:
     ROWS_BY_PATH[path] = {k: dict(sorted(T.LAUNCH_ROWS[k].items())) for k in kernels}
     EXPS_BY_PATH[path] = {k: dict(T.LAUNCH_EXPONENTS[k]) for k in kernels
                           if k in T.LAUNCH_EXPONENTS}
+    STACKS_BY_PATH[path] = {k: dict(T.LAUNCH_STACKS[k]) for k in kernels
+                            if k in T.LAUNCH_STACKS}
     return launches
 
 
@@ -2173,7 +2227,7 @@ def phase_ac_rps(dev, trace: bool):
             "t2": (l2 == r2) is vec["verify_t2"] is False}
     _fail("ac_rps flow", flow)
     rows = [pres[1 + i % RPS_PRES] for i in range(SCHEME_B)]
-    ok, _, rep = _timed_path("ac_rps_verify", G2_PAIRING,
+    ok, _, rep = _timed_path("ac_rps_verify", G2_PAIRING + ("fp12_usqr",),
                              lambda: mod.verify_batch(m, attr, I, rows, keys.pk),
                              [lambda: mod.verify_batch(m, attr, I, rows, keys.pk)] * 2)
     host_rows = [0, 1, SCHEME_B // 2 + 1, SCHEME_B - 1]
@@ -2442,8 +2496,8 @@ def main() -> None:
                                  for path, rows in k["launch_rows_by_path"].items()}
         k["launches"] = sum(k["launches_by_path"].values())
         _weighted(k)
-        for key in ("c_function", "exponent", "rows", "bytes_per_row", "ops_per_row", "fns",
-                    "row_shapes"):
+        for key in ("c_function", "exponent", "stack", "rows", "bytes_per_row", "ops_per_row",
+                    "fns", "row_shapes", "row_dims"):
             k.pop(key)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

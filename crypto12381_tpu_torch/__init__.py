@@ -44,7 +44,7 @@ kernel, a CPU tensor runs the kernel's plain PyTorch version.
     ok = verify_batch(keys.pk, messages, sigs, mesh=mesh)     # each rank verifies its shard
 """
 
-from ._build import LAUNCH_EXPONENTS, LAUNCH_ROWS, LAUNCHES, reset_launches
+from ._build import LAUNCH_EXPONENTS, LAUNCH_ROWS, LAUNCH_STACKS, LAUNCHES, reset_launches
 from .api.batch import (G1Vec, G2Vec, GTVec, ZpVec, hash_to_g1, pair_prod, pair_prod_fixed,
                         pair_vec)
 from .api.elements import (G1Element, G1Pow, G2Element, GTElement, GTPair, ZpNumber, inverse,
@@ -64,8 +64,8 @@ __all__ = [
     "pair", "parse", "polynomial", "product_", "select_in", "serialize",
     "sum_",
     # the batched vectors, paths, schemes and launch counts
-    "LAUNCHES", "LAUNCH_EXPONENTS", "LAUNCH_ROWS", "G1Vec", "G2Vec", "GTVec", "ZpVec",
-    "ac_bbs", "ac_rbbs", "ac_rps", "bbs", "bbs04", "bbs_plus", "hash_to_g1", "key_gen",
+    "LAUNCHES", "LAUNCH_EXPONENTS", "LAUNCH_ROWS", "LAUNCH_STACKS", "G1Vec", "G2Vec", "GTVec",
+    "ZpVec", "ac_bbs", "ac_rbbs", "ac_rps", "bbs", "bbs04", "bbs_plus", "hash_to_g1", "key_gen",
     "mhac_bbs", "msm_g1", "pair_batch", "pair_prod", "pair_prod_fixed", "pair_vec",
     "pairing_affine", "ps", "randomnize", "reset_launches", "sign_batch", "sss",
     "verify_batch",

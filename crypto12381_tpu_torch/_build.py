@@ -7,13 +7,14 @@ All sources compile in parallel, one `nvcc` each.  Nothing here runs when
 the module is imported.
 
 Every C entry point takes its tensors' device pointers (a power chain then
-also a public exponent: a host pointer to its words and its bit length),
-the row count and a CUDA stream, launches on that stream, and returns
-`cudaGetLastError()`;
+also a public exponent: a host pointer to its words and its bit length; a
+kernel over stacked operands their count k), the row count and a CUDA
+stream, launches on that stream, and returns `cudaGetLastError()`;
 `launch` raises if that is not 0 and otherwise adds one to the kernel's
 launch count in `LAUNCHES`, to its count at that row count in
-`LAUNCH_ROWS`, and for a power chain to its count at that row count and
-exponent in `LAUNCH_EXPONENTS`.
+`LAUNCH_ROWS`, for a power chain to its count at that row count and
+exponent in `LAUNCH_EXPONENTS`, and for a stacked kernel to its count at
+that row count and k in `LAUNCH_STACKS`.
 """
 
 from __future__ import annotations
@@ -37,12 +38,16 @@ _LIBS_SPEC = {
     "fp": ("fp.cu", {"fp_mont_mul": 3, "fr_mont_mul": 3, "fp_pow_fixed": 2, "fr_pow_fixed": 2}),
     "tower": ("tower.cu", {"fp2_mul": 3, "fp2_sqr": 2, "fp6_mul": 3}),
     "curve": ("g1.cu", {"g1_madd": 3, "g1_add": 3, "g1_dbl": 2}),
-    "fp12": ("fp12.cu", {"fp12_mul": 3, "fp12_sqr": 2, "fp12_usqr": 2, "fp12_sparse_mul": 3}),
+    "fp12": ("fp12.cu", {"fp12_mul": 3, "fp12_sqr": 2, "fp12_usqr": 2, "fp12_sparse_mul": 3,
+                         "fp12_cyc_pow_fixed": 2}),
     "curve2": ("g2.cu", {"g2_madd": 3, "g2_add": 3, "g2_dbl": 2}),
 }
 _HEADERS = ("fp381.cuh", "tower.cuh", "curve.cuh")
 #: C functions that take a public exponent after their tensors
-EXPONENT_FNS = frozenset({"fp_pow_fixed", "fr_pow_fixed"})
+EXPONENT_FNS = frozenset({"fp_pow_fixed", "fr_pow_fixed", "fp12_cyc_pow_fixed"})
+#: C functions that take the count k of an operand stacked k deep (K11's
+#: lines) after their tensors
+STACK_FNS = frozenset({"fp12_sparse_mul"})
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -54,6 +59,8 @@ LAUNCHES = {fn: 0 for _, fns in _LIBS_SPEC.values() for fn in fns}
 LAUNCH_ROWS = {fn: collections.Counter() for fn in LAUNCHES}
 #: launches per power-chain function and (row count, exponent), counted by `launch`
 LAUNCH_EXPONENTS = {fn: collections.Counter() for fn in EXPONENT_FNS}
+#: launches per stacked kernel and (row count, k), counted by `launch`
+LAUNCH_STACKS = {fn: collections.Counter() for fn in STACK_FNS}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 #: library name -> nvcc's output (ptxas register and spill report)
@@ -64,7 +71,7 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
         LAUNCH_ROWS[k].clear()
-    for c in LAUNCH_EXPONENTS.values():
+    for c in (*LAUNCH_EXPONENTS.values(), *LAUNCH_STACKS.values()):
         c.clear()
 
 
@@ -126,7 +133,9 @@ def library(name: str) -> ctypes.CDLL:
         for fn, n_ptr in _LIBS_SPEC[name][1].items():
             f = getattr(lib, fn)
             exp = [ctypes.c_void_p, ctypes.c_int] if fn in EXPONENT_FNS else []
-            f.argtypes = [ctypes.c_void_p] * n_ptr + exp + [ctypes.c_int64, ctypes.c_void_p]
+            stack = [ctypes.c_int] if fn in STACK_FNS else []
+            f.argtypes = ([ctypes.c_void_p] * n_ptr + exp + stack
+                          + [ctypes.c_int64, ctypes.c_void_p])
             f.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
@@ -136,7 +145,7 @@ def _exponent_args(fn: str, exponent) -> list:
     """The exponent arguments of `fn`: [] for a kernel that takes none, else
     a host array of e's (bits + 31) // 32 words and e's bit length.  The C
     entry point alone holds the largest length it takes and refuses a
-    longer e (csrc/fp.cu `exponent_of`)."""
+    longer e (csrc/fp381.cuh `exponent_of`)."""
     if (exponent is not None) != (fn in EXPONENT_FNS):
         raise ValueError(f"{fn}: an exponent is {'' if fn in EXPONENT_FNS else 'not '}expected")
     if exponent is None:
@@ -149,13 +158,16 @@ def _exponent_args(fn: str, exponent) -> list:
     return [ctypes.cast(words, ctypes.c_void_p), e.bit_length()]
 
 
-def launch(lib_name: str, fn: str, tensors, n: int, exponent: int | None = None) -> None:
+def launch(lib_name: str, fn: str, tensors, n: int, exponent: int | None = None,
+           stack: int | None = None) -> None:
     """Launch `fn` over n rows on the current stream of the tensors' card.
     tensors: contiguous, 16-byte aligned int32 CUDA tensors on one device
     (inputs, then the output), n rows each; rows may differ in width between
     tensors (a mixed add reads a projective and an affine point).
     exponent: the public exponent of a power chain (EXPONENT_FNS), shared
-    by every row; the kernel gets it by value at the launch."""
+    by every row; the kernel gets it by value at the launch.
+    stack: the count k >= 1 of a stacked operand (STACK_FNS), whose tensor
+    holds k n rows."""
     dev = tensors[0].device
     for t in tensors:
         if (t.device != dev or dev.type != "cuda" or t.dtype != torch.int32
@@ -163,13 +175,18 @@ def launch(lib_name: str, fn: str, tensors, n: int, exponent: int | None = None)
             raise ValueError(f"{fn}: needs contiguous, 16-byte aligned int32 tensors of "
                              f"{n} rows on one CUDA device")
     exp = _exponent_args(fn, exponent)
+    if (stack is not None) != (fn in STACK_FNS) or (stack is not None and stack < 1):
+        raise ValueError(f"{fn}: a stack count >= 1 is {'' if fn in STACK_FNS else 'not '}"
+                         f"expected")
     f = getattr(library(lib_name), fn)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = f(*[t.data_ptr() for t in tensors], *exp, n, stream)
+        rc = f(*[t.data_ptr() for t in tensors], *exp, *([stack] if stack else []), n, stream)
     if rc != 0:
         raise RuntimeError(f"{fn}: kernel launch failed with CUDA error {rc}")
     LAUNCHES[fn] += 1
     LAUNCH_ROWS[fn][n] += 1
     if exponent is not None:
         LAUNCH_EXPONENTS[fn][(n, int(exponent))] += 1
+    if stack is not None:
+        LAUNCH_STACKS[fn][(n, stack)] += 1

@@ -49,19 +49,6 @@ mont_mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
   store<N>(out + i * N, x);
 }
 
-// A public exponent 1 <= e < 2^(32 EXP_WORDS): little-endian words and the
-// bit length.  Only this file fixes the limit: the host passes e's bit
-// length and (bits + 31) / 32 words, and `exponent_of` refuses a longer e.
-constexpr int EXP_WORDS = 12;
-struct Exponent {
-  uint32_t w[EXP_WORDS];
-  int bits;
-};
-
-__device__ __forceinline__ bool exp_bit(const Exponent& e, int k) {
-  return (e.w[k >> 5] >> (k & 31)) & 1u;
-}
-
 template <int N>
 __global__ void __launch_bounds__(THREADS)
 pow_fixed_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
@@ -77,15 +64,6 @@ pow_fixed_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
     if (exp_bit(e, k)) mont_mul<N>(acc, acc, xv);
   }
   store<N>(out + i * N, acc);
-}
-
-// e from its bit length and its (bits + 31) / 32 host words; false if the
-// bit length is outside [1, 32 EXP_WORDS].
-inline bool exponent_of(const uint32_t* words, int bits, Exponent* e) {
-  if (bits < 1 || bits > 32 * EXP_WORDS) return false;
-  for (int k = 0; k < EXP_WORDS; ++k) e->w[k] = k < (bits + 31) / 32 ? words[k] : 0u;
-  e->bits = bits;
-  return true;
 }
 
 extern "C" int fp_mont_mul(const void* a, const void* b, void* out, int64_t n, void* stream) {

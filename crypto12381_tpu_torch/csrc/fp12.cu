@@ -1,6 +1,8 @@
 // K8, K9, K10, K11: the Fp12 product, the Fp12 square, the cyclotomic
-// square and the product by a sparse Miller line, one whole Fp12
-// operation per instance.
+// square and the product by k sparse Miller lines, one whole Fp12
+// operation per instance; and the cyclotomic power x^e for a public
+// exponent e (the final exponentiation's g^|x|), the whole chain of K10
+// squares and K8 products in ONE launch.
 //
 // Replace the TPU programs of crypto12381_tpu/fields/fp32k.py that its
 // program table marks [xla-only]: `prog_fp12_mul` (K8), `prog_fp12_sqr`
@@ -9,7 +11,10 @@
 // small kernel (K4, K3 or K2) over row-stacked instances with the
 // cross-instance Karatsuba combines in plain XLA.  nvcc builds them whole,
 // so here the pre-sums, the products and every combine stay inside one
-// kernel and no intermediate leaves it.
+// kernel and no intermediate leaves it.  The power chain replaces the JAX
+// package's `_pow_abs_x` (crypto12381_tpu/pairing/pairing.py), 63 K10 and
+// 5 K8 programs in a row; K11 over k lines replaces its loop of k
+// `_mul_sparse` calls per Miller digit step.
 //
 // Algebra (x = a + b w with Fp6 halves a, b; v^3 = xi = 1 + i, w^2 = v):
 //   K8  x y = t0 + v t1 + (m - t0 - t1) w with t0 = a c, t1 = b d,
@@ -28,56 +33,124 @@
 //   K11 f (c0 + c3 w^3 + c5 w^5) = t0 + v t1 + (m - t0 - t1) w with
 //       t0 = a c0, t1 = (xi (b1 c5 + b2 c3), b0 c3 + xi b2 c5,
 //       b0 c5 + b1 c3) and m = (a + b)(c0, c3, c5) an Fp6 Karatsuba
-//       product: 15 Fp2 products, 45 Fp products.
+//       product: 15 Fp2 products, 45 Fp products per line; k lines are
+//       absorbed in order, f l_1 ... l_k;
+//   the power x^e: from the top bit of e down, a K10 square at each later
+//       bit and a K8 product by x at each set one (the JAX `_pow_abs_x`
+//       order): (bits - 1) x 18 + (set bits - 1) x 54 Fp products, for
+//       e = |x| = 0xd201000000010000 63 x 18 + 5 x 54 = 1,404.
 //
 // Bound on the card.  Per instance K8 reads 1,152 bytes and writes 576 for
-// 54 Fp products, K9 576 and 576 for 36, K10 576 and 576 for 18, K11 864
-// and 576 for 45, at 588 32-bit multiply-adds per product: 9 to 18
-// multiply-adds per byte, above the card's 5 (1.673e13 per s over
-// 3.35e12 bytes per s), so the integer multiply rate bounds all four.
+// 54 Fp products, K9 576 and 576 for 36, K10 576 and 576 for 18, K11 576 +
+// 288 k and 576 for 45 k, the power 576 and 576 for 1,404 (at e = |x|), at
+// 588 32-bit multiply-adds per product: 9 to 1,400 multiply-adds per byte,
+// above the card's 5 (1.673e13 per s over 3.35e12 bytes per s), so the
+// integer multiply rate bounds all of them: at 2,048 rows K10 0.00130 ms,
+// K11 0.00324 k ms, the power 0.1011 ms (0.0253 ms at 512 rows).  Tensor
+// cores do not apply: there is no 32-bit integer wgmma.  TMA and cp.async
+// do not matter for one stage-in of a few KB per launch; K11 prefetches
+// each later line with cp.async (below).
+//
 // One thread per instance would run 18 to 54 products as one dependent
 // chain in far too many registers (K4's 18 already spilled), at the
-// pairing's 2,048 rows a partial wave.
+// pairing's 2,048 rows a partial wave.  Each kernel therefore gives each
+// Fp product its own thread, as K2-K4 do (tower.cu): 54 (K8), 36 (K9), 18
+// (K10 and the power) or 45 (K11) threads per instance.  A block takes
+// consecutive instances and runs in phases with a barrier between each
+// two; each phase is a function of (phase, block, thread) that the
+// __global__ body only calls.  Pre-sums and combines loop w = tid,
+// tid + BLOCK, ... over their items, item w being coefficient w / ROWS of
+// instance w % ROWS.  A shared Fp12 row is padded from 576 to 592 bytes
+// and an Fp6 row from 288 to 304, so that the 16-byte accesses of 8
+// consecutive threads fall in 32 distinct banks (a product or an Fp2
+// value is 48 bytes, which does the same).  The last block of a ragged
+// launch masks its copies, products and combines; every thread reaches
+// every barrier.
 //
-// Each kernel therefore gives each Fp product its own thread, as K2-K4 do
-// (tower.cu): 54 (K8), 36 (K9), 18 (K10) or 45 (K11) threads per
-// instance.  A block takes K*_ROWS consecutive instances and runs in
-// phases with a barrier between each two:
-//   stage    the block's span of each operand into shared memory, 16 bytes
-//            per thread, consecutive threads on consecutive bytes;
-//   pre-sum  the reduced sums the products take: K8 a + b and c + d, K9
-//            a + b and a + v b, K10 X_j + Y_j, K11 a + b, its pair sums
-//            and the line's pair sums, one Fp coefficient per item;
-//   product  each thread forms its two operands from shared memory (the
-//            Fp2 Karatsuba's raw sum included), runs mont_mul (fp381.cuh:
-//            the CIOS product of K1) and writes the product back;
-//   combine  the Fp2 Karatsuba combines (K8, K9, K11), then the Fp6 ones
-//            (K8, K9: fp6_coeff; K11: t0, t1 and m), then the Fp12 one,
-//            one Fp coefficient per item; K10 has one combine phase;
-//   store    the outputs from shared memory, 16 bytes per thread.
-// Pre-sums and combines loop w = tid, tid + BLOCK, ... over their items,
-// item w being coefficient w / ROWS of instance w % ROWS.  Each phase is a
-// function of (phase, block, thread) that the __global__ body only calls,
-// with a barrier after each.  Shared memory per block: K8 35,072 bytes,
-// K9 23,424, K10 32,768, K11 31,744, each later phase writing over what
-// is dead by then (the layouts below).  A shared Fp12 row is padded from
-// 576 to 592 bytes and an Fp6 row from 288 to 304, so that the 16-byte
-// accesses of 8 consecutive threads fall in 32 distinct banks.  The last
-// block of a ragged launch masks its copies, pre-sums, products and
-// combines; every thread reaches every barrier.
+// K8 and K9 (8 instances per block): stage; pre-sum (K8 a + b and c + d,
+// K9 a + b and a + v b); product (the thread forms its two operands, the
+// Fp2 Karatsuba's raw sum included, runs mont_mul, fp381.cuh's CIOS
+// product of K1, and writes the product back); the Fp2, Fp6 and Fp12
+// combines; store.  Shared memory K8 35,072 bytes, K9 23,424, later phases
+// writing over what is dead by then.
+//
+// K10, K11 and the power were redesigned after their first form sat at
+// about 0.011 ms per launch at any row count up to 1,024 rows, 5-10x their
+// bounds: the launch, the stage, one product's latency and every
+// barrier-separated phase.  Their designs:
+//   - the instances per block R are a template parameter, 8, 4 or 2,
+//     picked from n (rows_per_block): at least 128 blocks where n allows,
+//     so 512 rows make 128 blocks of 4 (the first form's 16 per block made
+//     32 blocks on 132 SMs); __launch_bounds__ asks for 2 blocks per SM,
+//     so that 2,048 rows (256 blocks of 8) run in one wave;
+//   - pre-sums are formed by the product's own thread from shared memory
+//     (K10's X_j + Y_j, K11's a_j + b_j, their pair sums and the line's
+//     pair sums, the power's pair sums of a + b), a predicated sum of up
+//     to four values (sum_at), so there is no pre-sum phase;
+//   - a combine computes each output coefficient as one signed sum of the
+//     products, a row of a table (USQR, CYCMUL, SPARSE, generated from the
+//     algebra by tools/fp12_tables.py), and writes it over its input Fp12
+//     row in place: each output depends only on the products and, in
+//     K10, on its own input coefficient.  Consecutive threads of a warp
+//     hold different outputs (item w is output w / R of instance w % R),
+//     so branchy combines serialise; a table row runs the same
+//     instructions on every thread.  A first form with branchy combines
+//     and a K11 merged through nested lambdas took 2.5x as long on the
+//     card (K11 0.0415 ms at 2,048 rows, 148 registers);
+//   - K10's product thread forms both coefficients' operands of its Fp2
+//     square and selects one, for the same reason.
+// K10: stage, product, combine, store (4 phases; 5 before).  K11: stage f
+// and line 0; per line s a product phase, which also issues the cp.async
+// copies of line s + 1 into the other slot of a two-line ring, and one
+// combine phase (the Fp2, Fp6 and Fp12 combines in one table sum over the
+// 45 products), which then waits for its copies; store: 2 k + 2 phases
+// (7 per line before).
+// The power: stage x twice (the fixed operand X and the accumulator A)
+// and x's half sum c + d (read from device memory by its own thread);
+// per bit a K10 square of A (its product and combine phases, the very
+// functions of the single-step K10) and at a set bit a product A x in two
+// phases: each of the 18 threads of an instance runs one Fp2 Karatsuba
+// product of the three Fp6 products (3 independent Fp products and the Fp2
+// combine in registers), then one table sum per output coefficient over
+// the 18 Fp2 products (the Fp6 and Fp12 combines); store.  Nothing leaves
+// the block between steps, and the block keeps K10's 18 threads per
+// instance: a product step does three products per thread, once per set
+// bit (5 of the 68 steps at |x|), where a block sized for 54 would idle
+// two thirds of its threads through the 63 squares.  On an H100 (700 W)
+// the 5 product steps took 0.114 of the 0.501 ms of x^|x| at 2,048 rows
+// (chip_smoke.py's ms_squares_only times x^(2^63), the 63 squares alone).
+// The exponent is a kernel argument (fp381.cuh `Exponent`), so every
+// branch on its bits is uniform.  What bounds the power at 2,048 rows is
+// the product itself: mont_mul's 64-bit-accumulator CIOS runs at about
+// 7e9 products per s on the card (K8 at 16,384 rows), a quarter of the
+// 588-multiply-adds-per-product bound, and x^|x| there is 2.9e6 products;
+// at 512 rows it is one product's latency per step.
+//
+// Shared memory per block (limbs), R instances:
+//   K10    X (R rows of 148), Q: the 18 products of each instance, Q[q][i];
+//          R = 8: 11,648 bytes;
+//   power  X, A (R rows of 148 each), XS: c + d (R rows of 76), Q: 18 Fp
+//          products (a square) or 18 Fp2 products as 36 Fp values (a
+//          product) per instance; R = 8: 25,728 bytes;
+//   K11    F: the accumulator (R rows of 148), LN: two line slots of R rows
+//          of 76, T: the 45 products T[q][i]; R = 8: 26,880 bytes.
 //
 // Bound proof of the product operands.  Every pre-sum is add_mod of
 // canonical values (xi b2 in K9's a + v b is a sub_mod and an add_mod),
 // so canonical.  A product's operand is then a canonical coefficient or,
-// as the third operand of an Fp2 Karatsuba (kara_operand, fp6_operand),
-// the raw sum of two canonical values, below 2p; K10's operands are
-// canonical, their difference (sub_mod) or raw sums of two canonical
-// values, as in K3.  mont_mul takes operands below 2p.  The combines are
-// add_mod and sub_mod of canonical values, so every output is canonical.
+// as the third operand of an Fp2 Karatsuba (kara_operand, fp6_operand,
+// the power's in-register Karatsuba), the raw sum of two canonical
+// values, below 2p; K10's operands are canonical, their difference
+// (sub_mod) or raw sums of two canonical values, as in K3.  mont_mul takes
+// operands below 2p and returns canonical values.  The combines are
+// add_mod and sub_mod of canonical values, so every output, and every
+// accumulator between the power's steps, is canonical.
 //
 // Layouts (int32 limbs, row-major, contiguous, 16-byte aligned): Fp12
-// (n, 2, 3, 2, 12), the line (n, 3, 2, 12) as c0, c3, c5.  Operands are
-// canonical; outputs are canonical.
+// (n, 2, 3, 2, 12), the lines (k, n, 3, 2, 12) as c0, c3, c5.  Operands
+// are canonical; outputs are canonical.
+
+#include <type_traits>
 
 #include "fp381.cuh"
 #include "tower.cuh"
@@ -309,104 +382,366 @@ fp12_sqr_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out, int6
   }
 }
 
+// ------------------------------------------------------ combine tables
+//
+// Generated by tools/fp12_tables.py; each row's signed sum is the output.
+// USQR: per output, the square coefficients Q[2 s + k] (times 3, then -/+ 2 x_o) it adds and subtracts
+constexpr int USQR_POS = 3, USQR_NEG = 4;
+__device__ const uint8_t USQR_ADD[12][3] = {
+    {0, 6, 255},
+    {0, 1, 7},
+    {2, 8, 255},
+    {2, 3, 9},
+    {4, 10, 255},
+    {4, 5, 11},
+    {5, 11, 16},
+    {16, 17, 255},
+    {12, 255, 255},
+    {13, 255, 255},
+    {14, 255, 255},
+    {15, 255, 255},
+};
+__device__ const uint8_t USQR_SUB[12][4] = {
+    {1, 255, 255, 255},
+    {255, 255, 255, 255},
+    {3, 255, 255, 255},
+    {255, 255, 255, 255},
+    {5, 255, 255, 255},
+    {255, 255, 255, 255},
+    {4, 10, 17, 255},
+    {4, 5, 10, 11},
+    {0, 6, 255, 255},
+    {1, 7, 255, 255},
+    {2, 8, 255, 255},
+    {3, 9, 255, 255},
+};
+// CYCMUL: per output, the Fp2 product components W[2 pp + g] it adds and subtracts
+constexpr int CYCMUL_POS = 11, CYCMUL_NEG = 11;
+__device__ const uint8_t CYCMUL_ADD[12][11] = {
+    {0, 3, 5, 8, 13, 14, 17, 22, 255, 255, 255},
+    {1, 8, 9, 14, 15, 22, 23, 255, 255, 255, 255},
+    {4, 6, 12, 15, 17, 20, 255, 255, 255, 255, 255},
+    {4, 5, 7, 13, 20, 21, 255, 255, 255, 255, 255},
+    {2, 10, 16, 18, 255, 255, 255, 255, 255, 255, 255},
+    {3, 11, 16, 17, 19, 255, 255, 255, 255, 255, 255},
+    {2, 4, 9, 14, 16, 21, 24, 27, 29, 32, 255},
+    {2, 3, 4, 5, 14, 15, 16, 17, 25, 32, 33},
+    {0, 2, 5, 12, 14, 17, 28, 30, 255, 255, 255},
+    {1, 3, 13, 15, 28, 29, 31, 255, 255, 255, 255},
+    {0, 4, 12, 16, 26, 34, 255, 255, 255, 255, 255},
+    {1, 5, 13, 17, 27, 35, 255, 255, 255, 255, 255},
+};
+__device__ const uint8_t CYCMUL_SUB[12][11] = {
+    {2, 4, 9, 12, 15, 16, 23, 255, 255, 255, 255},
+    {2, 3, 4, 5, 12, 13, 16, 17, 255, 255, 255},
+    {0, 2, 5, 14, 16, 21, 255, 255, 255, 255, 255},
+    {1, 3, 14, 15, 16, 17, 255, 255, 255, 255, 255},
+    {0, 4, 12, 14, 17, 255, 255, 255, 255, 255, 255},
+    {1, 5, 13, 15, 255, 255, 255, 255, 255, 255, 255},
+    {0, 3, 5, 8, 12, 15, 17, 20, 26, 28, 33},
+    {1, 8, 9, 13, 20, 21, 26, 27, 28, 29, 255},
+    {4, 6, 16, 18, 24, 26, 29, 255, 255, 255, 255},
+    {4, 5, 7, 16, 17, 19, 25, 27, 255, 255, 255},
+    {2, 10, 14, 22, 24, 28, 255, 255, 255, 255, 255},
+    {3, 11, 15, 23, 25, 29, 255, 255, 255, 255, 255},
+};
+// SPARSE: per output, the Fp products T[3 p + k] it adds and subtracts
+constexpr int SPARSE_POS = 12, SPARSE_NEG = 11;
+__device__ const uint8_t SPARSE_ADD[12][12] = {
+    {0, 21, 21, 24, 24, 255, 255, 255, 255, 255, 255, 255},
+    {2, 23, 26, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+    {3, 9, 9, 12, 12, 255, 255, 255, 255, 255, 255, 255},
+    {5, 11, 14, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+    {6, 15, 18, 18, 255, 255, 255, 255, 255, 255, 255, 255},
+    {8, 17, 20, 255, 255, 255, 255, 255, 255, 255, 255, 255},
+    {1, 11, 14, 27, 32, 35, 39, 39, 255, 255, 255, 255},
+    {0, 1, 10, 10, 13, 13, 29, 31, 31, 34, 34, 41},
+    {4, 16, 20, 28, 31, 33, 33, 36, 255, 255, 255, 255},
+    {3, 4, 15, 16, 19, 19, 27, 28, 30, 31, 35, 38},
+    {7, 22, 25, 28, 30, 34, 42, 255, 255, 255, 255, 255},
+    {6, 7, 21, 22, 24, 25, 27, 28, 32, 33, 34, 44},
+};
+__device__ const uint8_t SPARSE_SUB[12][11] = {
+    {1, 23, 26, 255, 255, 255, 255, 255, 255, 255, 255},
+    {0, 1, 22, 22, 25, 25, 255, 255, 255, 255, 255},
+    {4, 11, 14, 255, 255, 255, 255, 255, 255, 255, 255},
+    {3, 4, 10, 10, 13, 13, 255, 255, 255, 255, 255},
+    {7, 16, 20, 255, 255, 255, 255, 255, 255, 255, 255},
+    {6, 7, 15, 16, 19, 19, 255, 255, 255, 255, 255},
+    {0, 9, 9, 12, 12, 28, 30, 30, 33, 33, 41},
+    {2, 11, 14, 27, 28, 32, 35, 40, 40, 255, 255},
+    {3, 15, 18, 18, 27, 30, 35, 37, 255, 255, 255},
+    {5, 17, 20, 29, 32, 34, 34, 36, 37, 255, 255},
+    {6, 21, 24, 27, 31, 33, 43, 255, 255, 255, 255},
+    {8, 23, 26, 29, 30, 31, 35, 42, 43, 255, 255},
+};
+
+// ------------------------------------- K10, the power and K11: shared pieces
+
+// Instances per block of K10, K11 and the power at n rows: the largest of
+// 8, 4, 2 that still makes at least 128 blocks (the card's 132 SMs, less a
+// ragged margin), else 2.
+inline int rows_per_block(int64_t n) {
+  return n >= 8 * 128 ? 8 : (n >= 4 * 128 ? 4 : 2);
+}
+
+// The coefficients (l1, l2) of pair j = 0, 1, 2 of an Fp6 Karatsuba:
+// (0, 1), (1, 2), (0, 2).
+__device__ __forceinline__ int pair_lo(int j) { return j == 1 ? 1 : 0; }
+__device__ __forceinline__ int pair_hi(int j) { return j == 0 ? 1 : 2; }
+
+// r = the sum of the n <= 4 shared Fp values at x + off[t], reduced.
+__device__ __forceinline__ void sum_at(uint32_t* r, const uint32_t* x, const int* off, int n) {
+  ld_fp(r, x + off[0]);
+#pragma unroll
+  for (int t = 1; t < 4; ++t)
+    if (t < n) add_sh(r, x + off[t]);
+}
+
+// r = sum of v[a[t] d] - sum of v[b[t] d] over a row of a combine table (a
+// and b padded with 255): the same instructions on every thread whatever
+// its row, the two sums in two independent chains.
+template <int NA, int NB>
+__device__ __forceinline__ void signed_sum(uint32_t* r, const uint32_t* v, int d, const uint8_t* a,
+                                           const uint8_t* b) {
+  uint32_t s[NL], y[NL];
+#pragma unroll
+  for (int k = 0; k < NL; ++k) r[k] = s[k] = 0;
+#pragma unroll
+  for (int t = 0; t < (NA > NB ? NA : NB); ++t) {
+    if (t < NA && a[t] != 255) {
+      ld_fp(y, v + a[t] * d);
+      add_mod<NL>(r, r, y);
+    }
+    if (t < NB && b[t] != 255) {
+      ld_fp(y, v + b[t] * d);
+      add_mod<NL>(s, s, y);
+    }
+  }
+  sub_mod<NL>(r, r, s);
+}
+
+
 // ------------------------------------------------------------ K10
 
-constexpr int K10_ROWS = 16;                     // instances per block
-constexpr int K10_BLOCK = 18 * K10_ROWS;         // one thread per Fp product
-// shared layout (limbs): operand X; pre-sums P (rows X_0 + Y_0,
-// X_1 + Y_1, X_2 + Y_2); the squares' coefficients Q[2 s + k][i]; the
-// outputs over P
-constexpr int K10_X = 0, K10_P = K10_ROWS * S12, K10_Q = 2 * K10_ROWS * S12;
-constexpr int K10_O = K10_P;
-constexpr int K10_SMEM = K10_Q + 18 * K10_ROWS * NL;
-constexpr int K10_PHASES = 5;
+// Layout of the single-step K10 at R instances per block (limbs): operand
+// X (R rows of S12), the combine writing over it; the squares'
+// coefficients Q[2 s + k][i].
+template <int R>
+struct K10 {
+  static constexpr int BLOCK = 18 * R;       // one thread per Fp product
+  static constexpr int X = 0, Q = R * S12;
+  static constexpr int SMEM = Q + 18 * R * NL;
+  static constexpr int PHASES = 4;
+};
 
 // Offsets in an Fp12 row of the Granger-Scott pair (X_j, Y_j): (b1, a0),
 // (a2, b0), (b2, a1).
 __device__ __forceinline__ int gs_x(int j) { return j == 1 ? 2 * F2 : F6 + (j / 2 + 1) * F2; }
 __device__ __forceinline__ int gs_y(int j) { return j == 0 ? 0 : (j == 1 ? F6 : F2); }
 
-// Phase `ph` of K10 for thread `tid` of block `blk`.
+// The product phase of the cyclotomic square of the Fp12 rows x (R rows of
+// S12) into q: thread tid = qq R + i computes coefficient qq % 2 of square
+// s = qq / 2 = 3 g + j of instance i, X_j^2 (g = 0), Y_j^2 (1) or
+// (X_j + Y_j)^2 (2), the sum formed here; both coefficients' operands
+// are formed and one selected, so a warp's threads stay on one path.
+template <int R>
+__device__ __forceinline__ void usqr_product(const uint32_t* x, uint32_t* q, int rows, int tid) {
+  const int qq = tid / R, i = tid % R, s = qq / 2, j = s % 3;
+  if (i >= rows) return;
+  const uint32_t* a = x + i * S12;
+  const uint32_t* z = a + (s < 3 || s >= 6 ? gs_x(j) : gs_y(j));
+  uint32_t z0[NL], z1[NL], u[NL], v[NL], w[NL];
+  ld_fp(z0, z);
+  ld_fp(z1, z + NL);
+  if (s >= 6) {                             // X_j + Y_j
+    add_sh(z0, a + gs_y(j));
+    add_sh(z1, a + gs_y(j) + NL);
+  }
+  add_raw<NL>(u, z0, z1);                   // coefficient 0: (z0 + z1)(z0 - z1)
+  sub_mod<NL>(v, z0, z1);
+  add_raw<NL>(w, z1, z1);                   // coefficient 1: z0 (z1 + z1)
+  const bool odd = qq & 1;
+#pragma unroll
+  for (int k = 0; k < NL; ++k) {
+    u[k] = odd ? z0[k] : u[k];
+    v[k] = odd ? w[k] : v[k];
+  }
+  mont_mul<NL>(u, u, v);
+  st_fp(q + tid * NL, u);
+}
+
+// The combine phase of the cyclotomic square: output coefficient o of
+// instance i, 3 u_o -/+ 2 x_o with u_o the row o of USQR over the products
+// q, written over x_o.
+template <int R>
+__device__ __forceinline__ void usqr_combine(uint32_t* x, const uint32_t* q, int rows, int tid) {
+  const int o = tid / R, i = tid % R;
+  if (o >= 12 || i >= rows) return;
+  uint32_t u[NL], r[NL], d[NL];
+  signed_sum<USQR_POS, USQR_NEG>(u, q + i * NL, R * NL, USQR_ADD[o], USQR_SUB[o]);
+  add_mod<NL>(r, u, u);
+  add_mod<NL>(r, r, u);
+  uint32_t* xo = x + i * S12 + o * NL;
+  ld_fp(d, xo);
+  add_mod<NL>(d, d, d);
+  add_mod<NL>(u, r, d);                     // 3 u + 2 x (o >= 6)
+  sub_mod<NL>(r, r, d);                     // 3 u - 2 x (o < 6)
+#pragma unroll
+  for (int k = 0; k < NL; ++k) r[k] = o < 6 ? r[k] : u[k];
+  st_fp(xo, r);
+}
+
+// Phase `ph` of K10 for thread `tid` of block `blk`: stage, product,
+// combine, store.
+template <int R>
 __device__ __forceinline__ void fp12_usqr_phase(int ph, uint32_t* sm, const uint32_t* x,
                                                 uint32_t* out, int64_t n, int64_t blk, int tid) {
-  const int64_t row0 = blk * K10_ROWS;
-  const int rows = block_rows(n, blk, K10_ROWS);
-  if (ph == 0) {                            // stage
-    stage_in<F12, S12, K10_BLOCK>(sm + K10_X, x + row0 * F12, rows, tid);
-  } else if (ph == 1) {                     // pre-sum e = 2 j + f of instance i
-    for (int w = tid; w < 6 * K10_ROWS; w += K10_BLOCK) {
-      const int e = w / K10_ROWS, i = w % K10_ROWS;
-      if (i < rows) {
-        const uint32_t* a = sm + K10_X + i * S12 + e % 2 * NL;
-        uint32_t r[NL];
-        ld_fp(r, a + gs_x(e / 2));
-        add_sh(r, a + gs_y(e / 2));
-        st_fp(sm + K10_P + i * S12 + e * NL, r);
-      }
-    }
-  } else if (ph == 2) {                     // coefficient k of square s = 3 g + j
-    const int q = tid / K10_ROWS, i = tid % K10_ROWS, s = q / 2, j = s % 3;
-    if (i < rows) {                         // g = 0: X_j^2, 1: Y_j^2, 2: (X_j + Y_j)^2
-      const uint32_t* a = sm + K10_X + i * S12;
-      const uint32_t* z = s < 3 ? a + gs_x(j) : (s < 6 ? a + gs_y(j) : sm + K10_P + i * S12 + j * F2);
-      uint32_t z0[NL], y[NL];
-      ld_fp(z0, z);
-      ld_fp(y, z + NL);
-      if (q % 2 == 0) {                     // (z0 + z1)(z0 - z1)
-        uint32_t t[NL];
-        add_raw<NL>(t, z0, y);
-        sub_mod<NL>(y, z0, y);
-        mont_mul<NL>(y, t, y);
-      } else {                              // z0 (z1 + z1)
-        add_raw<NL>(y, y, y);
-        mont_mul<NL>(y, z0, y);
-      }
-      st_fp(sm + K10_Q + tid * NL, y);
-    }
-  } else if (ph == 3) {                     // output coefficient o of instance i
-    for (int w = tid; w < 12 * K10_ROWS; w += K10_BLOCK) {
-      const int o = w / K10_ROWS, i = w % K10_ROWS, c = o % 6 / 2, f = o % 2;
-      if (i < rows) {
-        // component g of square 3 g' + j, and of the cross term C_j
-        auto sq = [=](int gg, int j, int g) {
-          return sm + K10_Q + ((2 * (3 * gg + j) + g) * K10_ROWS + i) * NL; };
-        auto cross = [=](uint32_t* r, int j, int g) {
-          ld_fp(r, sq(2, j, g));
-          sub_sh(r, sq(0, j, g));
-          sub_sh(r, sq(1, j, g));
-        };
-        uint32_t u[NL], r[NL], d[NL];
-        if (o < 6) {                        // U_c = xi X_c^2 + Y_c^2
-          xi_coeff(u, sq(0, c, 0), sq(0, c, 1), f);
-          add_sh(u, sq(1, c, f));
-        } else if (c == 0) {                // xi C_2
-          cross(u, 2, 0);
-          cross(d, 2, 1);
-          if (f == 0) sub_mod<NL>(u, u, d); else add_mod<NL>(u, u, d);
-        } else {                            // C_0, C_1
-          cross(u, c - 1, f);
-        }
-        add_mod<NL>(r, u, u);               // 3 u -/+ 2 x_o
-        add_mod<NL>(r, r, u);
-        ld_fp(d, sm + K10_X + i * S12 + o * NL);
-        add_mod<NL>(d, d, d);
-        if (o < 6) sub_mod<NL>(r, r, d); else add_mod<NL>(r, r, d);
-        st_fp(sm + K10_O + i * S12 + o * NL, r);
-      }
-    }
-  } else {                                  // store
-    stage_out<F12, S12, K10_BLOCK>(out + row0 * F12, sm + K10_O, rows, tid);
+  using L = K10<R>;
+  const int64_t row0 = blk * R;
+  const int rows = block_rows(n, blk, R);
+  if (ph == 0) stage_in<F12, S12, L::BLOCK>(sm + L::X, x + row0 * F12, rows, tid);
+  else if (ph == 1) usqr_product<R>(sm + L::X, sm + L::Q, rows, tid);
+  else if (ph == 2) usqr_combine<R>(sm + L::X, sm + L::Q, rows, tid);
+  else stage_out<F12, S12, L::BLOCK>(out + row0 * F12, sm + L::X, rows, tid);
+}
+
+template <int R>
+__global__ void __launch_bounds__(K10<R>::BLOCK, 2)
+fp12_usqr_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out, int64_t n) {
+  __shared__ __align__(16) uint32_t sm[K10<R>::SMEM];
+#pragma unroll
+  for (int ph = 0; ph < K10<R>::PHASES; ++ph) {
+    fp12_usqr_phase<R>(ph, sm, x, out, n, blockIdx.x, threadIdx.x);
+    if (ph + 1 < K10<R>::PHASES) __syncthreads();
   }
 }
 
-__global__ void __launch_bounds__(K10_BLOCK)
-fp12_usqr_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out, int64_t n) {
-  __shared__ __align__(16) uint32_t sm[K10_SMEM];
-#pragma unroll
-  for (int ph = 0; ph < K10_PHASES; ++ph) {
-    fp12_usqr_phase(ph, sm, x, out, n, blockIdx.x, threadIdx.x);
-    if (ph + 1 < K10_PHASES) __syncthreads();
+// ---------------------------------------- the cyclotomic power x^e
+
+// Layout at R instances per block (limbs): x's rows X and the accumulator
+// A (R rows of S12 each), x's half sum c + d XS (R rows of S6), and Q:
+// the 18 products of a square, or the 18 Fp2 products W[2 pp + g][i] of a
+// product step (pp = 6 k + p: pair p of Fp6 product k).
+template <int R>
+struct CycPow {
+  static constexpr int BLOCK = 18 * R;       // K10's threads
+  static constexpr int X = 0, A = R * S12, XS = 2 * R * S12, Q = XS + R * S6;
+  static constexpr int SMEM = Q + 36 * R * NL;
+};
+
+// The power's phases.
+enum { CP_STAGE, CP_SQR_PRODUCT, CP_SQR_COMBINE, CP_MUL_PRODUCT, CP_MUL_COMBINE, CP_STORE };
+
+// Calls run(phase) for each phase of x^e in order: the stage, a square
+// (two phases) at each bit after the top one and a product by x (two
+// phases) after it where the bit is set, the store.  The kernel puts a
+// barrier after each; the host harness runs the same sequence.
+template <class Run>
+__device__ __forceinline__ void cyc_pow_schedule(const Exponent& e, Run&& run) {
+  run(CP_STAGE);
+#pragma unroll 1
+  for (int k = e.bits - 2; k >= 0; --k) {
+    run(CP_SQR_PRODUCT);
+    run(CP_SQR_COMBINE);
+    if (exp_bit(e, k)) {
+      run(CP_MUL_PRODUCT);
+      run(CP_MUL_COMBINE);
+    }
   }
+  run(CP_STORE);
+}
+
+// Component f of pair p's pre-sum of an Fp6 value in shared memory at x,
+// or with nh = 2 of the sum of the two at x and x + F6: the pair's one or
+// two coefficients of each, added (up to 4 values, fp6_presum's sum).
+__device__ __forceinline__ void pair_sum(uint32_t* r, const uint32_t* x, int nh, int p, int f) {
+  const int ja = p < 3 ? p : pair_lo(p - 3), jb = p < 3 ? p : pair_hi(p - 3);
+  const int off[4] = {ja * F2 + f * NL, (nh == 1 ? jb * F2 : F6 + ja * F2) + f * NL,
+                      jb * F2 + f * NL, F6 + jb * F2 + f * NL};
+  sum_at(r, x, off, nh * (p < 3 ? 1 : 2));
+}
+
+// Phase `ph` of the power for thread `tid` of block `blk`.
+template <int R>
+__device__ __forceinline__ void fp12_cyc_pow_phase(int ph, uint32_t* sm, const uint32_t* x,
+                                                   uint32_t* out, int64_t n, int64_t blk,
+                                                   int tid) {
+  using L = CycPow<R>;
+  const int64_t row0 = blk * R;
+  const int rows = block_rows(n, blk, R);
+  if (ph == CP_STAGE) {                     // X = A = x; XS = c + d from device memory
+    stage_in<F12, S12, L::BLOCK>(sm + L::X, x + row0 * F12, rows, tid);
+    stage_in<F12, S12, L::BLOCK>(sm + L::A, x + row0 * F12, rows, tid);
+    const int e = tid / R, i = tid % R;
+    if (e < 6 && i < rows) {
+      const uint32_t* g = x + (row0 + i) * F12 + e * NL;
+      uint32_t r[NL], s[NL];
+      load<NL>(r, g);
+      load<NL>(s, g + F6);
+      add_mod<NL>(r, r, s);
+      st_fp(sm + L::XS + i * S6 + e * NL, r);
+    }
+  } else if (ph == CP_SQR_PRODUCT) {
+    usqr_product<R>(sm + L::A, sm + L::Q, rows, tid);
+  } else if (ph == CP_SQR_COMBINE) {
+    usqr_combine<R>(sm + L::A, sm + L::Q, rows, tid);
+  } else if (ph == CP_MUL_PRODUCT) {        // Fp2 product p of Fp6 product k of A x
+    const int pp = tid / R, i = tid % R, k = pp / 6, p = pp % 6;
+    if (i < rows) {                         // k = 0: a c, 1: b d, 2: (a + b)(c + d)
+      const uint32_t* a = sm + L::A + i * S12 + (k == 1 ? F6 : 0);
+      const uint32_t* y = k < 2 ? sm + L::X + i * S12 + k * F6 : sm + L::XS + i * S6;
+      const int nh = k == 2 ? 2 : 1;
+      uint32_t l0[NL], l1[NL], r0[NL], r1[NL], t0[NL], t1[NL];
+      pair_sum(l0, a, nh, p, 0);
+      pair_sum(l1, a, nh, p, 1);
+      pair_sum(r0, y, 1, p, 0);
+      pair_sum(r1, y, 1, p, 1);
+      mont_mul<NL>(t0, l0, r0);             // l0 r0, l1 r1, (l0 + l1)(r0 + r1)
+      mont_mul<NL>(t1, l1, r1);
+      add_raw<NL>(l0, l0, l1);
+      add_raw<NL>(r0, r0, r1);
+      mont_mul<NL>(l1, l0, r0);
+      uint32_t* o = sm + L::Q + (2 * pp * R + i) * NL;
+      sub_mod<NL>(r1, t0, t1);              // re = t0 - t1
+      st_fp(o, r1);
+      add_mod<NL>(t0, t0, t1);              // im = t2 - t0 - t1
+      sub_mod<NL>(l1, l1, t0);
+      st_fp(o + R * NL, l1);
+    }
+  } else if (ph == CP_MUL_COMBINE) {        // output coefficient o of A x, over A
+    const int o = tid / R, i = tid % R;
+    if (o < 12 && i < rows) {
+      uint32_t r[NL];
+      signed_sum<CYCMUL_POS, CYCMUL_NEG>(r, sm + L::Q + i * NL, R * NL, CYCMUL_ADD[o],
+                                         CYCMUL_SUB[o]);
+      st_fp(sm + L::A + i * S12 + o * NL, r);
+    }
+  } else {                                  // store
+    stage_out<F12, S12, L::BLOCK>(out + row0 * F12, sm + L::A, rows, tid);
+  }
+}
+
+// Runs one phase of the power and a barrier (the schedule's callback).
+template <int R>
+struct CycPowStep {
+  uint32_t* sm;
+  const uint32_t* x;
+  uint32_t* out;
+  int64_t n;
+  __device__ __forceinline__ void operator()(int ph) {
+    fp12_cyc_pow_phase<R>(ph, sm, x, out, n, blockIdx.x, threadIdx.x);
+    __syncthreads();
+  }
+};
+
+template <int R>
+__global__ void __launch_bounds__(CycPow<R>::BLOCK, 2)
+fp12_cyc_pow_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+                    const __grid_constant__ Exponent e, int64_t n) {
+  __shared__ __align__(16) uint32_t sm[CycPow<R>::SMEM];
+  CycPowStep<R> step{sm, x, out, n};
+  cyc_pow_schedule(e, step);
 }
 
 // ------------------------------------------------------------ K11
@@ -421,161 +756,180 @@ fp12_usqr_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out, int
 __constant__ uint8_t K11_LHS[15] = {0, 1, 2, 4, 5, 3, 5, 3, 4, 6, 7, 8, 9, 10, 11};
 __constant__ uint8_t K11_RHS[15] = {0, 0, 0, 2, 1, 1, 2, 2, 1, 0, 1, 2, 3, 4, 5};
 
-constexpr int K11_ROWS = 8;                      // instances per block
-constexpr int K11_BLOCK = 45 * K11_ROWS;         // one thread per Fp product
-// shared layout (limbs): operands F, L (the line); pre-sums P[k][i] (k = 0:
-// s0, s1, s2; 1: s01, s12, s02; 2: c03, c35, c05); products T[q][i]; then
-// the Fp2 products W[v][i] over the operands, the Fp6 values U[o][i] (t0,
-// t1, m) over T, and the outputs over T after U
-constexpr int K11_F = 0, K11_L = K11_ROWS * S12, K11_P = K11_L + K11_ROWS * S6;
-constexpr int K11_T = K11_P + 3 * K11_ROWS * S6;
-constexpr int K11_W = 0, K11_U = K11_T, K11_O = K11_T + 18 * K11_ROWS * NL;
-constexpr int K11_SMEM = K11_T + 45 * K11_ROWS * NL;
-constexpr int K11_PHASES = 7;
-static_assert(30 * K11_ROWS * NL <= K11_T, "W fits over the operands");
-static_assert(K11_O + K11_ROWS * S12 <= K11_SMEM, "U and the outputs fit over T");
+// Layout at R instances per block (limbs): the accumulator F (R rows of
+// S12; f staged there, each combine writing over it), the line ring
+// LN[s % 2] (R rows of S6 per slot), the products T[q][i].
+template <int R>
+struct K11 {
+  static constexpr int BLOCK = 45 * R;       // one thread per Fp product
+  static constexpr int F = 0, LN = R * S12, T = LN + 2 * R * S6;
+  static constexpr int SMEM = T + 45 * R * NL;
+};
 
-// Phase `ph` of K11 for thread `tid` of block `blk`.
+// Component g of K11's left operand `lc` from the accumulator row a: a
+// coefficient of f (codes 0-5), a_j + b_j (6-8) or a_l1 + b_l1 + a_l2 +
+// b_l2 (9-11), reduced.
+__device__ __forceinline__ void sparse_lhs(uint32_t* r, const uint32_t* a, int lc, int g) {
+  const int ja = lc < 6 ? lc % 3 : (lc < 9 ? lc - 6 : pair_lo(lc - 9));
+  const int jb = lc < 9 ? ja : pair_hi(lc - 9);
+  const int off[4] = {(lc < 6 ? lc / 3 * F6 : 0) + ja * F2 + g * NL, F6 + ja * F2 + g * NL,
+                      jb * F2 + g * NL, F6 + jb * F2 + g * NL};
+  sum_at(r, a, off, lc < 6 ? 1 : (lc < 9 ? 2 : 4));
+}
+
+// Component g of K11's right operand `rc` from the line row c: c0, c3, c5
+// (codes 0-2) or c_l1 + c_l2 (3-5), reduced.
+__device__ __forceinline__ void sparse_rhs(uint32_t* r, const uint32_t* c, int rc, int g) {
+  const int off[4] = {(rc < 3 ? rc : pair_lo(rc - 3)) * F2 + g * NL,
+                      pair_hi(rc < 3 ? 0 : rc - 3) * F2 + g * NL, 0, 0};
+  sum_at(r, c, off, rc < 3 ? 1 : 2);
+}
+
+// The product phase of one line: thread tid = q R + i computes Fp product
+// q = 3 p + kk of instance i (Karatsuba product kk of Fp2 product p), its
+// operands formed here from the accumulator row fa and the line row ln:
+// component kk of each (kk < 2), or the raw sum of both (kk = 2).
+template <int R>
+__device__ __forceinline__ void sparse_product(const uint32_t* fa, const uint32_t* ln, uint32_t* t,
+                                               int rows, int tid) {
+  const int q = tid / R, i = tid % R, p = q / 3, kk = q % 3;
+  if (i >= rows) return;
+  const uint32_t* a = fa + i * S12;
+  const uint32_t* c = ln + i * S6;
+  const int lc = K11_LHS[p], rc = K11_RHS[p];
+  uint32_t x[NL], y[NL], z[NL];
+  sparse_lhs(x, a, lc, kk == 1);
+  sparse_rhs(y, c, rc, kk == 1);
+  if (kk == 2) {
+    sparse_lhs(z, a, lc, 1);
+    add_raw<NL>(x, x, z);
+    sparse_rhs(z, c, rc, 1);
+    add_raw<NL>(y, y, z);
+  }
+  mont_mul<NL>(x, x, y);
+  st_fp(t + tid * NL, x);
+}
+
+// The combine phase of one line: output coefficient o of instance i, the
+// row o of SPARSE over its 45 products t (the Fp2, Fp6 and Fp12 combines
+// in one), written over the accumulator row.
+template <int R>
+__device__ __forceinline__ void sparse_combine(const uint32_t* t, uint32_t* fa, int rows, int tid) {
+  const int o = tid / R, i = tid % R;
+  if (o >= 12 || i >= rows) return;
+  uint32_t r[NL];
+  signed_sum<SPARSE_POS, SPARSE_NEG>(r, t + i * NL, R * NL, SPARSE_ADD[o], SPARSE_SUB[o]);
+  st_fp(fa + i * S12 + o * NL, r);
+}
+
+// Phase `ph` of K11 over k lines for thread `tid` of block `blk`: 0 stage
+// (f and line 0), 2 s + 1 the product of line s (and the prefetch of line
+// s + 1), 2 s + 2 its combine, 2 k + 1 store.
+template <int R>
 __device__ __forceinline__ void fp12_sparse_mul_phase(int ph, uint32_t* sm, const uint32_t* f,
-                                                      const uint32_t* line, uint32_t* out,
-                                                      int64_t n, int64_t blk, int tid) {
-  const int64_t row0 = blk * K11_ROWS;
-  const int rows = block_rows(n, blk, K11_ROWS);
-  if (ph == 0) {                            // stage
-    stage_in<F12, S12, K11_BLOCK>(sm + K11_F, f + row0 * F12, rows, tid);
-    stage_in<F6, S6, K11_BLOCK>(sm + K11_L, line + row0 * F6, rows, tid);
-  } else if (ph == 1) {                     // pre-sum e = 6 k + 2 j + g of instance i
-    for (int w = tid; w < 18 * K11_ROWS; w += K11_BLOCK) {
-      const int e = w / K11_ROWS, i = w % K11_ROWS, k = e / 6, j = e % 6 / 2, g = e % 2;
-      if (i < rows) {
-        const uint32_t* a = sm + K11_F + i * S12 + g * NL;
-        const uint32_t* l = sm + K11_L + i * S6 + g * NL;
-        const int l1 = j == 1 ? 1 : 0, l2 = j == 0 ? 1 : 2;   // pair j: (0, 1), (1, 2), (0, 2)
-        uint32_t r[NL];
-        if (k == 0) {                       // s_j = a_j + b_j
-          ld_fp(r, a + j * F2);
-          add_sh(r, a + F6 + j * F2);
-        } else if (k == 1) {                // s_l1 + s_l2
-          uint32_t s[NL];
-          ld_fp(r, a + l1 * F2);
-          add_sh(r, a + F6 + l1 * F2);
-          ld_fp(s, a + l2 * F2);
-          add_sh(s, a + F6 + l2 * F2);
-          add_mod<NL>(r, r, s);
-        } else {                            // c_l1 + c_l2
-          ld_fp(r, l + l1 * F2);
-          add_sh(r, l + l2 * F2);
-        }
-        st_fp(sm + K11_P + (k * K11_ROWS + i) * S6 + e % 6 * NL, r);
-      }
-    }
-  } else if (ph == 2) {                     // product q = 3 p + k of instance i
-    const int q = tid / K11_ROWS, i = tid % K11_ROWS, p = q / 3;
-    if (i < rows) {
-      const int lc = K11_LHS[p], rc = K11_RHS[p];
-      const uint32_t* xs = lc < 6 ? sm + K11_F + i * S12 + lc * F2
-                                  : sm + K11_P + ((lc - 6) / 3 * K11_ROWS + i) * S6 + (lc - 6) % 3 * F2;
-      const uint32_t* ys = rc < 3 ? sm + K11_L + i * S6 + rc * F2
-                                  : sm + K11_P + (2 * K11_ROWS + i) * S6 + (rc - 3) * F2;
-      uint32_t a[NL], b[NL];
-      kara_operand(a, xs, q % 3);
-      kara_operand(b, ys, q % 3);
-      mont_mul<NL>(a, a, b);
-      st_fp(sm + K11_T + tid * NL, a);
-    }
-  } else if (ph == 3) {                     // Fp2 coefficient v = 2 p + g of instance i
-    for (int w = tid; w < 30 * K11_ROWS; w += K11_BLOCK) {
-      const int v = w / K11_ROWS, i = w % K11_ROWS;
-      if (i < rows) {
-        uint32_t r[NL];
-        fp2_coeff(r, sm + K11_T + (3 * (v / 2) * K11_ROWS + i) * NL, K11_ROWS * NL, v % 2);
-        st_fp(sm + K11_W + w * NL, r);
-      }
-    }
-  } else if (ph == 4) {                     // coefficient o = 6 k + 2 c + g of t0, t1, m
-    for (int w = tid; w < 18 * K11_ROWS; w += K11_BLOCK) {
-      const int o = w / K11_ROWS, i = w % K11_ROWS, c = o % 6 / 2, g = o % 2;
-      if (i < rows) {
-        auto at = [=](int p, int gg) { return sm + K11_W + ((2 * p + gg) * K11_ROWS + i) * NL; };
-        uint32_t r[NL];
-        if (o < 6) {                        // t0_c = a_c c0
-          ld_fp(r, at(c, g));
-        } else if (o >= 12) {               // m: the Fp6 combine of products 9-14
-          fp6_coeff(r, at(9, 0), K11_ROWS * NL, c, g);
-        } else if (c == 0) {                // t1_0 = xi (b1 c5 + b2 c3)
-          uint32_t s[NL];
-          ld_fp(r, at(3, 0));
-          add_sh(r, at(4, 0));
-          ld_fp(s, at(3, 1));
-          add_sh(s, at(4, 1));
-          if (g == 0) sub_mod<NL>(r, r, s); else add_mod<NL>(r, r, s);
-        } else if (c == 1) {                // t1_1 = b0 c3 + xi b2 c5
-          xi_coeff(r, at(6, 0), at(6, 1), g);
-          add_sh(r, at(5, g));
-        } else {                            // t1_2 = b0 c5 + b1 c3
-          ld_fp(r, at(7, g));
-          add_sh(r, at(8, g));
-        }
-        st_fp(sm + K11_U + w * NL, r);
-      }
-    }
-  } else if (ph == 5) {                     // output coefficient o of instance i
-    for (int w = tid; w < 12 * K11_ROWS; w += K11_BLOCK) {
-      const int o = w / K11_ROWS, i = w % K11_ROWS;
-      if (i < rows) {
-        uint32_t r[NL];
-        fp12_kara_coeff(r, [=](int k, int c, int g) {
-          return sm + K11_U + ((6 * k + 2 * c + g) * K11_ROWS + i) * NL; }, o);
-        st_fp(sm + K11_O + i * S12 + o * NL, r);
-      }
-    }
-  } else {                                  // store
-    stage_out<F12, S12, K11_BLOCK>(out + row0 * F12, sm + K11_O, rows, tid);
+                                                      const uint32_t* lines, uint32_t* out,
+                                                      int k, int64_t n, int64_t blk, int tid) {
+  using L = K11<R>;
+  const int64_t row0 = blk * R;
+  const int rows = block_rows(n, blk, R);
+  uint32_t* slot = sm + L::LN + (ph / 2) % 2 * R * S6;          // line ph / 2's slot
+  uint32_t* next = sm + L::LN + (ph / 2 + 1) % 2 * R * S6;
+  if (ph == 0) {
+    stage_in<F12, S12, L::BLOCK>(sm + L::F, f + row0 * F12, rows, tid);
+    stage_in<F6, S6, L::BLOCK>(slot, lines + row0 * F6, rows, tid);
+  } else if (ph == 2 * k + 1) {
+    stage_out<F12, S12, L::BLOCK>(out + row0 * F12, sm + L::F, rows, tid);
+  } else if (ph % 2 == 1) {
+    const int s = ph / 2;
+    if (s + 1 < k)
+      stage_in_async<F6, S6, L::BLOCK>(next, lines + ((int64_t)(s + 1) * n + row0) * F6, rows,
+                                       tid);
+    sparse_product<R>(sm + L::F, slot, sm + L::T, rows, tid);
+  } else {
+    sparse_combine<R>(sm + L::T, sm + L::F, rows, tid);
+    async_wait();                           // line s + 1 has landed before the barrier
   }
 }
 
-__global__ void __launch_bounds__(K11_BLOCK)
-fp12_sparse_mul_kernel(const uint32_t* __restrict__ f, const uint32_t* __restrict__ line,
-                       uint32_t* __restrict__ out, int64_t n) {
-  __shared__ __align__(16) uint32_t sm[K11_SMEM];
-#pragma unroll
-  for (int ph = 0; ph < K11_PHASES; ++ph) {
-    fp12_sparse_mul_phase(ph, sm, f, line, out, n, blockIdx.x, threadIdx.x);
-    if (ph + 1 < K11_PHASES) __syncthreads();
+template <int R>
+__global__ void __launch_bounds__(K11<R>::BLOCK, 2)
+fp12_sparse_mul_kernel(const uint32_t* __restrict__ f, const uint32_t* __restrict__ lines,
+                       uint32_t* __restrict__ out, int k, int64_t n) {
+  __shared__ __align__(16) uint32_t sm[K11<R>::SMEM];
+  const int phases = 2 * k + 2;
+#pragma unroll 1
+  for (int ph = 0; ph < phases; ++ph) {
+    fp12_sparse_mul_phase<R>(ph, sm, f, lines, out, k, n, blockIdx.x, threadIdx.x);
+    if (ph + 1 < phases) __syncthreads();
   }
 }
+
+// Calls go(std::integral_constant<int, R>()) with R = rows_per_block(n).
+template <class Go>
+void with_rows(int64_t n, Go go) {
+  const int r = rows_per_block(n);
+  if (r == 8) go(std::integral_constant<int, 8>());
+  else if (r == 4) go(std::integral_constant<int, 4>());
+  else go(std::integral_constant<int, 2>());
+}
+
+inline unsigned grid_of(int64_t n, int rows) { return (unsigned)((n + rows - 1) / rows); }
 
 extern "C" int fp12_mul(const void* x, const void* y, void* out, int64_t n, void* stream) {
   if (n > 0) {
-    fp12_mul_kernel<<<(unsigned)((n + K8_ROWS - 1) / K8_ROWS), K8_BLOCK, 0,
-                      (cudaStream_t)stream>>>((const uint32_t*)x, (const uint32_t*)y,
-                                              (uint32_t*)out, n);
+    fp12_mul_kernel<<<grid_of(n, K8_ROWS), K8_BLOCK, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)x, (const uint32_t*)y, (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int fp12_sqr(const void* x, void* out, int64_t n, void* stream) {
   if (n > 0) {
-    fp12_sqr_kernel<<<(unsigned)((n + K9_ROWS - 1) / K9_ROWS), K9_BLOCK, 0,
-                      (cudaStream_t)stream>>>((const uint32_t*)x, (uint32_t*)out, n);
+    fp12_sqr_kernel<<<grid_of(n, K9_ROWS), K9_BLOCK, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)x, (uint32_t*)out, n);
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int fp12_usqr(const void* x, void* out, int64_t n, void* stream) {
   if (n > 0) {
-    fp12_usqr_kernel<<<(unsigned)((n + K10_ROWS - 1) / K10_ROWS), K10_BLOCK, 0,
-                       (cudaStream_t)stream>>>((const uint32_t*)x, (uint32_t*)out, n);
+    with_rows(n, [&](auto rc) {
+      constexpr int R = decltype(rc)::value;
+      fp12_usqr_kernel<R><<<grid_of(n, R), K10<R>::BLOCK, 0, (cudaStream_t)stream>>>(
+          (const uint32_t*)x, (uint32_t*)out, n);
+    });
   }
   return (int)cudaGetLastError();
 }
 
-extern "C" int fp12_sparse_mul(const void* f, const void* line, void* out, int64_t n,
-                               void* stream) {
+// x, out: (n, 2, 3, 2, 12) rows; words: the (bits + 31) / 32 host words of
+// e >= 1; bits: e's bit length.  An e past the limit launches nothing and
+// returns cudaErrorInvalidValue.
+extern "C" int fp12_cyc_pow_fixed(const void* x, void* out, const uint32_t* words, int bits,
+                                  int64_t n, void* stream) {
+  Exponent e;
+  if (!exponent_of(words, bits, &e)) return (int)cudaErrorInvalidValue;
   if (n > 0) {
-    fp12_sparse_mul_kernel<<<(unsigned)((n + K11_ROWS - 1) / K11_ROWS), K11_BLOCK, 0,
-                             (cudaStream_t)stream>>>((const uint32_t*)f,
-                                                     (const uint32_t*)line, (uint32_t*)out, n);
+    with_rows(n, [&](auto rc) {
+      constexpr int R = decltype(rc)::value;
+      fp12_cyc_pow_kernel<R><<<grid_of(n, R), CycPow<R>::BLOCK, 0, (cudaStream_t)stream>>>(
+          (const uint32_t*)x, (uint32_t*)out, e, n);
+    });
+  }
+  return (int)cudaGetLastError();
+}
+
+// f, out: (n, 2, 3, 2, 12) rows; lines: (k, n, 3, 2, 12), k >= 1 (a
+// smaller k launches nothing and returns cudaErrorInvalidValue).
+extern "C" int fp12_sparse_mul(const void* f, const void* lines, void* out, int k, int64_t n,
+                               void* stream) {
+  if (k < 1) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    with_rows(n, [&](auto rc) {
+      constexpr int R = decltype(rc)::value;
+      fp12_sparse_mul_kernel<R><<<grid_of(n, R), K11<R>::BLOCK, 0, (cudaStream_t)stream>>>(
+          (const uint32_t*)f, (const uint32_t*)lines, (uint32_t*)out, k, n);
+    });
   }
   return (int)cudaGetLastError();
 }

@@ -226,6 +226,25 @@ __device__ __forceinline__ void sub_sh(uint32_t* r, const uint32_t* s) {
   sub_mod<NL>(r, r, y);
 }
 
+// 16 bytes from device memory s to shared memory d, asynchronously on the
+// card (cp.async, bypassing L1): the copy lands by the issuing thread's
+// next async_wait().  On the host it is copy16.
+__device__ __forceinline__ void copy16_async(uint32_t* d, const uint32_t* s) {
+#ifdef __CUDA_ARCH__
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(d);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(s) : "memory");
+#else
+  copy16(d, s);
+#endif
+}
+
+// Waits for every copy16_async of this thread.
+__device__ __forceinline__ void async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
 // Copy `rows` rows of W limbs from device memory g into shared memory s as
 // rows of S limbs, each of BLOCK threads moving 16 bytes per step.
 template <int W, int S, int BLOCK>
@@ -233,6 +252,15 @@ __device__ __forceinline__ void stage_in(uint32_t* s, const uint32_t* g, int row
   for (int v = tid; v < rows * (W / 4); v += BLOCK) {
     const int r = v / (W / 4), c = 4 * (v % (W / 4));
     copy16(s + r * S + c, g + (int64_t)r * W + c);
+  }
+}
+
+// stage_in by copy16_async: the rows land by each thread's async_wait().
+template <int W, int S, int BLOCK>
+__device__ __forceinline__ void stage_in_async(uint32_t* s, const uint32_t* g, int rows, int tid) {
+  for (int v = tid; v < rows * (W / 4); v += BLOCK) {
+    const int r = v / (W / 4), c = 4 * (v % (W / 4));
+    copy16_async(s + r * S + c, g + (int64_t)r * W + c);
   }
 }
 
@@ -261,6 +289,32 @@ __device__ __forceinline__ void kara_operand(uint32_t* r, const uint32_t* x, int
     ld_fp(s, x + d);
     add_raw<NL>(r, r, s);
   }
+}
+
+// ---------------------------------------------------- public exponents
+//
+// A public exponent 1 <= e < 2^(32 EXP_WORDS) of a power chain (K1's
+// pow_fixed_kernel, fp12.cu's cyclotomic power): little-endian words and
+// the bit length.  Only this header fixes the limit: the host passes e's
+// bit length and (bits + 31) / 32 words, and `exponent_of` refuses a
+// longer e.
+constexpr int EXP_WORDS = 12;
+struct Exponent {
+  uint32_t w[EXP_WORDS];
+  int bits;
+};
+
+__device__ __forceinline__ bool exp_bit(const Exponent& e, int k) {
+  return (e.w[k >> 5] >> (k & 31)) & 1u;
+}
+
+// e from its bit length and its (bits + 31) / 32 host words; false if the
+// bit length is outside [1, 32 EXP_WORDS].
+inline bool exponent_of(const uint32_t* words, int bits, Exponent* e) {
+  if (bits < 1 || bits > 32 * EXP_WORDS) return false;
+  for (int k = 0; k < EXP_WORDS; ++k) e->w[k] = k < (bits + 31) / 32 ? words[k] : 0u;
+  e->bits = bits;
+  return true;
 }
 
 constexpr int THREADS = 128;

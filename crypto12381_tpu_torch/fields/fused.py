@@ -11,7 +11,10 @@ pre-sums and combines included, so no intermediate leaves the kernel:
   K8 `fp12_mul` (csrc/fp12.cu)  (..., 2, 3, 2, 12) x same:   54 Fp products
   K9 `fp12_sqr`                 (..., 2, 3, 2, 12):          36 Fp products
   K10 `fp12_usqr`               (..., 2, 3, 2, 12):          18 Fp products
-  K11 `fp12_sparse_mul`         (..., 2, 3, 2, 12) x (..., 3, 2, 12): 45
+      `fp12_cyc_pow_fixed`      (..., 2, 3, 2, 12), public e: K10's squares
+                                and K8's products of x^e in one launch
+  K11 `fp12_sparse_mul`         (..., 2, 3, 2, 12) x k lines (k, ..., 3, 2, 12):
+                                45 k
   K5 `g1_madd` (csrc/g1.cu)     (..., 3, 12) + (..., 2, 12): 11 Fp products
   K6 `g1_add`                   (..., 3, 12) + (..., 3, 12): 12 Fp products
   K7 `g1_dbl`                   (..., 3, 12):                 8 Fp products
@@ -168,15 +171,15 @@ def _fp12(c0: torch.Tensor, c1: torch.Tensor) -> torch.Tensor:
     return torch.stack([c0, c1], -4)
 
 
-def _launch12(fn: str, *ins: torch.Tensor) -> torch.Tensor:
+def _launch12(fn: str, *ins: torch.Tensor, exponent: int | None = None) -> torch.Tensor:
     """Launch `fn` of the Fp12 library over the rows of its operands, whose
     batch dims are those of the first (an Fp12 value): a fresh result of
-    the first operand's shape."""
+    the first operand's shape; a power chain's public exponent passed on."""
     nb = ins[0].dim() - 4
     flat = [_flat(x, x.dim() - nb) for x in ins]
     out = torch.empty_like(flat[0])
     if out.shape[0]:
-        _build.launch("fp12", fn, (*flat, out), out.shape[0])
+        _build.launch("fp12", fn, (*flat, out), out.shape[0], exponent=exponent)
     return out.reshape(ins[0].shape)
 
 
@@ -218,7 +221,7 @@ def fp12_usqr_plain(x: torch.Tensor) -> torch.Tensor:
                  FP.add(FP.mul_small(T, 3), FP.double(b)))
 
 
-def fp12_sparse_mul_plain(f: torch.Tensor, line: torch.Tensor) -> torch.Tensor:
+def _sparse_mul_one(f: torch.Tensor, line: torch.Tensor) -> torch.Tensor:
     """f (c0 + c3 w^3 + c5 w^5): the 15 Fp2 products in one plain K2 call.
     t0 = a c0; t1 = (xi (b1 c5 + b2 c3), b0 c3 + xi b2 c5, b0 c5 + b1 c3);
     m = (a + b)(c0 + c3 v + c5 v^2) as an Fp6 Karatsuba product; the
@@ -247,6 +250,45 @@ def _expand_line(f: torch.Tensor, line: torch.Tensor):
     return f.expand(batch + f.shape[-4:]), line.expand(batch + line.shape[-3:])
 
 
+def _line_stack(f: torch.Tensor, lines: torch.Tensor):
+    """f and its lines as a (k, batch..., 3, 2, 12) stack, the batch dims
+    of both broadcast: `lines` is a stack when it has as many dims as f,
+    else a single line (k = 1)."""
+    if lines.dim() != f.dim():
+        lines = lines[None]
+    if not lines.shape[0]:
+        raise ValueError("fp12_sparse_mul: no line")
+    batch = torch.broadcast_shapes(f.shape[:-4], lines.shape[1:-3])
+    return (f.expand(batch + f.shape[-4:]),
+            lines.expand(lines.shape[:1] + batch + lines.shape[-3:]))
+
+
+def fp12_sparse_mul_plain(f: torch.Tensor, lines: torch.Tensor) -> torch.Tensor:
+    """f l_1 ... l_k for a stack of k sparse lines (k, batch..., 3, 2, 12),
+    or f l for one line (batch..., 3, 2, 12): the one-line algebra
+    (`_sparse_mul_one`) k times, in order."""
+    f, lines = _line_stack(f, lines)
+    for line in lines.unbind(0):
+        f = _sparse_mul_one(f, line)
+    return f
+
+
+def fp12_cyc_pow_fixed_plain(x: torch.Tensor, e: int) -> torch.Tensor:
+    """x^e for a public e >= 1 by the kernel's chain: from the top bit down,
+    a cyclotomic square at each later bit and a product by x at each set
+    one (`fp12_usqr_plain`, `fp12_mul_plain`).  Valid only in the
+    cyclotomic subgroup; as algebra it is the same polynomial for any
+    input."""
+    if e < 1:
+        raise ValueError("fp12_cyc_pow_fixed: the exponent must be at least 1")
+    acc = x
+    for bit in bin(e)[3:]:
+        acc = fp12_usqr_plain(acc)
+        if bit == "1":
+            acc = fp12_mul_plain(acc, x)
+    return acc
+
+
 def fp12_mul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     x, y = torch.broadcast_tensors(x, y)
     if x.device.type == "cpu":
@@ -266,11 +308,27 @@ def fp12_usqr(x: torch.Tensor) -> torch.Tensor:
     return _launch12("fp12_usqr", x)
 
 
-def fp12_sparse_mul(f: torch.Tensor, line: torch.Tensor) -> torch.Tensor:
-    f, line = _expand_line(f, line)
+def fp12_cyc_pow_fixed(x: torch.Tensor, e: int) -> torch.Tensor:
+    """x^e for a public exponent e >= 1 (the final exponentiation's g^|x|):
+    one launch of the whole chain of cyclotomic squares and products."""
+    if x.device.type == "cpu":
+        return fp12_cyc_pow_fixed_plain(x, e)
+    return _launch12("fp12_cyc_pow_fixed", x, exponent=e)
+
+
+def fp12_sparse_mul(f: torch.Tensor, lines: torch.Tensor) -> torch.Tensor:
+    """f l_1 ... l_k for k stacked sparse lines (k, batch..., 3, 2, 12), or
+    one line (batch..., 3, 2, 12): one launch absorbs them all."""
+    f, lines = _line_stack(f, lines)
     if f.device.type == "cpu":
-        return fp12_sparse_mul_plain(f, line)
-    return _launch12("fp12_sparse_mul", f, line)
+        return fp12_sparse_mul_plain(f, lines)
+    k = lines.shape[0]
+    f2 = _flat(f, 4)
+    lines2 = lines.reshape((k, -1) + lines.shape[-3:]).contiguous()
+    out = torch.empty_like(f2)
+    if out.shape[0]:
+        _build.launch("fp12", "fp12_sparse_mul", (f2, lines2, out), out.shape[0], stack=k)
+    return out.reshape(f.shape)
 
 
 # ---------------------------------------------------------------------------

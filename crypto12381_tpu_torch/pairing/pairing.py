@@ -99,6 +99,19 @@ def _mul_sparse(f, line):
     return FK.fp12_sparse_mul(f, torch.stack(torch.broadcast_tensors(*line), -3))
 
 
+def _mul_lines(f, c0, c3, c5, inf):
+    """f times the k lines (c0[i], c3[i], c5[i]) in order, each coefficient
+    (k, batch..., 2, 12): ONE K11 launch on the (k, batch..., 3, 2, 12)
+    stack.  inf: (k, batch...) bool or None; a flagged pair's line is 1
+    (c0 = 1, c3 = c5 = 0)."""
+    if inf is not None:
+        m = inf[..., None, None]
+        c0 = torch.where(m, TW.fp2_one((), f.device), c0)
+        c3 = torch.where(m, 0, c3)
+        c5 = torch.where(m, 0, c5)
+    return FK.fp12_sparse_mul(f, torch.stack(torch.broadcast_tensors(c0, c3, c5), -3))
+
+
 # ---------------------------------------------------------------------------
 # Miller loop
 # ---------------------------------------------------------------------------
@@ -152,9 +165,9 @@ def fp12_tree_product(f):
 def multi_miller_shared(p_affs, q_affs, inf=None):
     """prod_i Miller(P_i, Q_i) over the leading axis k with ONE shared
     squaring chain: per digit step the accumulator squares once and
-    absorbs each pair's line by a sparse product (the reference's
-    PAIR_another accumulation).  Every pair runs its own G2 steps, one
-    batch over the k pairs and the rows.
+    absorbs every pair's line in one sparse product launch (the
+    reference's PAIR_another accumulation).  Every pair runs its own G2
+    steps, one batch over the k pairs and the rows.
 
     p_affs: G1 affine (x, y), tensors (k, batch..., 12); q_affs: G2 affine
     (X, Y), tensors (k, batch..., 2, 12); inf: optional (k, batch...) bool,
@@ -163,7 +176,6 @@ def multi_miller_shared(p_affs, q_affs, inf=None):
     Returns the product after the negative-x conjugation."""
     qx, qy = p_affs
     Px, Py = q_affs
-    kk = qx.shape[0]
     dev = qx.device
     if inf is not None:
         m1 = inf[..., None]
@@ -178,24 +190,13 @@ def multi_miller_shared(p_affs, q_affs, inf=None):
     A = (Px, Py, TW.fp2_one(qx.shape[:-1], dev))
     f = TW.fp12_one(qx.shape[1:-1], dev)
 
-    def absorb(f, line):
-        c0, c3, c5 = line
-        if inf is not None:
-            m = inf[..., None, None]
-            c0 = torch.where(m, TW.fp2_one((), dev), c0)
-            c3 = torch.where(m, 0, c3)
-            c5 = torch.where(m, 0, c5)
-        for i in range(kk):
-            f = _mul_sparse(f, (c0[i], c3[i], c5[i]))
-        return f
-
     for d in _digits():
         f = TW.fp12_sqr(f)
-        f = absorb(f, _line_dbl(A, qx, qy))
+        f = _mul_lines(f, *_line_dbl(A, qx, qy), inf)
         A = G2.double(A)
         if d:
             pay = Py if d > 0 else NPy
-            f = absorb(f, _line_add(A, (Px, pay), qx, qy))
+            f = _mul_lines(f, *_line_add(A, (Px, pay), qx, qy), inf)
             A = G2.madd(A, (Px, pay))
     return TW.fp12_conj(f)
 
@@ -247,19 +248,11 @@ def _absorb(f, coeffs, qx, qy, inf):
     """f times k precomputed lines, each evaluated at its pair's G1 points:
     coeffs (3, k, 2, 12); qx, qy (k, batch..., 12); inf (k, batch...) or
     None, a masked pair's line being 1.  The k evaluations are one K1
-    launch; the k sparse products one K11 launch each."""
+    launch; the k sparse products one K11 launch."""
     k, nb = qx.shape[0], qx.dim() - 2
     aa, bb, cc = (c.reshape((k,) + (1,) * nb + (2, LIMBS)) for c in coeffs)
     t = FP.mont_mul(torch.stack([aa, cc]), torch.stack([qy, qx])[..., None, :])
-    c0, c3, c5 = t[0], bb.expand_as(t[0]), t[1]
-    if inf is not None:
-        m = inf[..., None, None]
-        c0 = torch.where(m, TW.fp2_one((), f.device), c0)
-        c3 = torch.where(m, 0, c3)
-        c5 = torch.where(m, 0, c5)
-    for i in range(k):
-        f = _mul_sparse(f, (c0[i], c3[i], c5[i]))
-    return f
+    return _mul_lines(f, t[0], bb, t[1], inf)
 
 
 def multi_miller_precomp(p_affs, lines, inf=None):
@@ -289,13 +282,9 @@ def multi_miller_precomp(p_affs, lines, inf=None):
 
 def _pow_abs_x(g):
     """g^|x| by cyclotomic squarings, with a multiply at each of the 5 set
-    bits of |x| after the leading one."""
-    acc = g
-    for bit in bin(X_ABS)[3:]:
-        acc = TW.fp12_usqr(acc)
-        if bit == "1":
-            acc = TW.fp12_mul(acc, g)
-    return acc
+    bits of |x| after the leading one: the whole chain in one launch
+    (fields/fused.fp12_cyc_pow_fixed)."""
+    return FK.fp12_cyc_pow_fixed(g, X_ABS)
 
 
 def final_exp(f):

@@ -22,9 +22,12 @@ of all-0, all-1 and all-(p-1) operands at both ends of the launch (all
 p-1 gives the largest pre-sums); for the curve kernels K5-K7 on curve points with
 the identity, P = Q and P = -Q among them, also at row counts below, at
 and between multiples of a block, with those rows at both ends of the
-launch; for the Fp12 kernels K8-K11 (csrc/fp12.cu) likewise at row
-counts below, at and between multiples of their blocks, with rows of
-all-0, all-1 and all-(p-1) operands at both ends; and for the G2 curve
+launch; for the Fp12 kernels K8-K11 (csrc/fp12.cu), K11 over 1-3
+lines and the cyclotomic power x^e of one launch (run through the
+kernel's own schedule of phases) likewise at row counts below, at and
+between multiples of their blocks, at every instantiation of instances
+per block, with rows of all-0, all-1 and all-(p-1) operands at both
+ends; and for the G2 curve
 kernels K12-K14 (csrc/g2.cu) at row counts below, at, between and on
 multiples of their block, on G2 points with the identity, P = Q and
 P = -Q at both ends of the launch, against the plain versions and, made
@@ -70,7 +73,7 @@ SHIM = """#pragma once
 #define __forceinline__ inline
 #define __constant__
 #define __grid_constant__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 #define __shared__ static
 #define __align__(n) __attribute__((aligned(n)))
@@ -156,13 +159,34 @@ int chains(const char* in, const char* outp) {
   fclose(g);
   return 0;
 }
+// K10 (single step), K11 over k lines and, given e, the power x^e at R
+// instances per block, on n rows of x (144 words a row) and the lines
+// (k rows of n rows of 72 words).
+template <int R>
+bool fp12_r(std::vector<uint32_t>& o10, std::vector<uint32_t>& o11, std::vector<uint32_t>& opw,
+            const uint32_t* x, const uint32_t* l, int k, const Exponent* e, int64_t n) {
+  if (!coop(o10, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
+        fp12_usqr_phase<R>(ph, sm, x, out, n, blk, t); },
+      n, R, K10<R>::BLOCK, K10<R>::PHASES, K10<R>::SMEM, 144)) return false;
+  if (!coop(o11, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
+        fp12_sparse_mul_phase<R>(ph, sm, x, l, out, k, n, blk, t); },
+      n, R, K11<R>::BLOCK, 2 * k + 2, K11<R>::SMEM, 144)) return false;
+  if (e == nullptr) return true;
+  std::vector<int> sched;                 // the kernel's own phase sequence
+  cyc_pow_schedule(*e, [&](int ph) { sched.push_back(ph); });
+  return coop(opw, [&](int s, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
+        fp12_cyc_pow_phase<R>(sched[s], sm, x, out, n, blk, t); },
+      n, R, CycPow<R>::BLOCK, (int)sched.size(), CycPow<R>::SMEM, 144);
+}
 // K8-K11 on n rows: Fp12 operands x and y (144 words a row) and the
-// sparse line (72 words a row); the four outputs one after another.
+// sparse line (72 words a row); the four outputs one after another, K10
+// and K11 at 8 instances per block after their results at 4 and 2 were
+// found equal.
 int fp12s(const char* in, const char* outp) {
   FILE* f = fopen(in, "rb");
   int64_t n;
   if (fread(&n, 8, 1, f) != 1) return 1;
-  std::vector<uint32_t> x(n * 144), y(n * 144), l(n * 72), o8, o9, o10, o11;
+  std::vector<uint32_t> x(n * 144), y(n * 144), l(n * 72), o8, o9, o10[3], o11[3], unused;
   if (fread(x.data(), 4, n * 144, f) != (size_t)(n * 144)) return 1;
   if (fread(y.data(), 4, n * 144, f) != (size_t)(n * 144)) return 1;
   if (fread(l.data(), 4, n * 72, f) != (size_t)(n * 72)) return 1;
@@ -173,14 +197,42 @@ int fp12s(const char* in, const char* outp) {
   if (!coop(o9, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
         fp12_sqr_phase(ph, sm, x.data(), out, n, blk, t); },
       n, K9_ROWS, K9_BLOCK, K9_PHASES, K9_SMEM, 144)) return 2;
-  if (!coop(o10, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
-        fp12_usqr_phase(ph, sm, x.data(), out, n, blk, t); },
-      n, K10_ROWS, K10_BLOCK, K10_PHASES, K10_SMEM, 144)) return 2;
-  if (!coop(o11, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
-        fp12_sparse_mul_phase(ph, sm, x.data(), l.data(), out, n, blk, t); },
-      n, K11_ROWS, K11_BLOCK, K11_PHASES, K11_SMEM, 144)) return 2;
+  if (!fp12_r<8>(o10[0], o11[0], unused, x.data(), l.data(), 1, nullptr, n) ||
+      !fp12_r<4>(o10[1], o11[1], unused, x.data(), l.data(), 1, nullptr, n) ||
+      !fp12_r<2>(o10[2], o11[2], unused, x.data(), l.data(), 1, nullptr, n)) return 2;
+  for (int r = 1; r < 3; ++r)
+    if (o10[r] != o10[0] || o11[r] != o11[0]) {
+      fprintf(stderr, "instances per block change the result\n");
+      return 2;
+    }
   FILE* g = fopen(outp, "wb");
-  for (auto* o : {&o8, &o9, &o10, &o11}) fwrite(o->data(), 4, n * 144, g);
+  for (auto* o : {&o8, &o9, &o10[0], &o11[0]}) fwrite(o->data(), 4, n * 144, g);
+  fclose(g);
+  return 0;
+}
+// The power x^e and K11 over k lines on n rows at 8, 4 and 2 instances per
+// block: input n, e's bit length and (bits + 31) / 32 words, k, x (144
+// words a row), the lines (k n rows of 72 words); output the three powers,
+// then the three products.
+int fp12pow(const char* in, const char* outp) {
+  FILE* f = fopen(in, "rb");
+  int64_t n;
+  int bits, k;
+  Exponent e;
+  if (fread(&n, 8, 1, f) != 1 || fread(&bits, 4, 1, f) != 1 || bits < 1) return 1;
+  std::vector<uint32_t> words((bits + 31) / 32);
+  if (fread(words.data(), 4, words.size(), f) != words.size()) return 1;
+  if (fread(&k, 4, 1, f) != 1 || k < 1 || !exponent_of(words.data(), bits, &e)) return 1;
+  std::vector<uint32_t> x(n * 144), l(k * n * 72), o10, o11[3], opw[3];
+  if (fread(x.data(), 4, n * 144, f) != (size_t)(n * 144)) return 1;
+  if (fread(l.data(), 4, k * n * 72, f) != (size_t)(k * n * 72)) return 1;
+  fclose(f);
+  if (!fp12_r<8>(o10, o11[0], opw[0], x.data(), l.data(), k, &e, n) ||
+      !fp12_r<4>(o10, o11[1], opw[1], x.data(), l.data(), k, &e, n) ||
+      !fp12_r<2>(o10, o11[2], opw[2], x.data(), l.data(), k, &e, n)) return 2;
+  FILE* g = fopen(outp, "wb");
+  for (auto* o : {&opw[0], &opw[1], &opw[2], &o11[0], &o11[1], &o11[2]})
+    fwrite(o->data(), 4, n * 144, g);
   fclose(g);
   return 0;
 }
@@ -212,6 +264,7 @@ int g2s(const char* in, const char* outp) {
 }
 int main(int argc, char** argv) {
   if (argc == 4 && !strcmp(argv[1], "fp12")) return fp12s(argv[2], argv[3]);
+  if (argc == 4 && !strcmp(argv[1], "fp12pow")) return fp12pow(argv[2], argv[3]);
   if (argc == 4 && !strcmp(argv[1], "g2")) return g2s(argv[2], argv[3]);
   if (argc == 5 && !strcmp(argv[1], "chain"))
     return argv[2][0] == '8' ? chains<8>(argv[3], argv[4]) : chains<12>(argv[3], argv[4]);
@@ -443,27 +496,33 @@ def run_fp12(harness, x, y, line):
     return o.reshape(4, n, 2, 3, 2, 12).unbind(0)
 
 
+def rand_fp12(rng, shape):
+    """Random canonical Fp values of `shape`: uniform words, the top one
+    below p's."""
+    w = rng.integers(0, 1 << 32, size=shape + (12,), dtype=np.uint64)
+    w[..., 11] %= params.P_LIMBS[11]
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32))
+
+
+#: rows of all p-1 against all p-1 (the largest pre-sums), all 0 and all 1
+#: against p-1 at the start of a launch, and p-1 against 1 and against p-1
+#: at its end, so in its ragged last block
+def fp12_edges(n):
+    return {0: (P - 1, P - 1), 1: (0, P - 1), 2: (1, P - 1), n - 2: (P - 1, 1),
+            n - 1: (P - 1, P - 1)}
+
+
 @pytest.mark.parametrize("n", [1, 7, 8, 13, 16, 17, 40])
 def test_cooperative_fp12_kernels(harness, n):
-    """K8, K9, K11 (8 instances per block) and K10 (16) at row counts
-    below, at, between and on multiples of a block: random canonical
-    operands, with rows of all p-1 against all p-1 (the largest pre-sums),
-    all 0 and all 1 against p-1 at the start of the launch, and p-1 against
-    1 and against p-1 at its end, so in its ragged last block (the line of
-    a row takes the second operand's value). Each output equals the plain
-    version bit for bit; K10 as a polynomial, on inputs outside the
-    cyclotomic subgroup."""
+    """K8, K9 (8 instances per block), K10 and K11 (at 8, 4 and 2, every
+    instantiation) at row counts below, at, between and on multiples of a
+    block: random canonical operands, with the edge rows of `fp12_edges`
+    (the line of a row takes the second operand's value). Each output
+    equals the plain version bit for bit; K10 as a polynomial, on inputs
+    outside the cyclotomic subgroup."""
     rng = np.random.default_rng(400 + n)
-
-    def rand(shape):
-        w = rng.integers(0, 1 << 32, size=shape + (12,), dtype=np.uint64)
-        w[..., 11] %= params.P_LIMBS[11]
-        return torch.from_numpy(w.astype(np.uint32).view(np.int32))
-
-    x, y, line = rand((n, 2, 3, 2)), rand((n, 2, 3, 2)), rand((n, 3, 2))
-    edges = {0: (P - 1, P - 1), 1: (0, P - 1), 2: (1, P - 1), n - 2: (P - 1, 1),
-             n - 1: (P - 1, P - 1)}
-    for r, (u, v) in edges.items():
+    x, y, line = (rand_fp12(rng, s) for s in ((n, 2, 3, 2), (n, 2, 3, 2), (n, 3, 2)))
+    for r, (u, v) in fp12_edges(n).items():
         if 0 <= r < n:
             x[r] = torch.from_numpy(FP.limbs_of(u))
             y[r] = line[r] = torch.from_numpy(FP.limbs_of(v))
@@ -472,6 +531,52 @@ def test_cooperative_fp12_kernels(harness, n):
     assert torch.equal(k9, FK.fp12_sqr_plain(x))
     assert torch.equal(k10, FK.fp12_usqr_plain(x))
     assert torch.equal(k11, FK.fp12_sparse_mul_plain(x, line))
+
+
+def run_fp12_power(harness, x, lines, e):
+    """The power x^e and K11 over the k lines (k, n, 3, 2, 12) on the host
+    at 8, 4 and 2 instances per block: (the three powers, the three
+    products)."""
+    d, exe = harness
+    n, k = x.shape[0], lines.shape[0]
+    words = np.array([(e >> (32 * j)) & 0xFFFFFFFF for j in range((e.bit_length() + 31) // 32)],
+                     np.uint32)
+    with open(d / "pow.bin", "wb") as f:
+        f.write(np.int64(n).tobytes() + np.int32(e.bit_length()).tobytes() + words.tobytes()
+                + np.int32(k).tobytes() + x.numpy().tobytes() + lines.numpy().tobytes())
+    subprocess.run([str(exe), "fp12pow", str(d / "pow.bin"), str(d / "pow.out")], check=True,
+                   timeout=600)
+    o = torch.from_numpy(np.fromfile(d / "pow.out", np.int32)).reshape(2, 3, n, 2, 3, 2, 12)
+    return o[0].unbind(0), o[1].unbind(0)
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 13, 16, 17, 40])
+def test_cooperative_fp12_power_and_lines(harness, n):
+    """The cyclotomic power x^e of one launch (the schedule of squares and
+    products the kernel runs, through its own phase functions) and K11
+    over k = 1, 2, 3 lines, each at 8, 4 and 2 instances per block, at the
+    row counts of the single-step kernels, both thread orders, a guard
+    after the output: at e = |x| and at 0b1011 (a square and a product at
+    each of two adjacent set bits), on random canonical operands with the
+    edge rows of `fp12_edges` in x and in every line. Each output equals
+    the plain version bit for bit (the power as a polynomial, on inputs
+    outside the cyclotomic subgroup)."""
+    rng = np.random.default_rng(600 + n)
+    x = rand_fp12(rng, (n, 2, 3, 2))
+    for r, (u, _) in fp12_edges(n).items():
+        if 0 <= r < n:
+            x[r] = torch.from_numpy(FP.limbs_of(u))
+    for e, k in ((params.X_ABS, 1), (0b1011, 2), (params.X_ABS, 3)):
+        lines = rand_fp12(rng, (k, n, 3, 2))
+        for r, (_, v) in fp12_edges(n).items():
+            if 0 <= r < n:
+                lines[:, r] = torch.from_numpy(FP.limbs_of(v))
+        powers, products = run_fp12_power(harness, x, lines, e)
+        want_pow = FK.fp12_cyc_pow_fixed_plain(x, e)
+        want_mul = FK.fp12_sparse_mul_plain(x, lines)
+        for rows, got_pow, got_mul in zip((8, 4, 2), powers, products):
+            assert torch.equal(got_pow, want_pow), (e, rows)
+            assert torch.equal(got_mul, want_mul), (k, rows)
 
 
 @pytest.mark.parametrize("n", [1, 15, 16, 33, 47, 96])

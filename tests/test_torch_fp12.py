@@ -11,7 +11,12 @@ shape and with broadcast operands; `pair_batch(..., device="cpu")` at
 B = 2 must give the JAX package's GT bytes (its integer oracle `pyref`).
 Results are compared exactly as canonical values.  K10 is a polynomial
 that squares only in the cyclotomic subgroup; random inputs hold it as
-that polynomial.
+that polynomial.  The cyclotomic power of one launch
+(`fp12_cyc_pow_fixed`, the final exponentiation's g^|x|) is held against
+the JAX `_pow_abs_x` under jax.jit on random rows and against pyref's
+`fp12_pow` on cyclotomic ones; K11 over a stack of k lines against the
+JAX `_mul_sparse` applied k times, a masked line and a broadcast c3 among
+them.
 """
 
 import jax
@@ -22,8 +27,9 @@ import pytest
 from crypto12381_tpu.compat import codec as CODECJ
 from crypto12381_tpu.fields import fp32k as FKJ
 from crypto12381_tpu.pairing import pairing as PAIRJ
-from crypto12381_tpu.params import P, R
+from crypto12381_tpu.params import X_ABS, P, R
 from crypto12381_tpu.pyref import curve as CJ
+from crypto12381_tpu.pyref import field as FJ
 from crypto12381_tpu.pyref import pairing as PYREF
 
 N = 16
@@ -132,6 +138,49 @@ def test_fp12_plain_versions_match_jax(name):
             bc = TW.fp12_mul(args[0][:1], args[1])
             assert torch.equal(bc, FK.fp12_mul_plain(args[0][:1].expand_as(args[1]), args[1]))
     assert torch.equal(port, got)
+
+
+@pytest.mark.parametrize("case", ["pow_abs_x", "pow_cyclotomic", "lines"])
+def test_fp12_power_and_lines_match_jax(case):
+    """pow_abs_x: the plain power x^|x| equals the JAX `_pow_abs_x` under
+    jax.jit on random rows (as a polynomial), and the CPU wrapper and the
+    port's `_pow_abs_x` give it.  pow_cyclotomic: on cyclotomic rows (the
+    easy part f^((p^6 - 1)(p^2 + 1)) of random f) it equals pyref's
+    `fp12_pow(x, |x|)`.  lines: the plain product by a stack of k = 3 lines
+    equals the JAX `_mul_sparse` applied line by line, with one line masked
+    to 1 on every row (c0 = 1, c3 = c5 = 0), one row of another masked, and
+    c3 broadcast over the rows as `_absorb` gives it; so do the CPU wrapper
+    and `pairing._mul_lines`."""
+    if case == "pow_abs_x":
+        x = rand_fp(21, (2, 3, 2))
+        got = FK.fp12_cyc_pow_fixed_plain(x, X_ABS)
+        assert torch.equal(got, port_of(jax.jit(PAIRJ._pow_abs_x)(J(x))))
+        assert torch.equal(FK.fp12_cyc_pow_fixed(x, X_ABS), got)
+        assert torch.equal(PAIR._pow_abs_x(x), got)
+    elif case == "pow_cyclotomic":
+        f = rand_fp(22, (2, 3, 2))[3:7]                  # no zero row
+        m = TW.fp12_mul(TW.fp12_conj(f), TW.fp12_inv(f))
+        m = TW.fp12_mul(TW.fp12_frob(m, 2), m)
+        got = TW.fp12_to_host(FK.fp12_cyc_pow_fixed_plain(m, X_ABS))
+        assert got == [FJ._fp12_canon(FJ.fp12_pow(h, X_ABS)) for h in TW.fp12_to_host(m)]
+    else:
+        k = 3
+        f = rand_fp(23, (2, 3, 2))
+        c0, c5 = (rand_fp(24 + i, (k, 2)).transpose(0, 1) for i in range(2))
+        c3 = rand_fp(26, (k, 2))[:1].transpose(0, 1)        # (k, 1, 2, 12)
+        inf = torch.zeros(k, N, dtype=torch.bool)
+        inf[1] = True
+        inf[2, 3] = True
+        m = inf[..., None, None]
+        lines = torch.stack([torch.where(m, TW.fp2_one(), c0), torch.where(m, 0, c3),
+                             torch.where(m, 0, c5)], -3)         # (k, N, 3, 2, 12)
+        want = J(f)
+        for i in range(k):
+            want = PAIRJ._mul_sparse(want, tuple(J(c) for c in lines[i].unbind(-3)))
+        got = FK.fp12_sparse_mul_plain(f, lines)
+        assert torch.equal(got, port_of(want))
+        assert torch.equal(FK.fp12_sparse_mul(f, lines), got)
+        assert torch.equal(PAIR._mul_lines(f, c0, c3, c5, inf), got)
 
 
 def test_pair_batch_cpu_matches_jax_gt_bytes():

@@ -76,7 +76,8 @@ SLICE_PATHS = ("keccak", "bbs04_verify", "bbs04_open", "ac_bbs_verify", "ac_rbbs
 ROW_WORDS = {"fp_mont_mul": 12, "fr_mont_mul": 8, "fp_pow_fixed": 12, "fr_pow_fixed": 8,
              "fp2_mul": 24, "fp2_sqr": 24, "fp6_mul": 72, "g1_add": 36, "g1_dbl": 36,
              "g1_madd": 36, "fp12_mul": 144, "fp12_sqr": 144, "fp12_usqr": 144,
-             "fp12_sparse_mul": 144, "g2_add": 72, "g2_madd": 72, "g2_dbl": 72}
+             "fp12_cyc_pow_fixed": 144, "fp12_sparse_mul": 144, "g2_add": 72, "g2_madd": 72,
+             "g2_dbl": 72}
 
 
 def _as_launch(name, fn):
@@ -256,7 +257,8 @@ def main() -> None:
     b = int(sys.argv[1]) if len(sys.argv) > 1 else 4
     only = set(sys.argv[2].split(",")) if len(sys.argv) > 2 else None
     for name in ("fp2_mul", "fp2_sqr", "fp6_mul", "g1_add", "g1_dbl", "g1_madd", "fp12_mul",
-                 "fp12_sqr", "fp12_usqr", "fp12_sparse_mul", "g2_add", "g2_madd", "g2_dbl"):
+                 "fp12_sqr", "fp12_usqr", "fp12_cyc_pow_fixed", "fp12_sparse_mul", "g2_add",
+                 "g2_madd", "g2_dbl"):
         setattr(FK, name + "_plain", _as_launch(name, getattr(FK, name + "_plain")))
     for F in (FP.FP_CTX, FP.FR_CTX):
         F.mont_mul_plain = _as_launch(f"{F.name}_mont_mul", F.mont_mul_plain)
