@@ -25,13 +25,16 @@ Phases, one line each; any failure raises and ends the run non-zero:
            the pairing gave them before K8-K11; since then no path launches
            K3, and K4 only in the final exponentiation's inverse); K5: one
            MSM bucket step, 64 lanes x 33 windows; K6, K7: one GLV ladder
-           step at B = 8192; K8-K10 at B = 2048; K10's cyclotomic power
-           x^|x| of one launch (the final exponentiation's g^|x|) at
+           step at B = 8192; K8-K10 at B = 2048, K9 also at 13, 512, 519
+           and 1,024 rows (2, 4, 4 and 8 instances per block, random rows
+           between the edge rows); K10's cyclotomic
+           power x^|x| of one launch (the final exponentiation's g^|x|) at
            B = 2048 and 512, and at 2048 also x^(2^63) (its 63 squares
            alone); K11 over k stacked lines, k = 1 at B = 2048, k = 2 and
-           3 at 512 (the verifies' shared Miller loops); K12-K14, the G2
-           group law, at B = 2048 (the pairing's Miller loop, the G2
-           ladder); the chains, the power and K2-K14 each also at a row
+           3 at 512 (the verifies' shared Miller loops), k = 4 at 512 (a
+           product of four pairs); K12-K14, the G2 group law, at B = 2048
+           (the pairing's Miller loop, the G2 ladder), K14 also at 13, 512,
+           519, 1,024 and 4,096 rows; the chains, the power and K2-K14 each also at a row
            count that leaves its last block ragged), each held bit for bit
            against its plain PyTorch version on the card (the chains, the
            Fr product, K2-K4 and K8-K11 with edge rows at both ends, K5-K7
@@ -283,10 +286,17 @@ FP2_SQR_MULADDS = min(2 * MULADDS_PER_PRODUCT, 3 * SQR_MULADDS,
 K2_ROWS_PER_PAIR = (15, 1, 2, 3, 4, 5, 6)
 K4_ROWS_PER_PAIR = (3, 2)
 #: added to a headline row count, leaves the last block of K2 (32 rows per
-#: block), K3 (64), K4 (16), K5 (16), K6 (16), K7 (32), K8, K9 (8), K10,
-#: K11 and the power (8 from 1,024 rows on, 4 from 512, else 2) and
-#: K12-K14 (8) ragged
+#: block), K3 (64), K4 (16), K5 (16), K6 (16), K7 (32), K8 (8), K9-K11 and
+#: the power (8 from 1,024 rows on, 4 from 512, else 2), K12, K13 (8) and
+#: K14 (as K9) ragged
 RAGGED = 7
+#: row counts at which K9 and K14 run at each of their instances per block
+#: (csrc/fp381.cuh `rows_per_block`), every one with random rows between
+#: the edge rows: 2 at 13 rows (the last block ragged), 4 at 512 and 519
+#: (ragged), 8 at 1,024 (the pairing's B and B + RAGGED add 8 at 2,048 and
+#: ragged); the paths' launches below 13 rows are left to the rows phase's
+#: random draws
+R_COUNTS = (13, SCHEME_B, SCHEME_B + RAGGED, 1024)
 #: the largest row block a plain version is given at once in the rows phase
 PLAIN_ROWS = 32768
 #: kernels of a pairing path: K1 and its chain, K2, K4 (the final
@@ -397,9 +407,11 @@ def _least_chain(e: int, sqr_ops: int, mul_ops: int) -> dict:
 def _edges(x, vals, last=False):
     """Put the edge values into the first rows (every component), and with
     last=True into the last rows too (row -1 the first value); x holds Fp
-    (12) or Fr (8) limbs."""
+    (12) or Fr (8) limbs, and keeps at least one random row between."""
     from crypto12381_tpu_torch.fields import fp as FP
 
+    if len(x) <= len(vals) * (2 if last else 1):
+        raise ValueError(f"{len(x)} rows leave no random row beside {len(vals)} edge values")
     F = FP.FP_CTX if x.shape[-1] == FP.FP_CTX.limbs else FP.FR_CTX
     for r, v in enumerate(vals):
         x[r, :, :] = F.limbs_of(v)
@@ -449,7 +461,7 @@ def _curve2_inputs(rng, kind: str, rows: int, dev):
     coordinates with G2 points in the first 4 rows and again in the last 4,
     and the host's affine results for those 8 rows: O + B, A + A (the two A
     with different Z), (-A) + A, O + O (K13: O + B in the fourth row); K14
-    doubles the first operand."""
+    doubles the first operand; more than 8 rows, so that some are random."""
     import torch
     from crypto12381_tpu_torch.fields import fp as FP
     from crypto12381_tpu_torch.host import curve as C
@@ -475,6 +487,8 @@ def _curve2_inputs(rng, kind: str, rows: int, dev):
         x[:4] = x[-4:] = FP.from_int(pts)
         return x.to(dev)
 
+    if rows <= 8:
+        raise ValueError(f"{rows} rows leave no random row beside the 8 edge rows")
     p = fill(3, [O, proj(A, z1), proj(C.g2_neg(A), z1), O])
     if kind == "g2_dbl":
         return (p,), [None, A2, C.g2_neg(A2), None] * 2
@@ -625,13 +639,13 @@ def phase_kernels(dev):
                      for i, shape in enumerate(shapes))
 
     fp12 = ("crypto12381_tpu_torch/csrc/fp12.cu", "crypto12381_tpu/fields/fp32k.py:")
-    for name, shapes, prod, kern, plain, line in (
-        ("K8 fp12_mul", ((2, 3, 2), (2, 3, 2)), 54, FK.fp12_mul, FK.fp12_mul_plain, 394),
-        ("K9 fp12_sqr", ((2, 3, 2),), 36, FK.fp12_sqr, FK.fp12_sqr_plain, 410),
-        ("K10 fp12_usqr", ((2, 3, 2),), 18, FK.fp12_usqr, FK.fp12_usqr_plain, 424),
+    for name, shapes, prod, kern, plain, line, counts in (
+        ("K8 fp12_mul", ((2, 3, 2), (2, 3, 2)), 54, FK.fp12_mul, FK.fp12_mul_plain, 394, ()),
+        ("K9 fp12_sqr", ((2, 3, 2),), 36, FK.fp12_sqr, FK.fp12_sqr_plain, 410, R_COUNTS),
+        ("K10 fp12_usqr", ((2, 3, 2),), 18, FK.fp12_usqr, FK.fp12_usqr_plain, 424, ()),
     ):
         specs.append((name, name.split()[1], fp12[0], f"{fp12[1]}{line}", kern, plain,
-                      {rows: fp12_ins(rows, shapes) for rows in (B, B + RAGGED)}, B,
+                      {rows: fp12_ins(rows, shapes) for rows in (B, B + RAGGED, *counts)}, B,
                       prod * MULADDS_PER_PRODUCT, None, {}))
     # K10's power x^|x| of one launch (the final exponentiation's g^|x|; it
     # replaces 63 K10 and 5 K8 launches): at the pairing's B rows, the
@@ -646,11 +660,14 @@ def phase_kernels(dev):
                   * MULADDS_PER_PRODUCT, None, {"exponent": e}))
     # K11 over k stacked lines (one launch per Miller digit step): k = 1 at
     # the pairing's B rows, k = 2 and 3 at the verifies' 512 (BBS and PS),
-    # each also at a ragged count, every line with the edge rows
-    for k, rows in ((1, B), (2, SCHEME_B), (3, SCHEME_B)):
+    # each also at a ragged count, and k = 4 (a product of four or more
+    # pairs: a third turn of the line ring) at 512; every line with the
+    # edge rows
+    for k, rows, counts in ((1, B, (B + RAGGED,)), (2, SCHEME_B, (SCHEME_B + RAGGED,)),
+                            (3, SCHEME_B, (SCHEME_B + RAGGED,)), (4, SCHEME_B, ())):
         specs.append((f"K11 fp12_sparse_mul k={k}", "fp12_sparse_mul", fp12[0], f"{fp12[1]}464",
                       FK.fp12_sparse_mul, FK.fp12_sparse_mul_plain,
-                      {r: fp12_ins(r, ((2, 3, 2), (3, 2)), k) for r in (rows, rows + RAGGED)},
+                      {r: fp12_ins(r, ((2, 3, 2), (3, 2)), k) for r in (rows, *counts)},
                       rows, k * 45 * MULADDS_PER_PRODUCT, None, {"stack": k, "row_dims": (0, 1)}))
     # K5: one MSM bucket step (lanes x windows rows); K6, K7: one GLV ladder
     # step of the g1 phase's batch; each also at a ragged row count (blocks
@@ -671,15 +688,17 @@ def phase_kernels(dev):
                       muladds, edge_want, {}))
     # K12-K14: the G2 group law at the pairing's and the G2 ladder's 2,048
     # rows and at a ragged count (blocks of 8), the edge rows in the first
-    # and the last block; the rows phase adds the other counts (the Miller
-    # loops' fixed points at 1 row, the MSM's bucket steps and trees)
-    for name, muladds, kern, plain, line in (
-        ("K12 g2_add", 36 * M, FK.g2_add, FK.g2_add_plain, 781),
-        ("K13 g2_madd", 33 * M, FK.g2_madd, FK.g2_madd_plain, 667),
-        ("K14 g2_dbl", 18 * M + 2 * FP2_SQR_MULADDS, FK.g2_dbl, FK.g2_dbl_plain, 741),
+    # and the last block; K14 also at R_COUNTS and the G2 MSM's 4,096; the
+    # rows phase adds the other counts (the Miller loops' fixed points at 1
+    # row, the MSM's bucket steps and trees)
+    for name, muladds, kern, plain, line, counts in (
+        ("K12 g2_add", 36 * M, FK.g2_add, FK.g2_add_plain, 781, ()),
+        ("K13 g2_madd", 33 * M, FK.g2_madd, FK.g2_madd_plain, 667, ()),
+        ("K14 g2_dbl", 18 * M + 2 * FP2_SQR_MULADDS, FK.g2_dbl, FK.g2_dbl_plain, 741,
+         R_COUNTS + (2 * B,)),
     ):
         ins, edge_want = {}, {}
-        for r in (B, B + RAGGED):
+        for r in (B, B + RAGGED, *counts):
             ins[r], edge_want[r] = _curve2_inputs(rng, name.split()[1], r, dev)
         specs.append((name, name.split()[1], "crypto12381_tpu_torch/csrc/g2.cu",
                       f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, B,

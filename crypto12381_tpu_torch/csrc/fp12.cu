@@ -45,8 +45,8 @@
 // 288 k and 576 for 45 k, the power 576 and 576 for 1,404 (at e = |x|), at
 // 588 32-bit multiply-adds per product: 9 to 1,400 multiply-adds per byte,
 // above the card's 5 (1.673e13 per s over 3.35e12 bytes per s), so the
-// integer multiply rate bounds all of them: at 2,048 rows K10 0.00130 ms,
-// K11 0.00324 k ms, the power 0.1011 ms (0.0253 ms at 512 rows).  Tensor
+// integer multiply rate bounds all of them: at 2,048 rows K9 0.00259 ms,
+// K10 0.00130, K11 0.00324 k, the power 0.1011 (0.0253 at 512 rows).  Tensor
 // cores do not apply: there is no 32-bit integer wgmma.  TMA and cp.async
 // do not matter for one stage-in of a few KB per launch; K11 prefetches
 // each later line with cp.async (below).
@@ -67,17 +67,20 @@
 // launch masks its copies, products and combines; every thread reaches
 // every barrier.
 //
-// K8 and K9 (8 instances per block): stage; pre-sum (K8 a + b and c + d,
-// K9 a + b and a + v b); product (the thread forms its two operands, the
-// Fp2 Karatsuba's raw sum included, runs mont_mul, fp381.cuh's CIOS
-// product of K1, and writes the product back); the Fp2, Fp6 and Fp12
-// combines; store.  Shared memory K8 35,072 bytes, K9 23,424, later phases
-// writing over what is dead by then.
+// K8 (8 instances per block): stage; pre-sum (a + b and c + d); product
+// (the thread forms its two operands, the Fp2 Karatsuba's raw sum
+// included, runs mont_mul, fp381.cuh's CIOS product of K1, and writes the
+// product back); the Fp2, Fp6 and Fp12 combines; store.  Shared memory
+// 35,072 bytes, later phases writing over what is dead by then.
 //
-// K10, K11 and the power were redesigned after their first form sat at
-// about 0.011 ms per launch at any row count up to 1,024 rows, 5-10x their
-// bounds: the launch, the stage, one product's latency and every
-// barrier-separated phase.  Their designs:
+// K9, K10, K11 and the power were redesigned after their first form (K8's)
+// sat at about 0.010-0.011 ms per launch at any row count up to 1,024
+// rows, 5-10x their bounds: the launch, the stage, one product's latency
+// and every barrier-separated phase (K9's first form, 7 phases, took
+// 0.010539 ms at 1 row and 0.014818 at 2,048 on an H100 at 700 W; at
+// 2,048 rows its 73,728 products keep the SM busy, so a layout that adds
+// instructions loses there: forms whose product threads built their own
+// pair sums of a + b and a + v b took 0.018 ms).  Their designs:
 //   - the instances per block R are a template parameter, 8, 4 or 2,
 //     picked from n (rows_per_block): at least 128 blocks where n allows,
 //     so 512 rows make 128 blocks of 4 (the first form's 16 per block made
@@ -86,12 +89,17 @@
 //   - pre-sums are formed by the product's own thread from shared memory
 //     (K10's X_j + Y_j, K11's a_j + b_j, their pair sums and the line's
 //     pair sums, the power's pair sums of a + b), a predicated sum of up
-//     to four values (sum_at), so there is no pre-sum phase;
+//     to four values (sum_at), or in the stage phase from device memory
+//     (K9's a + b and a + v b, the power's c + d), so there is no pre-sum
+//     phase;
 //   - a combine computes each output coefficient as one signed sum of the
-//     products, a row of a table (USQR, CYCMUL, SPARSE, generated from the
-//     algebra by tools/fp12_tables.py), and writes it over its input Fp12
-//     row in place: each output depends only on the products and, in
-//     K10, on its own input coefficient.  Consecutive threads of a warp
+//     products, a row of a table (SQR, USQR, CYCMUL, SPARSE, generated
+//     from the algebra by tools/fp12_tables.py), and writes it over its
+//     input Fp12 row in place: each output depends only on the products
+//     and, in K10, on its own input coefficient.  K9's rows are long (up to
+//     13 + 13 terms), so below 1,024 rows (R < 8), where a block's latency
+//     is the launch's time, its 36 threads per instance each sum a third
+//     of a row (SQR3) and the store phase adds the three thirds.  Consecutive threads of a warp
 //     hold different outputs (item w is output w / R of instance w % R),
 //     so branchy combines serialise; a table row runs the same
 //     instructions on every thread.  A first form with branchy combines
@@ -99,7 +107,8 @@
 //     card (K11 0.0415 ms at 2,048 rows, 148 registers);
 //   - K10's product thread forms both coefficients' operands of its Fp2
 //     square and selects one, for the same reason.
-// K10: stage, product, combine, store (4 phases; 5 before).  K11: stage f
+// K9 and K10: stage, product, combine, store (4 phases; 7 and 5 before;
+// K9's store also adds the partial sums at R < 8).  K11: stage f
 // and line 0; per line s a product phase, which also issues the cp.async
 // copies of line s + 1 into the other slot of a two-line ring, and one
 // combine phase (the Fp2, Fp6 and Fp12 combines in one table sum over the
@@ -127,6 +136,9 @@
 // at 512 rows it is one product's latency per step.
 //
 // Shared memory per block (limbs), R instances:
+//   K9     X (R rows of 148), P: a + b and a + v b (2 R rows of 76), T: the
+//          36 products of each instance, T[q][i], and at R < 8 W: the 36
+//          partial sums; R = 8: 23,424 bytes;
 //   K10    X (R rows of 148), Q: the 18 products of each instance, Q[q][i];
 //          R = 8: 11,648 bytes;
 //   power  X, A (R rows of 148 each), XS: c + d (R rows of 76), Q: 18 Fp
@@ -136,11 +148,11 @@
 //          of 76, T: the 45 products T[q][i]; R = 8: 26,880 bytes.
 //
 // Bound proof of the product operands.  Every pre-sum is add_mod of
-// canonical values (xi b2 in K9's a + v b is a sub_mod and an add_mod),
-// so canonical.  A product's operand is then a canonical coefficient or,
+// canonical values (xi b2 in K9's a + v b is a sub_mod or an add_mod of
+// b2's components), so canonical.  A product's operand is then a canonical coefficient or,
 // as the third operand of an Fp2 Karatsuba (kara_operand, fp6_operand,
-// the power's in-register Karatsuba), the raw sum of two canonical
-// values, below 2p; K10's operands are canonical, their difference
+// kara_pick, the power's in-register Karatsuba), the raw sum of two
+// canonical values, below 2p; K10's operands are canonical, their difference
 // (sub_mod) or raw sums of two canonical values, as in K3.  mont_mul takes
 // operands below 2p and returns canonical values.  The combines are
 // add_mod and sub_mod of canonical values, so every output, and every
@@ -149,8 +161,6 @@
 // Layouts (int32 limbs, row-major, contiguous, 16-byte aligned): Fp12
 // (n, 2, 3, 2, 12), the lines (k, n, 3, 2, 12) as c0, c3, c5.  Operands
 // are canonical; outputs are canonical.
-
-#include <type_traits>
 
 #include "fp381.cuh"
 #include "tower.cuh"
@@ -285,106 +295,117 @@ fp12_mul_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
   }
 }
 
-// ------------------------------------------------------------- K9
-
-constexpr int K9_ROWS = 8;                       // instances per block
-constexpr int K9_BLOCK = 36 * K9_ROWS;           // one thread per Fp product
-// shared layout (limbs): operand X; pre-sums P[k][i] (k = 0: a + b,
-// 1: a + v b); products T[q][i]; then the Fp2 products V[v][i] over the
-// operand, the Fp6 products U[o][i] (t, m) over T, and the outputs over V
-constexpr int K9_X = 0, K9_P = K9_ROWS * S12, K9_T = K9_P + 2 * K9_ROWS * S6;
-constexpr int K9_V = 0, K9_U = K9_T, K9_O = 0;
-constexpr int K9_SMEM = K9_T + 36 * K9_ROWS * NL;
-constexpr int K9_PHASES = 7;
-static_assert(24 * K9_ROWS * NL <= K9_T, "V fits over the operand");
-static_assert(K9_ROWS * S12 <= 24 * K9_ROWS * NL, "the outputs fit over V");
-
-// Phase `ph` of K9 for thread `tid` of block `blk`.
-__device__ __forceinline__ void fp12_sqr_phase(int ph, uint32_t* sm, const uint32_t* x,
-                                               uint32_t* out, int64_t n, int64_t blk, int tid) {
-  const int64_t row0 = blk * K9_ROWS;
-  const int rows = block_rows(n, blk, K9_ROWS);
-  if (ph == 0) {                            // stage
-    stage_in<F12, S12, K9_BLOCK>(sm + K9_X, x + row0 * F12, rows, tid);
-  } else if (ph == 1) {                     // pre-sum e = 6 k + c of instance i
-    for (int w = tid; w < 12 * K9_ROWS; w += K9_BLOCK) {
-      const int e = w / K9_ROWS, i = w % K9_ROWS, c = e % 6;
-      if (i < rows) {
-        const uint32_t* a = sm + K9_X + i * S12;
-        uint32_t r[NL];
-        if (e < 6) ld_fp(r, a + F6 + c * NL);             // b
-        else v_coeff(r, [=](int j, int g) { return a + F6 + j * F2 + g * NL; }, c / 2, c % 2);
-        add_sh(r, a + c * NL);
-        st_fp(sm + K9_P + (e / 6 * K9_ROWS + i) * S6 + c * NL, r);
-      }
-    }
-  } else if (ph == 2) {                     // product q = 18 k + q6 of instance i
-    const int q = tid / K9_ROWS, i = tid % K9_ROWS;
-    if (i < rows) {                         // k = 0: (a + b)(a + v b), 1: a b
-      const uint32_t* xs = q < 18 ? sm + K9_P + i * S6 : sm + K9_X + i * S12;
-      const uint32_t* ys = q < 18 ? sm + K9_P + (K9_ROWS + i) * S6 : sm + K9_X + i * S12 + F6;
-      uint32_t a[NL], b[NL];
-      fp6_operand(a, xs, q % 18);
-      fp6_operand(b, ys, q % 18);
-      mont_mul<NL>(a, a, b);
-      st_fp(sm + K9_T + tid * NL, a);
-    }
-  } else if (ph == 3) {                     // Fp2 coefficient v of instance i
-    for (int w = tid; w < 24 * K9_ROWS; w += K9_BLOCK) {
-      const int v = w / K9_ROWS, i = w % K9_ROWS;
-      if (i < rows) {
-        uint32_t r[NL];
-        fp2_coeff(r, sm + K9_T + (3 * (v / 2) * K9_ROWS + i) * NL, K9_ROWS * NL, v % 2);
-        st_fp(sm + K9_V + w * NL, r);
-      }
-    }
-  } else if (ph == 4) {                     // coefficient o = 6 k + c of Fp6 product k
-    for (int w = tid; w < 12 * K9_ROWS; w += K9_BLOCK) {
-      const int o = w / K9_ROWS, i = w % K9_ROWS, c = o % 6;
-      if (i < rows) {
-        uint32_t r[NL];
-        fp6_coeff(r, sm + K9_V + (12 * (o / 6) * K9_ROWS + i) * NL, K9_ROWS * NL, c / 2,
-                  c % 2);
-        st_fp(sm + K9_U + w * NL, r);
-      }
-    }
-  } else if (ph == 5) {                     // output coefficient o of instance i
-    for (int w = tid; w < 12 * K9_ROWS; w += K9_BLOCK) {
-      const int o = w / K9_ROWS, i = w % K9_ROWS, c = o % 6 / 2, f = o % 2;
-      if (i < rows) {
-        auto m = [=](int j, int g) { return sm + K9_U + ((6 + 2 * j + g) * K9_ROWS + i) * NL; };
-        uint32_t r[NL];
-        if (o < 6) {                        // t - m - v m
-          uint32_t s[NL];
-          v_coeff(s, m, c, f);
-          ld_fp(r, sm + K9_U + ((2 * c + f) * K9_ROWS + i) * NL);
-          sub_sh(r, m(c, f));
-          sub_mod<NL>(r, r, s);
-        } else {                            // 2 m
-          ld_fp(r, m(c, f));
-          add_sh(r, m(c, f));
-        }
-        st_fp(sm + K9_O + i * S12 + o * NL, r);
-      }
-    }
-  } else {                                  // store
-    stage_out<F12, S12, K9_BLOCK>(out + row0 * F12, sm + K9_O, rows, tid);
-  }
-}
-
-__global__ void __launch_bounds__(K9_BLOCK)
-fp12_sqr_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out, int64_t n) {
-  __shared__ __align__(16) uint32_t sm[K9_SMEM];
-#pragma unroll
-  for (int ph = 0; ph < K9_PHASES; ++ph) {
-    fp12_sqr_phase(ph, sm, x, out, n, blockIdx.x, threadIdx.x);
-    if (ph + 1 < K9_PHASES) __syncthreads();
-  }
-}
-
 // ------------------------------------------------------ combine tables
 //
 // Generated by tools/fp12_tables.py; each row's signed sum is the output.
+// SQR: per output, the Fp products T[18 k + 3 p + kk] it adds and subtracts
+constexpr int SQR_POS = 13, SQR_NEG = 13;
+__device__ const uint8_t SQR_ADD[12][13] = {
+    {0, 5, 8, 12, 12, 18, 19, 24, 24, 24, 24, 32, 35},
+    {2, 4, 4, 7, 7, 14, 18, 26, 26, 31, 31, 34, 34},
+    {1, 4, 6, 6, 9, 21, 21, 21, 28, 32, 255, 255, 255},
+    {0, 1, 3, 4, 8, 11, 23, 23, 27, 28, 31, 31, 255},
+    {1, 3, 7, 15, 18, 18, 26, 28, 34, 255, 255, 255, 255},
+    {0, 1, 5, 6, 7, 17, 20, 20, 25, 27, 28, 33, 34},
+    {18, 18, 23, 23, 26, 26, 30, 30, 30, 30, 255, 255, 255},
+    {20, 20, 22, 22, 22, 22, 25, 25, 25, 25, 32, 32, 255},
+    {19, 19, 22, 22, 24, 24, 24, 24, 27, 27, 255, 255, 255},
+    {18, 18, 19, 19, 21, 21, 22, 22, 26, 26, 29, 29, 255},
+    {19, 19, 21, 21, 25, 25, 33, 33, 255, 255, 255, 255, 255},
+    {18, 18, 19, 19, 23, 23, 24, 24, 25, 25, 35, 35, 255},
+};
+__device__ const uint8_t SQR_SUB[12][13] = {
+    {1, 3, 3, 6, 6, 14, 20, 26, 26, 30, 30, 33, 33},
+    {0, 1, 5, 8, 13, 13, 19, 25, 25, 25, 25, 32, 35},
+    {0, 3, 8, 10, 22, 23, 27, 30, 30, 255, 255, 255, 255},
+    {2, 5, 7, 7, 9, 10, 21, 22, 22, 22, 29, 32, 255},
+    {0, 4, 6, 16, 19, 19, 24, 25, 27, 33, 255, 255, 255},
+    {2, 3, 4, 8, 15, 16, 18, 18, 19, 19, 24, 29, 35},
+    {19, 19, 21, 21, 21, 21, 24, 24, 24, 24, 32, 32, 255},
+    {18, 18, 19, 19, 23, 23, 26, 26, 31, 31, 31, 31, 255},
+    {18, 18, 21, 21, 26, 26, 28, 28, 255, 255, 255, 255, 255},
+    {20, 20, 23, 23, 25, 25, 25, 25, 27, 27, 28, 28, 255},
+    {18, 18, 22, 22, 24, 24, 34, 34, 255, 255, 255, 255, 255},
+    {20, 20, 21, 21, 22, 22, 26, 26, 33, 33, 34, 34, 255},
+};
+// SQR3: per output, the Fp products T[18 k + 3 p + kk] (SQR's rows in thirds) it adds and subtracts
+constexpr int SQR3_POS = 5, SQR3_NEG = 5;
+__device__ const uint8_t SQR3_ADD[36][5] = {
+    {0, 12, 19, 24, 35},
+    {2, 7, 18, 31, 34},
+    {1, 6, 21, 32, 255},
+    {0, 4, 23, 28, 255},
+    {1, 15, 26, 255, 255},
+    {0, 6, 20, 27, 34},
+    {18, 23, 30, 30, 255},
+    {20, 22, 25, 25, 255},
+    {19, 22, 24, 27, 255},
+    {18, 19, 22, 26, 255},
+    {19, 21, 33, 255, 255},
+    {18, 19, 24, 25, 255},
+    {5, 12, 24, 24, 255},
+    {4, 7, 26, 31, 255},
+    {4, 9, 21, 255, 255},
+    {1, 8, 23, 31, 255},
+    {3, 18, 28, 255, 255},
+    {1, 7, 20, 28, 255},
+    {18, 26, 30, 255, 255},
+    {20, 22, 25, 32, 255},
+    {19, 24, 24, 255, 255},
+    {18, 21, 22, 29, 255},
+    {19, 25, 33, 255, 255},
+    {18, 23, 24, 35, 255},
+    {8, 18, 24, 32, 255},
+    {4, 14, 26, 34, 255},
+    {6, 21, 28, 255, 255},
+    {3, 11, 27, 31, 255},
+    {7, 18, 34, 255, 255},
+    {5, 17, 25, 33, 255},
+    {23, 26, 30, 255, 255},
+    {22, 22, 25, 32, 255},
+    {22, 24, 27, 255, 255},
+    {19, 21, 26, 29, 255},
+    {21, 25, 255, 255, 255},
+    {19, 23, 25, 35, 255},
+};
+__device__ const uint8_t SQR3_SUB[36][5] = {
+    {1, 6, 20, 30, 33},
+    {0, 8, 19, 25, 35},
+    {0, 10, 27, 255, 255},
+    {2, 7, 21, 22, 255},
+    {0, 16, 24, 33, 255},
+    {2, 8, 18, 19, 35},
+    {19, 21, 24, 24, 255},
+    {18, 19, 26, 31, 255},
+    {18, 21, 28, 255, 255},
+    {20, 23, 25, 27, 255},
+    {18, 22, 34, 255, 255},
+    {20, 21, 26, 33, 255},
+    {3, 6, 26, 30, 255},
+    {1, 13, 25, 25, 255},
+    {3, 22, 30, 255, 255},
+    {5, 9, 22, 29, 255},
+    {4, 19, 25, 255, 255},
+    {3, 15, 18, 24, 255},
+    {19, 21, 24, 32, 255},
+    {18, 23, 26, 31, 255},
+    {18, 26, 28, 255, 255},
+    {20, 25, 25, 28, 255},
+    {18, 24, 34, 255, 255},
+    {20, 22, 26, 34, 255},
+    {3, 14, 26, 33, 255},
+    {5, 13, 25, 32, 255},
+    {8, 23, 30, 255, 255},
+    {7, 10, 22, 32, 255},
+    {6, 19, 27, 255, 255},
+    {4, 16, 19, 29, 255},
+    {21, 21, 24, 32, 255},
+    {19, 23, 31, 31, 255},
+    {21, 26, 255, 255, 255},
+    {23, 25, 27, 28, 255},
+    {22, 24, 255, 255, 255},
+    {21, 22, 33, 34, 255},
+};
 // USQR: per output, the square coefficients Q[2 s + k] (times 3, then -/+ 2 x_o) it adds and subtracts
 constexpr int USQR_POS = 3, USQR_NEG = 4;
 __device__ const uint8_t USQR_ADD[12][3] = {
@@ -478,13 +499,6 @@ __device__ const uint8_t SPARSE_SUB[12][11] = {
 
 // ------------------------------------- K10, the power and K11: shared pieces
 
-// Instances per block of K10, K11 and the power at n rows: the largest of
-// 8, 4, 2 that still makes at least 128 blocks (the card's 132 SMs, less a
-// ragged margin), else 2.
-inline int rows_per_block(int64_t n) {
-  return n >= 8 * 128 ? 8 : (n >= 4 * 128 ? 4 : 2);
-}
-
 // The coefficients (l1, l2) of pair j = 0, 1, 2 of an Fp6 Karatsuba:
 // (0, 1), (1, 2), (0, 2).
 __device__ __forceinline__ int pair_lo(int j) { return j == 1 ? 1 : 0; }
@@ -496,6 +510,16 @@ __device__ __forceinline__ void sum_at(uint32_t* r, const uint32_t* x, const int
 #pragma unroll
   for (int t = 1; t < 4; ++t)
     if (t < n) add_sh(r, x + off[t]);
+}
+
+// Component f of pair p's pre-sum of an Fp6 value in shared memory at x,
+// or with nh = 2 of the sum of the two at x and x + F6: the pair's one or
+// two coefficients of each, added (up to 4 values, fp6_presum's sum).
+__device__ __forceinline__ void pair_sum(uint32_t* r, const uint32_t* x, int nh, int p, int f) {
+  const int ja = p < 3 ? p : pair_lo(p - 3), jb = p < 3 ? p : pair_hi(p - 3);
+  const int off[4] = {ja * F2 + f * NL, (nh == 1 ? jb * F2 : F6 + ja * F2) + f * NL,
+                      jb * F2 + f * NL, F6 + jb * F2 + f * NL};
+  sum_at(r, x, off, nh * (p < 3 ? 1 : 2));
 }
 
 // r = sum of v[a[t] d] - sum of v[b[t] d] over a row of a combine table (a
@@ -521,6 +545,116 @@ __device__ __forceinline__ void signed_sum(uint32_t* r, const uint32_t* v, int d
   sub_mod<NL>(r, r, s);
 }
 
+// ------------------------------------------------------------- K9
+
+// Layout at R instances per block (limbs): operand X (R rows of S12), the
+// combine writing over it at R = 8; the pre-sums P[k][i] (k = 0: a + b,
+// 1: a + v b; R rows of S6 each); the 36 products T[q][i]; at R < 8 the
+// combine's 36 partial sums W[w][i].  SPLIT: the combine is spread over all
+// 36 threads of an instance (R < 8, below 1,024 rows, where a block's
+// latency is the launch's time), or each of 12 threads makes a whole
+// output (R = 8, two blocks per SM busy: the fewest instructions).
+template <int R>
+struct K9 {
+  static constexpr int BLOCK = 36 * R;       // one thread per Fp product
+  static constexpr bool SPLIT = R < 8;
+  static constexpr int X = 0, P = R * S12, T = P + 2 * R * S6, W = T + 36 * R * NL;
+  static constexpr int SMEM = SPLIT ? W + 36 * R * NL : W;
+  static constexpr int PHASES = 4;
+};
+
+// Pre-sum e = 6 k + c of the Fp12 row g in device memory, formed in the
+// stage phase by its own thread: component c = 2 j + f of a + b (k = 0) or
+// of a + v b (k = 1), v b = (xi b2, b0, b1), reduced.  The b term is b_j,
+// b_(j-1) or xi b2's component b2_f -/+ b2_(1-f), selected, so a warp's
+// lanes run the same instructions.
+__device__ __forceinline__ void sqr_presum(uint32_t* r, const uint32_t* g, int e) {
+  const int k = e / 6, c = e % 6, j = c / 2, f = c % 2;
+  const int jb = k == 0 ? j : (j > 0 ? j - 1 : 2);
+  uint32_t y[NL], z[NL], s[NL];
+  ld_fp(r, g + c * NL);                     // a_j, component f
+  ld_fp(y, g + F6 + jb * F2 + f * NL);
+  ld_fp(z, g + F6 + 2 * F2 + (1 - f) * NL);
+  add_mod<NL>(s, y, z);                     // xi b2: b2_1 + b2_0 (f = 1)
+  sub_mod<NL>(z, y, z);                     //        b2_0 - b2_1 (f = 0)
+  const bool xi = k == 1 && j == 0;
+#pragma unroll
+  for (int t = 0; t < NL; ++t) y[t] = xi ? (f ? s[t] : z[t]) : y[t];
+  add_mod<NL>(r, r, y);
+}
+
+// The combine phase of the Fp12 square over the 36 products t of each
+// instance: at R = 8 output coefficient o of instance i (thread o R + i,
+// o < 12), the row o of SQR (t - m - v m, or 2 m), written over the
+// instance's row of x; at R < 8 the partial sum w of instance i (thread
+// w R + i, every thread), the row w of SQR3 (a third of the terms of
+// output w % 12), written to w's slot of the partial sums, which the store
+// phase adds up.
+template <int R>
+__device__ __forceinline__ void sqr_combine(uint32_t* x, uint32_t* w, const uint32_t* t, int rows,
+                                            int tid) {
+  const int o = tid / R, i = tid % R;
+  if (i >= rows || (!K9<R>::SPLIT && o >= 12)) return;
+  uint32_t r[NL];
+  if (K9<R>::SPLIT) {
+    signed_sum<SQR3_POS, SQR3_NEG>(r, t + i * NL, R * NL, SQR3_ADD[o], SQR3_SUB[o]);
+    st_fp(w + tid * NL, r);
+  } else {
+    signed_sum<SQR_POS, SQR_NEG>(r, t + i * NL, R * NL, SQR_ADD[o], SQR_SUB[o]);
+    st_fp(x + i * S12 + o * NL, r);
+  }
+}
+
+// Phase `ph` of K9 for thread `tid` of block `blk`: stage (with the
+// pre-sums), product, combine, store (at R < 8 thread q R + i, q < 12, adds
+// output q's three partial sums and writes it to device memory).
+template <int R>
+__device__ __forceinline__ void fp12_sqr_phase(int ph, uint32_t* sm, const uint32_t* x,
+                                               uint32_t* out, int64_t n, int64_t blk, int tid) {
+  using L = K9<R>;
+  const int64_t row0 = blk * R;
+  const int rows = block_rows(n, blk, R);
+  const int q = tid / R, i = tid % R;
+  if (ph == 0) {                            // stage; pre-sum q of instance i
+    stage_in<F12, S12, L::BLOCK>(sm + L::X, x + row0 * F12, rows, tid);
+    if (q < 12 && i < rows) {
+      uint32_t r[NL];
+      sqr_presum(r, x + (row0 + i) * F12, q);
+      st_fp(sm + L::P + (q / 6 * R + i) * S6 + q % 6 * NL, r);
+    }
+  } else if (ph == 1) {                     // product q = 18 k + q6 of instance i
+    if (i < rows) {                         // k = 0: (a + b)(a + v b), 1: a b
+      const uint32_t* xs = q < 18 ? sm + L::P + i * S6 : sm + L::X + i * S12;
+      const uint32_t* ys = q < 18 ? sm + L::P + (R + i) * S6 : sm + L::X + i * S12 + F6;
+      uint32_t a[NL], b[NL];
+      fp6_operand(a, xs, q % 18);
+      fp6_operand(b, ys, q % 18);
+      mont_mul<NL>(a, a, b);
+      st_fp(sm + L::T + tid * NL, a);
+    }
+  } else if (ph == 2) {
+    sqr_combine<R>(sm + L::X, sm + L::W, sm + L::T, rows, tid);
+  } else if (!L::SPLIT) {                   // store
+    stage_out<F12, S12, L::BLOCK>(out + row0 * F12, sm + L::X, rows, tid);
+  } else if (q < 12 && i < rows) {
+    uint32_t r[NL];
+    ld_fp(r, sm + L::W + tid * NL);
+    add_sh(r, sm + L::W + (12 * R + tid) * NL);
+    add_sh(r, sm + L::W + (24 * R + tid) * NL);
+    st_fp(out + (row0 + i) * F12 + q * NL, r);
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(K9<R>::BLOCK, 2)
+fp12_sqr_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out, int64_t n) {
+  __shared__ __align__(16) uint32_t sm[K9<R>::SMEM];
+#pragma unroll
+  for (int ph = 0; ph < K9<R>::PHASES; ++ph) {
+    fp12_sqr_phase<R>(ph, sm, x, out, n, blockIdx.x, threadIdx.x);
+    if (ph + 1 < K9<R>::PHASES) __syncthreads();
+  }
+}
 
 // ------------------------------------------------------------ K10
 
@@ -650,16 +784,6 @@ __device__ __forceinline__ void cyc_pow_schedule(const Exponent& e, Run&& run) {
     }
   }
   run(CP_STORE);
-}
-
-// Component f of pair p's pre-sum of an Fp6 value in shared memory at x,
-// or with nh = 2 of the sum of the two at x and x + F6: the pair's one or
-// two coefficients of each, added (up to 4 values, fp6_presum's sum).
-__device__ __forceinline__ void pair_sum(uint32_t* r, const uint32_t* x, int nh, int p, int f) {
-  const int ja = p < 3 ? p : pair_lo(p - 3), jb = p < 3 ? p : pair_hi(p - 3);
-  const int off[4] = {ja * F2 + f * NL, (nh == 1 ? jb * F2 : F6 + ja * F2) + f * NL,
-                      jb * F2 + f * NL, F6 + jb * F2 + f * NL};
-  sum_at(r, x, off, nh * (p < 3 ? 1 : 2));
 }
 
 // Phase `ph` of the power for thread `tid` of block `blk`.
@@ -864,17 +988,6 @@ fp12_sparse_mul_kernel(const uint32_t* __restrict__ f, const uint32_t* __restric
   }
 }
 
-// Calls go(std::integral_constant<int, R>()) with R = rows_per_block(n).
-template <class Go>
-void with_rows(int64_t n, Go go) {
-  const int r = rows_per_block(n);
-  if (r == 8) go(std::integral_constant<int, 8>());
-  else if (r == 4) go(std::integral_constant<int, 4>());
-  else go(std::integral_constant<int, 2>());
-}
-
-inline unsigned grid_of(int64_t n, int rows) { return (unsigned)((n + rows - 1) / rows); }
-
 extern "C" int fp12_mul(const void* x, const void* y, void* out, int64_t n, void* stream) {
   if (n > 0) {
     fp12_mul_kernel<<<grid_of(n, K8_ROWS), K8_BLOCK, 0, (cudaStream_t)stream>>>(
@@ -885,8 +998,11 @@ extern "C" int fp12_mul(const void* x, const void* y, void* out, int64_t n, void
 
 extern "C" int fp12_sqr(const void* x, void* out, int64_t n, void* stream) {
   if (n > 0) {
-    fp12_sqr_kernel<<<grid_of(n, K9_ROWS), K9_BLOCK, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)x, (uint32_t*)out, n);
+    with_rows(n, [&](auto rc) {
+      constexpr int R = decltype(rc)::value;
+      fp12_sqr_kernel<R><<<grid_of(n, R), K9<R>::BLOCK, 0, (cudaStream_t)stream>>>(
+          (const uint32_t*)x, (uint32_t*)out, n);
+    });
   }
   return (int)cudaGetLastError();
 }

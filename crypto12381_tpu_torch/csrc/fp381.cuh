@@ -21,6 +21,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace fp381 {
@@ -185,7 +186,8 @@ __device__ __forceinline__ void copy16(uint32_t* d, const uint32_t* s) {
 #endif
 }
 
-// One Fp value from shared memory s into registers r, 16 bytes at a time.
+// One Fp value from s, in shared or device memory, 16-byte aligned, into
+// registers r, 16 bytes at a time.
 __device__ __forceinline__ void ld_fp(uint32_t* r, const uint32_t* s) {
 #pragma unroll
   for (int k = 0; k < NL; k += 4) {
@@ -201,7 +203,8 @@ __device__ __forceinline__ void ld_fp(uint32_t* r, const uint32_t* s) {
   }
 }
 
-// One Fp value from registers r into shared memory s.
+// One Fp value from registers r to s, in shared or device memory, 16-byte
+// aligned.
 __device__ __forceinline__ void st_fp(uint32_t* s, const uint32_t* r) {
 #pragma unroll
   for (int k = 0; k < NL; k += 4) {
@@ -278,6 +281,26 @@ __device__ __forceinline__ int block_rows(int64_t n, int64_t blk, int per) {
   const int64_t left = n - blk * per;
   return left < per ? (int)left : per;
 }
+
+// Instances per block R of the kernels that take it as a template parameter
+// (fp12.cu K9-K11 and the power, g2.cu K14) at n rows: the largest of 8,
+// 4, 2 that still makes at least 128 blocks (the card's 132 SMs, less a
+// ragged margin), else 2.
+inline int rows_per_block(int64_t n) {
+  return n >= 8 * 128 ? 8 : (n >= 4 * 128 ? 4 : 2);
+}
+
+// Calls go(std::integral_constant<int, R>()) with R = rows_per_block(n).
+template <class Go>
+void with_rows(int64_t n, Go go) {
+  const int r = rows_per_block(n);
+  if (r == 8) go(std::integral_constant<int, 8>());
+  else if (r == 4) go(std::integral_constant<int, 4>());
+  else go(std::integral_constant<int, 2>());
+}
+
+// Blocks of `rows` instances each over n rows.
+inline unsigned grid_of(int64_t n, int rows) { return (unsigned)((n + rows - 1) / rows); }
 
 // Operand k of a Karatsuba product of the pair x = (x0, x1) of Fp values
 // in shared memory, x1 at x0 + d: x0 (k = 0), x1 (k = 1) or the raw sum

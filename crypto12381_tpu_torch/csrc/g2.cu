@@ -12,13 +12,13 @@
 // y^2 = x^3 + 4(1 + i): 3b' = 12(1 + i) = 12 xi is folded into an operand
 // as 12 xi(x) = (12 (x0 - x1), 12 (x0 + x1)), mul12 of a sub_mod and of an
 // add_mod, so each is two rounds of Fp2 products, 6 + 6 (K12), 5 + 6 (K13)
-// and 4 + 4 (K14), each Fp2 product a Karatsuba of 3 Fp products: 36, 33
-// and 24 Fp products per point.  Complete: no branch, the identity
+// and 4 + 4 (K14), each Fp2 product a Karatsuba of 3 Fp products (K14's
+// two squares 2 each): 36, 33 and 22 Fp products per point.  Complete: no branch, the identity
 // (0 : 1 : 0), P = Q and P = -Q included (the twist's group has no point
 // of order two).  K13's affine operand must not be the identity.
 //
 // Bound on the card: per point K12 reads 576 bytes and writes 288 for 36
-// products, K13 480 and 288 for 33, K14 288 and 288 for 24, at 588 32-bit
+// products, K13 480 and 288 for 33, K14 288 and 288 for 22, at 588 32-bit
 // multiply-adds per product: about 25 multiply-adds per byte, above the
 // card's 5 (1.673e13 per s over 3.35e12 bytes per s), so the integer
 // multiply rate bounds all three.  One thread per point would run 24 to
@@ -27,9 +27,9 @@
 //
 // Each kernel therefore gives each Fp product of a round its own thread, as
 // K5-K11 do: 18 threads per K12 or K13 instance (K13's round 1 runs 15
-// products and leaves 3 threads idle), 12 per K14 instance.  A block takes
-// G2_ROWS consecutive instances and runs in phases with a barrier between
-// each two:
+// products and leaves 3 threads idle), 12 per K14 instance.  A K12 or K13
+// block takes G2_ROWS consecutive instances and runs in phases with a
+// barrier between each two:
 //   stage      the block's span of each operand into shared memory, 16
 //              bytes per thread, consecutive threads on consecutive bytes;
 //   product 1  Fp product q = 3 j + k of instance i, piece k of the Fp2
@@ -47,6 +47,29 @@
 //   combine 2  X3, Y3 and Z3, one Fp coefficient per item (6 per instance);
 //   store      the outputs from shared memory, 16 bytes per thread.
 // K12 and K13 share one copy of their last three phases (rcb2_round2_phase).
+//
+// K14 was redesigned after its first form (that layout: 8 instances per
+// block, six phases, 24 Fp products, a combine 1 that branched four ways
+// per lane) took 0.009626 ms at 1 row and 0.012249 at 2,048 on an H100 at
+// 700 W, 8x its bound.  A block takes R = 8, 4 or 2 instances, a template
+// parameter picked from n (fp381.cuh rows_per_block, as fp12.cu's K9-K11),
+// and runs four phases: stage; round 1; round 2, whose thread forms its
+// two Karatsuba operands in registers from the round-1 products
+// (k14_round2, kara_pick: the same instructions on every lane, then a
+// select); and the combine, which writes X3, Y3 and Z3 straight to device
+// memory, 48 bytes per thread.  Round 1 takes Y^2 and Z^2 as complex
+// squares and folds 3b' = 12 xi's 12 into a Z operand, so that t0 and t2
+// are products or one add_mod of two, and the combine applies e8's 8 to
+// two round-2 products: a first 4-phase form that built t2 = 12 xi z2,
+// t0m and e8 on every round-2 lane (about 33 modular additions) took
+// 0.015005 ms at 2,048 rows.  The combine runs on 6 of the 12 threads of
+// an instance: an output is one Fp value, and splitting its sum over two
+// threads would need another exchange and barrier.  __launch_bounds__
+// asks for 5 blocks per SM (at most 136 registers; 128 and a 20-byte
+// spill at R = 8): at 191 registers 3 blocks fit, and 4,096 rows (512
+// blocks of 8) took two waves.  A form that folded each component into
+// its operand as it came (12 fewer live values, an 8-byte spill) ran
+// slower on the card at 2,048 and 4,096 rows.
 // Each phase is a function of (phase, block, thread), and the __global__
 // body only calls the phases with a barrier after each.  A projective row
 // in shared memory is padded from 288 to 304 bytes and an affine row from
@@ -54,7 +77,7 @@
 // 32 distinct banks; products and coefficients take 48-byte slots,
 // consecutive instances in consecutive slots.  No phase writes over data of
 // another: shared memory per block is 25,728 bytes (K12), 23,808 (K13)
-// and 18,688 (K14).  The last block of a ragged launch masks its copies,
+// and 11,648 (K14 at R = 8).  The last block of a ragged launch masks its copies,
 // products and combines; every thread reaches every barrier.
 //
 // Bound proof of the product operands: each is a canonical coordinate,
@@ -78,7 +101,7 @@ using namespace fp381;
 constexpr int G2P = F6;             // limbs of a projective G2 point
 constexpr int G2A = 2 * F2;         // limbs of an affine G2 point
 constexpr int SA2 = G2A + 4;        // a padded shared affine row (208 bytes: 13 16-byte units)
-constexpr int G2_ROWS = 8;          // instances per block, all three kernels
+constexpr int G2_ROWS = 8;          // instances per block of K12 and K13
 constexpr int G2_D = G2_ROWS * NL;  // from one product's (or item's) slot to the next's
 
 // ---------------------------------------------- pieces of K12-K14
@@ -329,118 +352,158 @@ g2_madd_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
 // ------------------------------------------------------------ K14
 //
 // 2P, 4 + 4 Fp2 products:
-//   round 1   t0 = Y^2, t1 = Y Z, xy = X Y, z2 = Z^2;
-//   combine 1 t2 = 12 xi z2, t0m = t0 - 3 t2, y3a = t0 + t2, e8 = 8 t0;
-//   round 2   t0m xy, t0m y3a, e8 t2, e8 t1;
-//   combine 2 X3 = 2 t0m xy, Y3 = t0m y3a + e8 t2, Z3 = e8 t1.
+//   round 1   t0 = Y^2 and 12 z2 = 12 Z^2 as complex squares (2 Fp
+//             products each: (w0 + w1)(w0 - w1) and w0 (w1 + w1), the 12
+//             folded into the left operand), t1 = Y Z and xy = X Y as
+//             Karatsuba products (3 each): 10 Fp products;
+//   round 2   t0m xy, t0m y3a, t0 t2 and t0 t1 with t2 = xi (12 z2),
+//             t0m = t0 - 3 t2 and y3a = t0 + t2;
+//   combine   X3 = 2 t0m xy, Y3 = t0m y3a + 8 t0 t2, Z3 = 8 t0 t1
+//             (e8 = 8 t0 of the plain version, applied to the products).
 
-constexpr int K14_BLOCK = 12 * G2_ROWS;      // one thread per Fp product of a round
-// shared layout (limbs): P rows, the round-1 products T[q][i], the round-2
-// operands U[o][i] (t0m, xy, y3a, e8, t2, t1), the round-2 products V[q][i],
-// the outputs
-constexpr int K14_P = 0, K14_T = G2_ROWS * S6, K14_U = K14_T + 12 * G2_D;
-constexpr int K14_V = K14_U + 12 * G2_D, K14_O = K14_V + 12 * G2_D;
-constexpr int K14_SMEM = K14_O + G2_ROWS * S6;
-constexpr int K14_PHASES = 6;
+// Layout at R instances per block (limbs): P rows, the round-1 products
+// T[q][i], the round-2 products V[q][i]; D from one product's slot to the
+// next.
+template <int R>
+struct K14 {
+  static constexpr int BLOCK = 12 * R;       // one thread per Fp product of round 2
+  static constexpr int D = R * NL;
+  static constexpr int P = 0, T = R * S6, V = T + 10 * D;
+  static constexpr int SMEM = V + 12 * D;
+  static constexpr int PHASES = 4;
+};
 
-// Round-1 Fp2 product j of K14 squares or multiplies the coordinates
-// k14_lhs(j) and k14_rhs(j) of P: Y Y, Y Z, X Y, Z Z.
-__device__ __forceinline__ int k14_lhs(int j) { return (0x2011 >> 4 * j) & 15; }
-__device__ __forceinline__ int k14_rhs(int j) { return (0x2121 >> 4 * j) & 15; }
-// Round-2 Fp2 product k multiplies the operands k14_u2(k) and
-// k14_v2(k): t0m xy, t0m y3a, e8 t2, e8 t1.
-__device__ __forceinline__ int k14_u2(int k) { return k < 2 ? 0 : 3; }
-__device__ __forceinline__ int k14_v2(int k) { return (0x5421 >> 4 * k) & 15; }
-
-// Round-2 operand j of K14 (t0m, xy, y3a, e8, t2, t1), component f, from
-// the round-1 Fp2 products t0, t1, xy, z2 (Fp products at t).
-__device__ __forceinline__ void k14_operand(uint32_t* r, const uint32_t* t, int j, int f) {
-  if (j == 1 || j == 5) {          // xy, t1
-    fp2_of(r, t, j == 1 ? 2 : 1, f);
+// The operands of K14's round-1 Fp product e < 10 from the staged point
+// pt = (X, Y, Z): e = 0, 1 and 8, 9 the complex squares of Y and of Z,
+// (w0 + w1)(w0 - w1) (even e) and w0 (w1 + w1) (odd e), the left operand
+// times 12 for Z; e = 2..4 and 5..7 the Karatsuba pieces e - 2 and e - 5
+// of Y Z and X Y.
+__device__ __forceinline__ void k14_round1(uint32_t* l, uint32_t* r, const uint32_t* pt, int e) {
+  if (e >= 2 && e < 8) {
+    const int kk = (e - 2) % 3;
+    kara_operand(l, pt + (e < 5 ? F2 : 0), kk);
+    kara_operand(r, pt + (e < 5 ? 2 * F2 : F2), kk);
     return;
   }
-  uint32_t t0[NL];
-  fp2_of(t0, t, 0, f);
-  if (j == 3) {                    // e8 = 8 t0
-    add_mod<NL>(r, t0, t0);
-    add_mod<NL>(r, r, r);
-    add_mod<NL>(r, r, r);
-    return;
+  const uint32_t* w = pt + (e < 8 ? F2 : 2 * F2);
+  uint32_t w0[NL], w1[NL], s[NL];
+  ld_fp(w0, w);
+  ld_fp(w1, w + NL);
+  add_mod<NL>(l, w0, w1);
+  sub_mod<NL>(r, w0, w1);
+  add_raw<NL>(s, w1, w1);                   // below 2p
+  const bool odd = e & 1;
+#pragma unroll
+  for (int j = 0; j < NL; ++j) {
+    l[j] = odd ? w0[j] : l[j];
+    r[j] = odd ? s[j] : r[j];
   }
-  uint32_t z0[NL], z1[NL];
-  fp2_of(z0, t, 3, 0);
-  fp2_of(z1, t, 3, 1);
-  xi12(r, z0, z1, f);              // t2 = 12 xi z2
-  if (j == 0) {                    // t0m = t0 - 3 t2
-    add_mod<NL>(z0, r, r);
-    add_mod<NL>(z0, z0, r);
-    sub_mod<NL>(r, t0, z0);
-  } else if (j == 2) {             // y3a = t0 + t2
-    add_mod<NL>(r, t0, r);
+  if (e >= 8) mul12(l, l);
+}
+
+// Operand k of a Karatsuba product of the pair (x0, x1) of Fp values in
+// registers: x0 (k = 0), x1 (k = 1) or the raw sum x0 + x1 (k = 2, < 2p),
+// selected, so that threads with different k run the same instructions.
+// r may alias x0 or x1.
+__device__ __forceinline__ void kara_pick(uint32_t* r, const uint32_t* x0, const uint32_t* x1,
+                                          int k) {
+  uint32_t s[NL];
+  add_raw<NL>(s, x0, x1);
+#pragma unroll
+  for (int j = 0; j < NL; ++j) r[j] = k == 0 ? x0[j] : (k == 1 ? x1[j] : s[j]);
+}
+
+// The round-2 operands of K14's Fp2 product k from the round-1 Fp
+// products at t (slot stride d), both components of each, into (u0, u1)
+// and (v0, v1): t0m (k < 2) or t0, and xy, y3a, t2 or t1 (k = 0..3).
+// t0 = (T0, T1) and t2 = (T8 - T9, T8 + T9) come straight from the
+// products; every lane forms t2, t0m, y3a and one Karatsuba product (xy or
+// t1, picked by its slots) and selects, so a warp's lanes run the same
+// instructions whatever their k.
+__device__ __forceinline__ void k14_round2(uint32_t* u0, uint32_t* u1, uint32_t* v0, uint32_t* v1,
+                                           const uint32_t* t, int d, int k) {
+  uint32_t* u[2] = {u0, u1};
+  uint32_t* v[2] = {v0, v1};
+  const uint32_t* kp = t + (k == 0 ? 5 : 2) * d;
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    uint32_t t0[NL], t2[NL], w[NL], z[NL];
+    ld_fp(t0, t + g * d);
+    ld_fp(t2, t + 8 * d);
+    ld_fp(w, t + 9 * d);
+    if (g == 0) sub_mod<NL>(t2, t2, w); else add_mod<NL>(t2, t2, w);
+    add_mod<NL>(w, t2, t2);                 // t0m = t0 - 3 t2
+    add_mod<NL>(w, w, t2);
+    sub_mod<NL>(w, t0, w);
+#pragma unroll
+    for (int j = 0; j < NL; ++j) u[g][j] = k < 2 ? w[j] : t0[j];
+    add_mod<NL>(w, t0, t2);                 // y3a = t0 + t2
+    fp2_coeff(z, kp, d, g);                 // xy (k = 0) or t1
+#pragma unroll
+    for (int j = 0; j < NL; ++j) v[g][j] = k == 1 ? w[j] : (k == 2 ? t2[j] : z[j]);
   }
 }
 
-// Phase `ph` of K14 for thread `tid` of block `blk`.
+// Component f of coordinate c of 2P from the round-2 Fp products at v
+// (slot stride d): X3 = 2 A, Y3 = B + 8 C, Z3 = 8 D for the Fp2 products
+// A, B, C, D; each lane forms u (A, B or D) and C and selects.
+__device__ __forceinline__ void k14_combine(uint32_t* r, const uint32_t* v, int d, int c, int f) {
+  uint32_t u[NL], w[NL], y[NL];
+  fp2_coeff(u, v + 3 * (c == 2 ? 3 : c) * d, d, f);
+  fp2_coeff(w, v + 6 * d, d, f);
+#pragma unroll
+  for (int j = 0; j < NL; ++j) w[j] = c == 2 ? u[j] : w[j];
+  add_mod<NL>(w, w, w);                     // 8 C or 8 D
+  add_mod<NL>(w, w, w);
+  add_mod<NL>(w, w, w);
+  add_mod<NL>(y, u, w);                     // Y3
+  add_mod<NL>(u, u, u);                     // X3
+#pragma unroll
+  for (int j = 0; j < NL; ++j) r[j] = c == 0 ? u[j] : (c == 1 ? y[j] : w[j]);
+}
+
+// Phase `ph` of K14 for thread `tid` of block `blk`: stage, round 1,
+// round 2, combine (written to device memory).
+template <int R>
 __device__ __forceinline__ void g2_dbl_phase(int ph, uint32_t* sm, const uint32_t* p,
                                              uint32_t* out, int64_t n, int64_t blk, int tid) {
-  const int64_t row0 = blk * G2_ROWS;
-  const int rows = block_rows(n, blk, G2_ROWS);
-  const int e = tid / G2_ROWS, i = tid % G2_ROWS;
+  using L = K14<R>;
+  const int64_t row0 = blk * R;
+  const int rows = block_rows(n, blk, R);
+  const int e = tid / R, i = tid % R;
   if (ph == 0) {                            // stage
-    stage_in<G2P, S6, K14_BLOCK>(sm + K14_P, p + row0 * G2P, rows, tid);
+    stage_in<G2P, S6, L::BLOCK>(sm + L::P, p + row0 * G2P, rows, tid);
   } else if (ph == 1) {                     // round-1 Fp product e of instance i
-    if (i < rows) {
-      const int j = e / 3, k = e % 3;
-      const uint32_t* pi = sm + K14_P + i * S6;
+    if (e < 10 && i < rows) {
       uint32_t x[NL], y[NL];
-      fp6_operand(x, pi, 3 * k14_lhs(j) + k);
-      fp6_operand(y, pi, 3 * k14_rhs(j) + k);
+      k14_round1(x, y, sm + L::P + i * S6, e);
       mont_mul<NL>(x, x, y);
-      st_fp(sm + K14_T + tid * NL, x);
+      st_fp(sm + L::T + tid * NL, x);
     }
-  } else if (ph == 2) {                     // component e % 2 of round-2 operand e / 2
+  } else if (ph == 2) {                     // piece e % 3 of round-2 Fp2 product e / 3
     if (i < rows) {
-      uint32_t r[NL];
-      k14_operand(r, sm + K14_T + i * NL, e / 2, e % 2);
-      st_fp(sm + K14_U + tid * NL, r);
+      uint32_t u0[NL], u1[NL], v0[NL], v1[NL];
+      k14_round2(u0, u1, v0, v1, sm + L::T + i * NL, L::D, e / 3);
+      kara_pick(u0, u0, u1, e % 3);
+      kara_pick(v0, v0, v1, e % 3);
+      mont_mul<NL>(u0, u0, v0);
+      st_fp(sm + L::V + tid * NL, u0);
     }
-  } else if (ph == 3) {                     // piece e % 3 of round-2 Fp2 product e / 3
-    if (i < rows) {
-      const int k = e / 3;
-      const uint32_t* u = sm + K14_U + i * NL;
-      uint32_t x[NL], y[NL];
-      kara_operand(x, u + 2 * k14_u2(k) * G2_D, e % 3, G2_D);
-      kara_operand(y, u + 2 * k14_v2(k) * G2_D, e % 3, G2_D);
-      mont_mul<NL>(x, x, y);
-      st_fp(sm + K14_V + tid * NL, x);
-    }
-  } else if (ph == 4) {                     // component e % 2 of coordinate e / 2
-    if (e < 6 && i < rows) {
-      const int c = e / 2, f = e % 2;
-      const uint32_t* v = sm + K14_V + i * NL;
-      uint32_t r[NL];
-      fp2_of(r, v, c == 2 ? 3 : c, f);
-      if (c == 0) {                         // X3 = 2 (t0m xy)
-        add_mod<NL>(r, r, r);
-      } else if (c == 1) {                  // Y3 = t0m y3a + e8 t2
-        uint32_t s[NL];
-        fp2_of(s, v, 2, f);
-        add_mod<NL>(r, r, s);
-      }
-      st_fp(sm + K14_O + i * S6 + c * F2 + f * NL, r);
-    }
-  } else {                                  // store
-    stage_out<G2P, S6, K14_BLOCK>(out + row0 * G2P, sm + K14_O, rows, tid);
+  } else if (e < 6 && i < rows) {           // component e % 2 of coordinate e / 2
+    uint32_t r[NL];
+    k14_combine(r, sm + L::V + i * NL, L::D, e / 2, e % 2);
+    st_fp(out + (row0 + i) * G2P + e / 2 * F2 + e % 2 * NL, r);
   }
 }
 
-__global__ void __launch_bounds__(K14_BLOCK)
+template <int R>
+__global__ void __launch_bounds__(K14<R>::BLOCK, 5)
 g2_dbl_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ out, int64_t n) {
-  __shared__ __align__(16) uint32_t sm[K14_SMEM];
+  __shared__ __align__(16) uint32_t sm[K14<R>::SMEM];
 #pragma unroll
-  for (int ph = 0; ph < K14_PHASES; ++ph) {
-    g2_dbl_phase(ph, sm, p, out, n, blockIdx.x, threadIdx.x);
-    if (ph + 1 < K14_PHASES) __syncthreads();
+  for (int ph = 0; ph < K14<R>::PHASES; ++ph) {
+    g2_dbl_phase<R>(ph, sm, p, out, n, blockIdx.x, threadIdx.x);
+    if (ph + 1 < K14<R>::PHASES) __syncthreads();
   }
 }
 
@@ -464,9 +527,11 @@ extern "C" int g2_madd(const void* p, const void* q, void* out, int64_t n, void*
 
 extern "C" int g2_dbl(const void* p, void* out, int64_t n, void* stream) {
   if (n > 0) {
-    g2_dbl_kernel<<<(unsigned)((n + G2_ROWS - 1) / G2_ROWS), K14_BLOCK, 0,
-                    (cudaStream_t)stream>>>(
-        (const uint32_t*)p, (uint32_t*)out, n);
+    with_rows(n, [&](auto rc) {
+      constexpr int R = decltype(rc)::value;
+      g2_dbl_kernel<R><<<grid_of(n, R), K14<R>::BLOCK, 0, (cudaStream_t)stream>>>(
+          (const uint32_t*)p, (uint32_t*)out, n);
+    });
   }
   return (int)cudaGetLastError();
 }

@@ -20,7 +20,7 @@ pre-sums and combines included, so no intermediate leaves the kernel:
   K7 `g1_dbl`                   (..., 3, 12):                 8 Fp products
   K12 `g2_add` (csrc/g2.cu)     (..., 3, 2, 12) + same:      36 Fp products
   K13 `g2_madd`                 (..., 3, 2, 12) + (..., 2, 2, 12): 33
-  K14 `g2_dbl`                  (..., 3, 2, 12):             24 Fp products
+  K14 `g2_dbl`                  (..., 3, 2, 12):             22 Fp products
 
 Operands are canonical; the outputs are canonical.  A CUDA tensor
 launches the kernel, a CPU tensor runs the plain version beside it, which

@@ -22,17 +22,18 @@ of all-0, all-1 and all-(p-1) operands at both ends of the launch (all
 p-1 gives the largest pre-sums); for the curve kernels K5-K7 on curve points with
 the identity, P = Q and P = -Q among them, also at row counts below, at
 and between multiples of a block, with those rows at both ends of the
-launch; for the Fp12 kernels K8-K11 (csrc/fp12.cu), K11 over 1-3
+launch; for the Fp12 kernels K8-K11 (csrc/fp12.cu), K11 over 1-5
 lines and the cyclotomic power x^e of one launch (run through the
 kernel's own schedule of phases) likewise at row counts below, at and
-between multiples of their blocks, at every instantiation of instances
-per block, with rows of all-0, all-1 and all-(p-1) operands at both
-ends; and for the G2 curve
-kernels K12-K14 (csrc/g2.cu) at row counts below, at, between and on
-multiples of their block, on G2 points with the identity, P = Q and
-P = -Q at both ends of the launch, against the plain versions and, made
-affine, the host's P + Q and 2P. The header's copies of p, r and their
-n0' must equal params.py's.
+between multiples of their blocks, K9-K11 and the power at every
+instantiation of instances per block, with rows of all-0, all-1 and
+all-(p-1) operands at both ends; and for the G2 curve
+kernels K12-K14 (csrc/g2.cu; K14 at every instantiation) at row counts
+below, at, between and on multiples of their block, on G2 points with
+the identity, P = Q and P = -Q at both ends of the launch, against the
+plain versions and, made affine, the host's P + Q and 2P. The header's
+copies of p, r and their n0' must equal params.py's, and the combine
+tables of csrc/fp12.cu what tools/fp12_tables.py generates.
 The launch code (the `<<<...>>>` wrappers) and the card itself are
 exercised only by chip_smoke.py.
 """
@@ -41,13 +42,15 @@ import pathlib
 import re
 import shutil
 import subprocess
+import sys
 
 import numpy as np
 import pytest
 
 from crypto12381_tpu.params import P
 
-CSRC = pathlib.Path(__file__).resolve().parent.parent / "crypto12381_tpu_torch" / "csrc"
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+CSRC = ROOT / "crypto12381_tpu_torch" / "csrc"
 R_INV = pow(1 << 384, -1, P)        # the port's Montgomery R = 2^384
 
 torch = FP = FK = C = G1C = G2C = params = None    # bound by _port
@@ -86,6 +89,7 @@ typedef void* cudaStream_t;
 MAIN = r"""
 #include <algorithm>
 #include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <vector>
 // A one-row-per-thread kernel over n threads (n may run past the rows).
@@ -178,15 +182,23 @@ bool fp12_r(std::vector<uint32_t>& o10, std::vector<uint32_t>& o11, std::vector<
         fp12_cyc_pow_phase<R>(sched[s], sm, x, out, n, blk, t); },
       n, R, CycPow<R>::BLOCK, (int)sched.size(), CycPow<R>::SMEM, 144);
 }
-// K8-K11 on n rows: Fp12 operands x and y (144 words a row) and the
-// sparse line (72 words a row); the four outputs one after another, K10
-// and K11 at 8 instances per block after their results at 4 and 2 were
-// found equal.
+// Calls go(std::integral_constant<int, R>()) for R = r, one of 8, 4, 2.
+template <class Go>
+int with_r(int r, Go go) {
+  if (r == 8) return go(std::integral_constant<int, 8>());
+  if (r == 4) return go(std::integral_constant<int, 4>());
+  if (r == 2) return go(std::integral_constant<int, 2>());
+  return 1;
+}
+// K8-K11 on n rows, K9-K11 at R instances per block (K8's layout is
+// fixed): Fp12 operands x and y (144 words a row) and the sparse line (72
+// words a row); the four outputs one after another.
+template <int R>
 int fp12s(const char* in, const char* outp) {
   FILE* f = fopen(in, "rb");
   int64_t n;
   if (fread(&n, 8, 1, f) != 1) return 1;
-  std::vector<uint32_t> x(n * 144), y(n * 144), l(n * 72), o8, o9, o10[3], o11[3], unused;
+  std::vector<uint32_t> x(n * 144), y(n * 144), l(n * 72), o8, o9, o10, o11, unused;
   if (fread(x.data(), 4, n * 144, f) != (size_t)(n * 144)) return 1;
   if (fread(y.data(), 4, n * 144, f) != (size_t)(n * 144)) return 1;
   if (fread(l.data(), 4, n * 72, f) != (size_t)(n * 72)) return 1;
@@ -195,18 +207,11 @@ int fp12s(const char* in, const char* outp) {
         fp12_mul_phase(ph, sm, x.data(), y.data(), out, n, blk, t); },
       n, K8_ROWS, K8_BLOCK, K8_PHASES, K8_SMEM, 144)) return 2;
   if (!coop(o9, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
-        fp12_sqr_phase(ph, sm, x.data(), out, n, blk, t); },
-      n, K9_ROWS, K9_BLOCK, K9_PHASES, K9_SMEM, 144)) return 2;
-  if (!fp12_r<8>(o10[0], o11[0], unused, x.data(), l.data(), 1, nullptr, n) ||
-      !fp12_r<4>(o10[1], o11[1], unused, x.data(), l.data(), 1, nullptr, n) ||
-      !fp12_r<2>(o10[2], o11[2], unused, x.data(), l.data(), 1, nullptr, n)) return 2;
-  for (int r = 1; r < 3; ++r)
-    if (o10[r] != o10[0] || o11[r] != o11[0]) {
-      fprintf(stderr, "instances per block change the result\n");
-      return 2;
-    }
+        fp12_sqr_phase<R>(ph, sm, x.data(), out, n, blk, t); },
+      n, R, K9<R>::BLOCK, K9<R>::PHASES, K9<R>::SMEM, 144)) return 2;
+  if (!fp12_r<R>(o10, o11, unused, x.data(), l.data(), 1, nullptr, n)) return 2;
   FILE* g = fopen(outp, "wb");
-  for (auto* o : {&o8, &o9, &o10[0], &o11[0]}) fwrite(o->data(), 4, n * 144, g);
+  for (auto* o : {&o8, &o9, &o10, &o11}) fwrite(o->data(), 4, n * 144, g);
   fclose(g);
   return 0;
 }
@@ -236,9 +241,10 @@ int fp12pow(const char* in, const char* outp) {
   fclose(g);
   return 0;
 }
-// K12-K14 on n rows: projective P and Q (72 words a row) and affine Q'
-// (48 words a row); the outputs K12 P + Q, K13 P + Q', K14 2P one after
-// another.
+// K12-K14 on n rows, K14 at R instances per block (K12's and K13's layout
+// is fixed): projective P and Q (72 words a row) and affine Q' (48 words a
+// row); the outputs K12 P + Q, K13 P + Q', K14 2P one after another.
+template <int R>
 int g2s(const char* in, const char* outp) {
   FILE* f = fopen(in, "rb");
   int64_t n;
@@ -255,17 +261,19 @@ int g2s(const char* in, const char* outp) {
         g2_madd_phase(ph, sm, p.data(), qa.data(), out, n, blk, t); },
       n, G2_ROWS, K13_BLOCK, K13_PHASES, K13_SMEM, 72)) return 2;
   if (!coop(o14, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
-        g2_dbl_phase(ph, sm, p.data(), out, n, blk, t); },
-      n, G2_ROWS, K14_BLOCK, K14_PHASES, K14_SMEM, 72)) return 2;
+        g2_dbl_phase<R>(ph, sm, p.data(), out, n, blk, t); },
+      n, R, K14<R>::BLOCK, K14<R>::PHASES, K14<R>::SMEM, 72)) return 2;
   FILE* g = fopen(outp, "wb");
   for (auto* o : {&o12, &o13, &o14}) fwrite(o->data(), 4, n * 72, g);
   fclose(g);
   return 0;
 }
 int main(int argc, char** argv) {
-  if (argc == 4 && !strcmp(argv[1], "fp12")) return fp12s(argv[2], argv[3]);
+  if (argc == 5 && !strcmp(argv[1], "fp12"))
+    return with_r(atoi(argv[2]), [&](auto rc) { return fp12s<decltype(rc)::value>(argv[3], argv[4]); });
   if (argc == 4 && !strcmp(argv[1], "fp12pow")) return fp12pow(argv[2], argv[3]);
-  if (argc == 4 && !strcmp(argv[1], "g2")) return g2s(argv[2], argv[3]);
+  if (argc == 5 && !strcmp(argv[1], "g2"))
+    return with_r(atoi(argv[2]), [&](auto rc) { return g2s<decltype(rc)::value>(argv[3], argv[4]); });
   if (argc == 5 && !strcmp(argv[1], "chain"))
     return argv[2][0] == '8' ? chains<8>(argv[3], argv[4]) : chains<12>(argv[3], argv[4]);
   FILE* f = fopen(argv[1], "rb");
@@ -481,17 +489,17 @@ def test_cooperative_tower_kernels(harness, n):
     assert torch.equal(k4, FK.fp6_mul_plain(a.reshape(n, 3, 2, 12), b.reshape(n, 3, 2, 12)))
 
 
-def run_fp12(harness, x, y, line):
+def run_fp12(harness, x, y, line, rows):
     """K8-K11 on the host over the rows of the Fp12 operands x, y and the
-    sparse line: (fp12_mul(x, y), fp12_sqr(x), fp12_usqr(x),
-    fp12_sparse_mul(x, line))."""
+    sparse line, K9-K11 at `rows` instances per block: (fp12_mul(x, y),
+    fp12_sqr(x), fp12_usqr(x), fp12_sparse_mul(x, line))."""
     d, exe = harness
     n = x.shape[0]
     with open(d / "fp12.bin", "wb") as f:
         f.write(np.int64(n).tobytes() + x.numpy().tobytes() + y.numpy().tobytes()
                 + line.numpy().tobytes())
-    subprocess.run([str(exe), "fp12", str(d / "fp12.bin"), str(d / "fp12.out")], check=True,
-                   timeout=300)
+    subprocess.run([str(exe), "fp12", str(rows), str(d / "fp12.bin"), str(d / "fp12.out")],
+                   check=True, timeout=300)
     o = torch.from_numpy(np.fromfile(d / "fp12.out", np.int32))
     return o.reshape(4, n, 2, 3, 2, 12).unbind(0)
 
@@ -512,21 +520,23 @@ def fp12_edges(n):
             n - 1: (P - 1, P - 1)}
 
 
+@pytest.mark.parametrize("rows", [8, 4, 2])
 @pytest.mark.parametrize("n", [1, 7, 8, 13, 16, 17, 40])
-def test_cooperative_fp12_kernels(harness, n):
-    """K8, K9 (8 instances per block), K10 and K11 (at 8, 4 and 2, every
-    instantiation) at row counts below, at, between and on multiples of a
-    block: random canonical operands, with the edge rows of `fp12_edges`
-    (the line of a row takes the second operand's value). Each output
-    equals the plain version bit for bit; K10 as a polynomial, on inputs
-    outside the cyclotomic subgroup."""
+def test_cooperative_fp12_kernels(harness, n, rows):
+    """K8 (8 instances per block) and K9, K10 and K11 at `rows` instances
+    per block (every instantiation) at row counts below, at, between and on
+    multiples of a block: random canonical operands, with the edge rows of
+    `fp12_edges` (the line of a row takes the second operand's value), so
+    all-0, all-1 and all-(p-1) rows at both ends. Each output equals the
+    plain version bit for bit; K10 as a polynomial, on inputs outside the
+    cyclotomic subgroup."""
     rng = np.random.default_rng(400 + n)
     x, y, line = (rand_fp12(rng, s) for s in ((n, 2, 3, 2), (n, 2, 3, 2), (n, 3, 2)))
     for r, (u, v) in fp12_edges(n).items():
         if 0 <= r < n:
             x[r] = torch.from_numpy(FP.limbs_of(u))
             y[r] = line[r] = torch.from_numpy(FP.limbs_of(v))
-    k8, k9, k10, k11 = run_fp12(harness, x, y, line)
+    k8, k9, k10, k11 = run_fp12(harness, x, y, line, rows)
     assert torch.equal(k8, FK.fp12_mul_plain(x, y))
     assert torch.equal(k9, FK.fp12_sqr_plain(x))
     assert torch.equal(k10, FK.fp12_usqr_plain(x))
@@ -550,33 +560,34 @@ def run_fp12_power(harness, x, lines, e):
     return o[0].unbind(0), o[1].unbind(0)
 
 
+@pytest.mark.parametrize("e,k", [("|x|", 1), ("0b1011", 2), ("|x|", 3), ("0b1011", 4),
+                                 ("|x|", 5)])
 @pytest.mark.parametrize("n", [1, 7, 8, 13, 16, 17, 40])
-def test_cooperative_fp12_power_and_lines(harness, n):
+def test_cooperative_fp12_power_and_lines(harness, n, e, k):
     """The cyclotomic power x^e of one launch (the schedule of squares and
     products the kernel runs, through its own phase functions) and K11
-    over k = 1, 2, 3 lines, each at 8, 4 and 2 instances per block, at the
-    row counts of the single-step kernels, both thread orders, a guard
-    after the output: at e = |x| and at 0b1011 (a square and a product at
-    each of two adjacent set bits), on random canonical operands with the
-    edge rows of `fp12_edges` in x and in every line. Each output equals
-    the plain version bit for bit (the power as a polynomial, on inputs
-    outside the cyclotomic subgroup)."""
-    rng = np.random.default_rng(600 + n)
+    over k = 1 to 5 lines (k = 4 and 5: a third and fourth turn of its
+    two-slot cp.async ring, and an odd k), each at 8, 4 and 2 instances per
+    block, at the row counts of the single-step kernels, both thread
+    orders, a guard after the output: at e = |x| and at 0b1011 (a square
+    and a product at each of two adjacent set bits), on random canonical
+    operands with the edge rows of `fp12_edges` in x and in every line.
+    Each output equals the plain version bit for bit (the power as a
+    polynomial, on inputs outside the cyclotomic subgroup)."""
+    rng = np.random.default_rng(600 + 8 * n + k)
+    e = params.X_ABS if e == "|x|" else int(e, 2)
     x = rand_fp12(rng, (n, 2, 3, 2))
-    for r, (u, _) in fp12_edges(n).items():
+    lines = rand_fp12(rng, (k, n, 3, 2))
+    for r, (u, v) in fp12_edges(n).items():
         if 0 <= r < n:
             x[r] = torch.from_numpy(FP.limbs_of(u))
-    for e, k in ((params.X_ABS, 1), (0b1011, 2), (params.X_ABS, 3)):
-        lines = rand_fp12(rng, (k, n, 3, 2))
-        for r, (_, v) in fp12_edges(n).items():
-            if 0 <= r < n:
-                lines[:, r] = torch.from_numpy(FP.limbs_of(v))
-        powers, products = run_fp12_power(harness, x, lines, e)
-        want_pow = FK.fp12_cyc_pow_fixed_plain(x, e)
-        want_mul = FK.fp12_sparse_mul_plain(x, lines)
-        for rows, got_pow, got_mul in zip((8, 4, 2), powers, products):
-            assert torch.equal(got_pow, want_pow), (e, rows)
-            assert torch.equal(got_mul, want_mul), (k, rows)
+            lines[:, r] = torch.from_numpy(FP.limbs_of(v))
+    powers, products = run_fp12_power(harness, x, lines, e)
+    want_pow = FK.fp12_cyc_pow_fixed_plain(x, e)
+    want_mul = FK.fp12_sparse_mul_plain(x, lines)
+    for rows, got_pow, got_mul in zip((8, 4, 2), powers, products):
+        assert torch.equal(got_pow, want_pow), (e, rows)
+        assert torch.equal(got_mul, want_mul), (k, rows)
 
 
 @pytest.mark.parametrize("n", [1, 15, 16, 33, 47, 96])
@@ -622,24 +633,27 @@ def test_cooperative_curve_kernels(harness, n):
             C.g1_mul(C.G1_GEN, k) for k in want]
 
 
-def run_g2(harness, p, q, qa):
+def run_g2(harness, p, q, qa, rows):
     """K12-K14 on the host over the rows of projective P, Q (n, 3, 2, 12)
-    and affine Q' (n, 2, 2, 12): (g2_add(P, Q), g2_madd(P, Q'), g2_dbl(P))."""
+    and affine Q' (n, 2, 2, 12), K14 at `rows` instances per block:
+    (g2_add(P, Q), g2_madd(P, Q'), g2_dbl(P))."""
     d, exe = harness
     n = p.shape[0]
     with open(d / "g2.bin", "wb") as f:
         f.write(np.int64(n).tobytes() + p.numpy().tobytes() + q.numpy().tobytes()
                 + qa.numpy().tobytes())
-    subprocess.run([str(exe), "g2", str(d / "g2.bin"), str(d / "g2.out")], check=True,
-                   timeout=300)
+    subprocess.run([str(exe), "g2", str(rows), str(d / "g2.bin"), str(d / "g2.out")],
+                   check=True, timeout=300)
     o = torch.from_numpy(np.fromfile(d / "g2.out", np.int32))
     return o.reshape(3, n, 3, 2, 12).unbind(0)
 
 
+@pytest.mark.parametrize("rows", [8, 4, 2])
 @pytest.mark.parametrize("n", [1, 5, 8, 13, 16, 17, 40])
-def test_cooperative_g2_kernels(harness, n):
-    """K12, K13 and K14 (8 instances per block) at row counts below, at,
-    between and on multiples of a block: P + Q and 2P for projective P
+def test_cooperative_g2_kernels(harness, n, rows):
+    """K12, K13 (8 instances per block) and K14 at `rows` instances per
+    block (every instantiation) at row counts below, at, between and on
+    multiples of a block: P + Q and 2P for projective P
     (random Z), affine Q (K13) and projective Q (K12, another random Z) on
     G2, with the rows O + B, A + A, (-A) + A and O + O (K12) or O + B (K13)
     at the start of the launch and again at its end, so in its ragged last
@@ -671,7 +685,7 @@ def test_cooperative_g2_kernels(harness, n):
         qv.append(proj(s12))
         av.append([fp2(c) for c in C.g2_mul(C.G2_GEN, s13 % params.R)])
     p, q, qa = FP.from_int(pv), FP.from_int(qv), FP.from_int(av)
-    k12, k13, k14 = run_g2(harness, p, q, qa)
+    k12, k13, k14 = run_g2(harness, p, q, qa, rows)
     assert torch.equal(k12, FK.g2_add_plain(p, q))
     assert torch.equal(k13, FK.g2_madd_plain(p, qa))
     assert torch.equal(k14, FK.g2_dbl_plain(p))
@@ -708,3 +722,17 @@ def test_chain_kernels(harness, field, exponent, n):
         pow(v * r_inv % m, e, m) * r_mod % m for v in xv]
     assert torch.equal(mul, F.mont_mul_plain(x, y))
     assert [F.int_of(r) for r in mul.numpy()] == [a * b * r_inv % m for a, b in zip(xv, yv)]
+
+
+@pytest.mark.parametrize("name", ["SQR", "SQR3", "USQR", "CYCMUL", "SPARSE"])
+def test_combine_tables_match_generator(name):
+    """Each combine table of csrc/fp12.cu (K9's SQR and SQR3, K10's USQR,
+    the power's CYCMUL, K11's SPARSE) is, size constants and rows alike, what
+    tools/fp12_tables.py generates from the algebra."""
+    gen = subprocess.run([sys.executable, str(ROOT / "tools" / "fp12_tables.py")],
+                         capture_output=True, text=True, check=True, timeout=120).stdout
+    pattern = re.compile(rf"// {name}: .*?\n}};\n.*?{name}_SUB\[.*?\n}};", re.S)
+    want = pattern.search(gen)
+    got = pattern.search((CSRC / "fp12.cu").read_text())
+    assert want is not None and got is not None
+    assert got.group(0) == want.group(0)

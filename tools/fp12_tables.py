@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Generate the combine tables of csrc/fp12.cu.
 
-Each output coefficient of the cyclotomic square (K10), of the power's
-product step and of the sparse line product (K11) is a signed sum of the
-Fp products (or Fp2 product components) its product phase wrote to shared
-memory.  This script runs each combine's algebra (the algebra of
+Each output coefficient of the Fp12 square (K9), the cyclotomic square
+(K10), the power's product step and the sparse line product (K11) is a
+signed sum of the Fp products (or Fp2 product components) its product
+phase wrote to shared memory.  This script runs each combine's algebra (the algebra of
 fields/fused.py's plain versions) on linear forms over those products and
 prints, per output, the products it adds and the ones it subtracts (a
 product twice where its coefficient is 2), as C tables.  The kernels run
@@ -71,6 +71,19 @@ def fp12_kara(t0, t1, m):
     return [x[f] for h in (half0, half1) for x in h for f in range(2)]
 
 
+def sqr_forms():
+    """K9: x^2 = t - m - v m + 2 m w over its 36 Fp products
+    T[18 k + 3 p + kk] (pair p of Fp6 product k, t = (a + b)(a + v b) or
+    m = a b; re = T0 - T1, im = T2 - T0 - T1): the 12 outputs."""
+    P = [(leaf(3 * p) - leaf(3 * p + 1), leaf(3 * p + 2) - leaf(3 * p) - leaf(3 * p + 1))
+         for p in range(12)]
+    t, m = fp6_combine(P[:6]), fp6_combine(P[6:])
+    vm = (xi(m[2]), m[0], m[1])
+    half0 = [sub2(sub2(t[c], m[c]), vm[c]) for c in range(3)]
+    half1 = [add2(m[c], m[c]) for c in range(3)]
+    return [x[f] for h in (half0, half1) for x in h for f in range(2)]
+
+
 def usqr_forms():
     """K10: output o is 3 u_o -/+ 2 x_o (minus for o < 6); u_o over the 18
     products Q[2 s + k] of the squares s = 3 g + j (X_j^2, Y_j^2,
@@ -102,25 +115,35 @@ def sparse_forms():
     return fp12_kara(t0, t1, m)
 
 
-def table(name: str, forms, what: str) -> str:
+def signed_rows(forms):
+    """Per form, the products it adds and the ones it subtracts, a product
+    listed as often as its coefficient says."""
+    return [([k for k, v in sorted(f.items()) for _ in range(max(v, 0))],
+             [k for k, v in sorted(f.items()) for _ in range(max(-v, 0))]) for f in forms]
+
+
+def split_rows(rows, n: int):
+    """Each row's added and subtracted products dealt out to n partial rows
+    (row n_part * len(rows) + o of the result is part n_part of row o), so
+    that n threads sum an output's terms in a third of the steps each."""
+    return [(pos[part::n], neg[part::n]) for part in range(n) for pos, neg in rows]
+
+
+def table(name: str, rows, what: str) -> str:
     """The C source of one table: per output the products added, then the
     ones subtracted, each padded to the longest row with 255."""
-    rows = []
-    for f in forms:
-        pos = [k for k, v in sorted(f.items()) for _ in range(max(v, 0))]
-        neg = [k for k, v in sorted(f.items()) for _ in range(max(-v, 0))]
-        rows.append((pos, neg))
     n_pos = max(len(p) for p, _ in rows)
     n_neg = max(len(n) for _, n in rows)
 
     def arr(xs, n):
         return "{" + ", ".join(str(x) for x in xs + [255] * (n - len(xs))) + "}"
 
+    n = len(rows)
     out = [f"// {name}: per output, the {what} it adds and subtracts",
            f"constexpr int {name}_POS = {n_pos}, {name}_NEG = {n_neg};",
-           f"__device__ const uint8_t {name}_ADD[12][{n_pos}] = {{"]
+           f"__device__ const uint8_t {name}_ADD[{n}][{n_pos}] = {{"]
     out += [f"    {arr(p, n_pos)}," for p, _ in rows]
-    out += ["};", f"__device__ const uint8_t {name}_SUB[12][{n_neg}] = {{"]
+    out += ["};", f"__device__ const uint8_t {name}_SUB[{n}][{n_neg}] = {{"]
     out += [f"    {arr(n, n_neg)}," for _, n in rows]
     out += ["};"]
     return "\n".join(out)
@@ -128,9 +151,13 @@ def table(name: str, forms, what: str) -> str:
 
 def main() -> None:
     print("// Generated by tools/fp12_tables.py; each row's signed sum is the output.")
-    print(table("USQR", usqr_forms(), "square coefficients Q[2 s + k] (times 3, then -/+ 2 x_o)"))
-    print(table("CYCMUL", cyc_mul_forms(), "Fp2 product components W[2 pp + g]"))
-    print(table("SPARSE", sparse_forms(), "Fp products T[3 p + k]"))
+    sqr = signed_rows(sqr_forms())
+    print(table("SQR", sqr, "Fp products T[18 k + 3 p + kk]"))
+    print(table("SQR3", split_rows(sqr, 3), "Fp products T[18 k + 3 p + kk] (SQR's rows in thirds)"))
+    print(table("USQR", signed_rows(usqr_forms()),
+                "square coefficients Q[2 s + k] (times 3, then -/+ 2 x_o)"))
+    print(table("CYCMUL", signed_rows(cyc_mul_forms()), "Fp2 product components W[2 pp + g]"))
+    print(table("SPARSE", signed_rows(sparse_forms()), "Fp products T[3 p + k]"))
 
 
 if __name__ == "__main__":
