@@ -20,7 +20,12 @@ Phases, one line each; any failure raises and ends the run non-zero:
            (PS signing's affine), 2048 and 8192 rows, x^((p+1)/4)
            (G1Vec.parse's square root) at 512 (PS verification) and 8192,
            x^((p-3)/4) (the hash to G1's inverse and square root) at 2048,
-           the Fr product and the Fr chain x^(r-2) at 8192;
+           the Fr product and the Fr chain x^(r-2) at 8192; the chain
+           also at e = 1, 3, 17 and a random 384-bit e (512 rows), and the
+           Fp product also on 2^20 random rows, half with an operand raised
+           into [p, 2p), between rows of every pair of carry-heavy values
+           (p, p + 1, 2p - 2, 2^381 - 1, limbs all 0xffffffff below the
+           top, ...) at both ends, held in blocks of PLAIN_ROWS rows;
            K3 at 9B, K2 at B to 6B and 15B, K4 at 2B and 3B (the counts
            the pairing gave them before K8-K11; since then no path launches
            K3, and K4 only in the final exponentiation's inverse); K5: one
@@ -46,6 +51,11 @@ Phases, one line each; any failure raises and ends the run non-zero:
            multiply-adds, squarings at their own count; a doubling's bound
            (K7, K14) prices its Y^2 and Z^2 as squarings (an Fp2 one as
            the complex squaring's two products)
+  ceiling  the Fp chain x^(p-2) with the card full: one launch at 2^18
+           rows (its first and last 2,048 rows against the plain chain),
+           products/s over the card at the least chain's 463 products a
+           row, and at 1 row the ns per dependent step of the kernel's own
+           chain
   pairing  `pair_batch` at B = 2048 (32 distinct pairs, tiled; counted,
            then 2 timed): GT bytes against tests/vectors/reference.json,
            bilinearity, infinity masks, 4 rows recomputed on the CPU,
@@ -209,7 +219,8 @@ and algebra lines also gives one call (the schemes: one verify call;
 algebra: pair_vec) under torch.profiler: the summed device time of its kernels against the host
 clock, and its top kernels.
 
-Then the wall seconds of each phase, a JSON line of per-kernel numbers
+Then the wall seconds of each phase, per path the kernel ms of one call
+and its three largest losses (`per_call`), a JSON line of per-kernel numbers
 (with each kernel's device ms at each row count it was timed at, and per
 path the launch-weighted device ms and bound of one call, every launch at
 its own measured row count; a power chain has an entry per exponent, and
@@ -299,6 +310,15 @@ RAGGED = 7
 R_COUNTS = (13, SCHEME_B, SCHEME_B + RAGGED, 1024)
 #: the largest row block a plain version is given at once in the rows phase
 PLAIN_ROWS = 32768
+#: K1's Fp product is also held on this many random rows, half of them with
+#: an operand raised into [p, 2p) (a raw sum, as K2-K14's pre-sums give it),
+#: besides every pair of carry-heavy values at both ends
+PRODUCT_ROWS = 1 << 20
+#: the full-occupancy chain: x^(p-2) at this many rows (2,048 blocks, some
+#: 15 per SM), its first and last CEILING_CHECK rows held against the plain
+#: chain
+CEILING_ROWS = 1 << 18
+CEILING_CHECK = 2048
 #: kernels of a pairing path: K1 and its chain, K2, K4 (the final
 #: exponentiation's inverse), K8, K9, the cyclotomic power (the final
 #: exponentiation's g^|x|), K11, and the Miller loop's G2 steps K13 (mixed
@@ -539,6 +559,48 @@ def _device_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(stop) / (3 * reps)
 
 
+def _carry_heavy(p: int) -> list[int]:
+    """Fp operand values that drive long carries through the product: 0,
+    1, p - 1, p, p + 1, 2p - 2, 2^381 - 1 (below 2p), and limbs all
+    0xffffffff below a top limb of 0 (below p) or of p's (in (p, 2p))."""
+    below = (1 << 352) - 1
+    return [0, 1, p - 1, p, p + 1, 2 * p - 2, (1 << 381) - 1, below, (p >> 352 << 352) | below]
+
+
+def _check_product(dev) -> dict:
+    """K1's Fp product on PRODUCT_ROWS random rows between the carry-heavy
+    rows: every pair of `_carry_heavy` values in the first rows and again,
+    reversed, in the last; random canonical operands between, a raised into
+    [p, 2p) on even rows and b on rows 0 and 3 mod 4.  Held bit for bit
+    against mont_mul_plain, PLAIN_ROWS rows at a time (the plain version's
+    int64 columns over all rows at once would not fit the card)."""
+    import torch
+    from crypto12381_tpu_torch.fields import fp as FP
+    from crypto12381_tpu_torch.params import P
+
+    rng = np.random.default_rng(SEED + 7)
+    heavy = _carry_heavy(P)
+    pairs = np.array([[FP.limbs_of(u), FP.limbs_of(v)] for u in heavy for v in heavy])
+    n = PRODUCT_ROWS + 2 * len(pairs)
+    a, b = (torch.from_numpy(_rand_fp(rng, n, 1)[:, 0]).to(dev) for _ in range(2))
+    p = torch.from_numpy(FP.limbs_of(P)).to(dev).expand_as(a)
+    row = torch.arange(n, device=dev)[:, None]
+    a = torch.where(row % 2 == 0, FP.add_raw(a, p), a)
+    b = torch.where(row % 4 % 3 == 0, FP.add_raw(b, p), b)
+    ends = torch.from_numpy(pairs).to(dev)
+    a[: len(pairs)], b[: len(pairs)] = ends[:, 0], ends[:, 1]
+    a[-len(pairs):], b[-len(pairs):] = ends.flip(0)[:, 0], ends.flip(0)[:, 1]
+    got = FP.mont_mul(a, b)
+    torch.cuda.synchronize()
+    for i in range(0, n, PLAIN_ROWS):
+        j = min(i + PLAIN_ROWS, n)
+        if not torch.equal(got[i:j], FP.mont_mul_plain(a[i:j], b[i:j])):
+            raise SystemExit(f"kernels: K1 mont_mul (Fp) disagrees with its plain version on "
+                             f"the random rows {i}-{j} of {n}")
+    return {"rows": n, "carry_heavy_rows": 2 * len(pairs),
+            "ms": _device_ms(lambda: FP.mont_mul(a, b))}
+
+
 def phase_kernels(dev):
     import torch
     from crypto12381_tpu_torch import _build
@@ -586,11 +648,17 @@ def phase_kernels(dev):
     specs.append(("K1 mont_mul (Fr)", "fr_mont_mul", *k1, fr.mont_mul, fr.mont_mul_plain,
                   {r: (field_rows(fr, r, r_edge), field_rows(fr, r, r_edge[::-1]))
                    for r in fr_counts}, G1_B, FR_MULADDS_PER_PRODUCT, None, {}))
+    # Besides the exponents the paths launch, the chain at e = 1 (the top
+    # window alone), 3, 17 (a window, a run of squarings, a window of one
+    # bit) and a random 384-bit e (the longest the kernel takes), at 512 rows
+    e384 = int.from_bytes(rng.bytes(48), "little") | (1 << 383)
     for F, label, e, counts, headline in (
         (FP.FP_CTX, "p-2", P - 2, (B // 4, 2 * PS_B, B, G1_B, B + RAGGED, 2 * PS_B + RAGGED), B),
         (FP.FP_CTX, "(p+1)/4", (P + 1) // 4, (PS_B, G1_B, PS_B + RAGGED, G1_B + RAGGED), G1_B),
         (FP.FP_CTX, "(p-3)/4", (P - 3) // 4, (HASH_G1_B, HASH_G1_B + RAGGED), HASH_G1_B),
         (fr, "r-2", fr.modulus - 2, fr_counts, G1_B),
+        *((FP.FP_CTX, label, e, (SCHEME_B,), SCHEME_B)
+          for label, e in (("1", 1), ("3", 3), ("17", 17), ("e384", e384))),
     ):
         costs = ((SQR_MULADDS, MULADDS_PER_PRODUCT) if F is FP.FP_CTX
                  else (FR_SQR_MULADDS, FR_MULADDS_PER_PRODUCT))
@@ -704,6 +772,7 @@ def phase_kernels(dev):
                       f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, B,
                       muladds, edge_want, {}))
     results = []
+    product_rows = _check_product(dev)
     for (name, fn_c, src, repl, kern, plain, ins_by_rows, rows, ops_per_row, edge_want,
          extra) in specs:
         ms_by_rows, outs, err = {}, {}, 0.0
@@ -753,12 +822,14 @@ def phase_kernels(dev):
             "row_shapes": [tuple(t.shape[:d] + t.shape[d + 1:]) for t, d in zip(ins, row_dims)],
             "exponent": extra.get("exponent"), "stack": extra.get("stack"),
             **({"least_chain": extra["least_chain"]} if "least_chain" in extra else {}),
+            **({"random_rows": product_rows} if fn_c == "fp_mont_mul" else {}),
             **more,
         })
     line = "; ".join(
         f"{r['name']} rows={r['rows']} equal=True ms={r['ms']:.6f} eager_ms={r['eager_ms']:.6f} "
         f"plain_ms={r['plain_ms']:.6f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']})"
         + (f" least_chain={r['least_chain']}" if "least_chain" in r else "")
+        + (f" random_rows={r['random_rows']}" if "random_rows" in r else "")
         + (f" ms_squares_only={r['ms_squares_only']:.6f}" if "ms_squares_only" in r else "")
         + (f" ms_by_rows={ {k: round(v, 6) for k, v in r['ms_by_rows'].items()} }"
            if len(r["ms_by_rows"]) > 1 else "")
@@ -776,6 +847,39 @@ def _bound(bytes_per_row: int, ops_per_row: int, rows: int):
 
     t, by = bound(rows * bytes_per_row, rows * ops_per_row)
     return t * 1e3, by
+
+
+def phase_ceiling(dev, steps: int | None = None) -> dict:
+    """The product's rate with the card full: one `fp_pow_fixed` x^(p-2)
+    launch at CEILING_ROWS rows (2,048 blocks), its first and last
+    CEILING_CHECK rows held against the plain chain, timed; and the same
+    launch at 1 row, its time per dependent step.  products_per_s counts the
+    least chain, 378 squarings + 85 products a row, whatever chain the
+    kernel runs; ns_per_step divides by `steps`, the kernel's own steps
+    (default: its 4-bit sliding window, whose table holds the odd powers
+    up to e's largest window, as `_sliding_window` counts them)."""
+    import torch
+    from crypto12381_tpu_torch.fields import fp as FP
+    from crypto12381_tpu_torch.params import P
+
+    e = P - 2
+    work = sum(_sliding_window(e, 4))     # 378 + 85, csrc/fp.cu's chain
+    steps = steps or work
+    rng = np.random.default_rng(SEED + 8)
+    x = torch.from_numpy(_edges(_rand_fp(rng, CEILING_ROWS, 1), [0, 1, P - 1], last=True)[:, 0])
+    x = x.to(dev)
+    got = FP.pow_fixed(x, e)
+    torch.cuda.synchronize()
+    for part in (slice(0, CEILING_CHECK), slice(CEILING_ROWS - CEILING_CHECK, CEILING_ROWS)):
+        if not torch.equal(got[part], FP.pow_fixed_plain(x[part], e)):
+            raise SystemExit(f"ceiling: x^(p-2) disagrees with the plain chain on rows {part}")
+    ms = _device_ms(lambda: FP.pow_fixed(x, e), reps=5)
+    one = x[1000:1001].contiguous()
+    ms_1 = _device_ms(lambda: FP.pow_fixed(one, e))
+    out = {"rows": CEILING_ROWS, "ms": ms, "products_per_s": work * CEILING_ROWS / ms * 1e3,
+           "ms_1row": ms_1, "steps": steps, "ns_per_step_1row": ms_1 * 1e6 / steps}
+    print(f"ceiling: equal=True {json.dumps(out)}", flush=True)
+    return out
 
 
 def phase_rows(dev, kernels) -> None:
@@ -878,6 +982,22 @@ def _weighted(k: dict) -> None:
                             for r, c in rows.items()),
         }
     k["weighted_by_path"] = out
+
+
+def _per_call(kernels) -> dict:
+    """Per path: the launch-weighted device ms of one call summed over its
+    kernels, and the three kernel entries that lose the most to their
+    bounds (launches x (ms - bound), each launch at its own row count)."""
+    out = {}
+    for k in kernels:
+        for path, w in k["weighted_by_path"].items():
+            p = out.setdefault(path, {"ms": 0.0, "loss": {}})
+            p["ms"] += w["ms"]
+            p["loss"][k["name"]] = w["ms"] - w["bound_ms"]
+    return {path: {"ms": round(p["ms"], 6),
+                   "top_loss": sorted(((n, round(v, 6)) for n, v in p["loss"].items()),
+                                      key=lambda t: -t[1])[:3]}
+            for path, p in sorted(out.items())}
 
 
 def _path_launches(path: str, kernels) -> dict:
@@ -2484,6 +2604,7 @@ def main() -> None:
         return out
 
     kernels = timed("kernels", phase_kernels, dev)
+    timed("ceiling", phase_ceiling, dev)
     timed("pairing", phase_pairing, dev, args.trace)
     pts, a = timed("g1", phase_g1, dev, args.trace)
     timed("msm", phase_msm, dev, pts, a, args.trace)
@@ -2518,6 +2639,7 @@ def main() -> None:
         for key in ("c_function", "exponent", "stack", "rows", "bytes_per_row", "ops_per_row",
                     "fns", "row_shapes", "row_dims"):
             k.pop(key)
+    print(f"per_call: {json.dumps(_per_call(kernels))}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))

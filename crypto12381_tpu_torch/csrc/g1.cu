@@ -305,7 +305,9 @@ __device__ __forceinline__ void g1_add_phase(int ph, uint32_t* sm, const uint32_
   }
 }
 
-__global__ void __launch_bounds__(K6_BLOCK)
+// At least one block per SM: with no such bound ptxas capped K6 at 56
+// registers and spilled 12 bytes; with it, 64 and no spill (PERF.md).
+__global__ void __launch_bounds__(K6_BLOCK, 1)
 g1_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
               uint32_t* __restrict__ out, int64_t n) {
   __shared__ __align__(16) uint32_t sm[K6_SMEM];

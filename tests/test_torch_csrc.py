@@ -4,7 +4,10 @@ The device functions and kernel bodies of crypto12381_tpu_torch/csrc/
 are plain C++ once the CUDA keywords are defined away, so a host C++
 compiler can build them into a small program. It runs the one-thread-
 per-row kernel bodies of K1 (the Fp and Fr products and the power chain
-x^e of one launch) once per thread. K2-K14 are block-cooperative:
+x^e of one launch) once per thread, and K1's squaring mont_sqr row by row.
+The products run their carry chains on the host twin of the PTX carry
+flag (csrc/fp381.cuh): the same schedule, carry for carry; the PTX itself
+is checked only on the card. K2-K14 are block-cooperative:
 their threads share operands and products through shared memory, with
 barriers between phases. The program runs each of their blocks phase by
 phase, every thread of a phase before the next, with the block's shared
@@ -13,10 +16,15 @@ threads of each phase in reverse order, and fails if the outputs differ
 (threads that race within a phase) or if a write lands past the last row.
 The outputs must equal the plain PyTorch versions bit for bit: on
 canonical operands with the edge values 0, 1 and p-1; for K1 on pre-sums
-up to 2p-2; for the chains x^(p-2), x^((p+1)/4) and x^(r-2) and the Fr
-product over a whole grid (one ragged block, and full blocks before a
-ragged one) with edge rows at both ends and a guard after the output,
-the exponent passed as the C entry points pass it; for K2-K4 at row
+up to 2p-2; for the chain x^e (a 4-bit sliding window) at the paths'
+exponents x^(p-2), x^((p+1)/4), x^((p-3)/4) and x^(r-2), at the window's
+edges e = 1, 2, 3, 15, 16, 17, 31, 2^64 + 1 and at random 384-bit e, and
+for the Fp and Fr products and squares on carry-heavy operands (raw sums
+up to 2p - 1, 2^381 - 1, p, p + 1, limbs all 0xffffffff below the top;
+r - 1) and random ones, over a whole grid (one ragged block, and full
+blocks before a ragged one) with edge rows at both ends and a guard after
+the output, the exponent passed as the C entry points pass it, also
+against the host's integers; for K2-K4 at row
 counts below, at and between multiples of a block's instances, with rows
 of all-0, all-1 and all-(p-1) operands at both ends of the launch (all
 p-1 gives the largest pre-sums); for the curve kernels K5-K7 on curve points with
@@ -73,6 +81,7 @@ SHIM = """#pragma once
 #include <cstdint>
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __constant__
 #define __grid_constant__
@@ -128,11 +137,12 @@ bool coop(std::vector<uint32_t>& o, Ph phase, int64_t n, int per, int threads, i
   o.assign(f.begin(), f.begin() + n * width);
   return true;
 }
-// The chain kernel x^e and the product of an N-limb field on n rows, one
-// row per thread over the whole grid, with a guard after each output.  The
-// exponent comes as the C entry points get it: its bit length, then its
-// (bits + 31) / 32 words; `exponent_of` must refuse the lengths 0 and
-// 32 EXP_WORDS + 1.
+// The chain kernel x^e, the product a b and the square a^2 of an N-limb
+// field on n rows: the kernels one row per thread over the whole grid, with
+// a guard after each output, and mont_sqr (launched by no kernel of its
+// own) row by row.  The exponent comes as the C entry points get it: its
+// bit length, then its (bits + 31) / 32 words; `exponent_of` must refuse
+// the lengths 0 and 32 EXP_WORDS + 1.
 template <int N>
 int chains(const char* in, const char* outp) {
   FILE* f = fopen(in, "rb");
@@ -145,13 +155,15 @@ int chains(const char* in, const char* outp) {
   if (exponent_of(words.data(), 0, &e) || exponent_of(words.data(), 32 * EXP_WORDS + 1, &e) ||
       !exponent_of(words.data(), bits, &e))
     return 3;
-  std::vector<uint32_t> x(n * N), y(n * N);
-  if (fread(x.data(), 4, n * N, f) != (size_t)(n * N)) return 1;
-  if (fread(y.data(), 4, n * N, f) != (size_t)(n * N)) return 1;
+  std::vector<uint32_t> x(n * N), a(n * N), b(n * N), sq(n * N);
+  for (auto* v : {&x, &a, &b})
+    if (fread(v->data(), 4, n * N, f) != (size_t)(n * N)) return 1;
   fclose(f);
   std::vector<uint32_t> pw(n * N + GUARD, 0xa5a5a5a5u), mul(n * N + GUARD, 0xa5a5a5a5u);
-  rows([&] { pow_fixed_kernel<N>(x.data(), pw.data(), e, n); }, blocks_for(n) * THREADS);
-  rows([&] { mont_mul_kernel<N>(x.data(), y.data(), mul.data(), n); }, blocks_for(n) * THREADS);
+  rows([&] { pow_fixed_kernel<N>(x.data(), pw.data(), e, table_entries(e), n); },
+       blocks_for(n) * THREADS);
+  rows([&] { mont_mul_kernel<N>(a.data(), b.data(), mul.data(), n); }, blocks_for(n) * THREADS);
+  for (int64_t i = 0; i < n; ++i) mont_sqr<N>(sq.data() + i * N, a.data() + i * N);
   for (auto* o : {&pw, &mul})
     if (std::any_of(o->begin() + n * N, o->end(), [](uint32_t w) { return w != 0xa5a5a5a5u; })) {
       fprintf(stderr, "write past the last row\n");
@@ -160,6 +172,7 @@ int chains(const char* in, const char* outp) {
   FILE* g = fopen(outp, "wb");
   fwrite(pw.data(), 4, n * N, g);
   fwrite(mul.data(), 4, n * N, g);
+  fwrite(sq.data(), 4, n * N, g);
   fclose(g);
   return 0;
 }
@@ -373,22 +386,22 @@ def header_constants():
     return tuple(out)
 
 
-def run_chain(harness, F, e, xv, yv):
-    """The chain kernel x^e and the product REDC(x y) of the field F on the
-    host, for Montgomery-form values xv, yv (the raw limb values)."""
+def run_chain(harness, F, e, xv, av, bv):
+    """The chain kernel x^e, the product REDC(a b) and the square REDC(a a)
+    of the field F on the host, for Montgomery-form values xv, av, bv (the
+    raw limb values): (x, a, b, x^e, REDC(a b), REDC(a a))."""
     d, exe = harness
     n = len(xv)
-    x = np.stack([F.limbs_of(v) for v in xv])
-    y = np.stack([F.limbs_of(v) for v in yv])
+    x, a, b = (np.stack([F.limbs_of(v) for v in vals]) for vals in (xv, av, bv))
     words = np.array([(e >> (32 * k)) & 0xFFFFFFFF for k in range((e.bit_length() + 31) // 32)],
                      np.uint32)
     with open(d / "chain.bin", "wb") as f:
         f.write(np.int64(n).tobytes() + np.int32(e.bit_length()).tobytes() + words.tobytes()
-                + x.tobytes() + y.tobytes())
+                + x.tobytes() + a.tobytes() + b.tobytes())
     subprocess.run([str(exe), "chain", str(F.limbs), str(d / "chain.bin"), str(d / "chain.out")],
                    check=True, timeout=600)
-    o = torch.from_numpy(np.fromfile(d / "chain.out", np.int32)).reshape(2, n, F.limbs)
-    return torch.from_numpy(x), torch.from_numpy(y), o[0], o[1]
+    o = torch.from_numpy(np.fromfile(d / "chain.out", np.int32)).reshape(3, n, F.limbs)
+    return (*(torch.from_numpy(v) for v in (x, a, b)), o[0], o[1], o[2])
 
 
 def curve_inputs(n):
@@ -696,32 +709,76 @@ def test_cooperative_g2_kernels(harness, n, rows):
             C.g2_mul(C.G2_GEN, k % params.R) for k in want]
 
 
+def carry_heavy(F):
+    """Operand values that drive long carries through the product and the
+    square: for Fp (whose product takes operands below 2p, raw sums) 0, 1,
+    p - 1, p, p + 1, 2p - 2 (the largest raw sum), 2p - 1, 2^381 - 1 (below
+    2p), and limbs all 0xffffffff below a top limb of 0 (below p) or of p's
+    (in (p, 2p)); for Fr (canonical operands only) 0, 1, r - 1, r - 2, and
+    limbs all 0xffffffff below a top limb of 0 or of r's less one."""
+    m = F.modulus
+    top = 32 * (F.limbs - 1)
+    below = (1 << top) - 1
+    if F.limbs == 8:
+        return [0, 1, m - 1, m - 2, below, (m >> top << top) - 1]
+    return [0, 1, m - 1, m, m + 1, 2 * m - 2, 2 * m - 1, (1 << 381) - 1, below,
+            (m >> top << top) | below]
+
+
+#: exponents of the chain: the paths' own (the Fermat inverse, the square
+#: root, the hash to G1's inverse square root), then the window's edges: the
+#: top window alone (1, 2, 3, 15), a window and squarings after it (16, 17,
+#: 31), a window, 63 squarings and a window of one bit (2^64 + 1), and
+#: random exponents of the longest length the kernel takes (384 bits)
+CHAIN_EXPONENTS = ["p-2", "(p+1)/4", "(p-3)/4", "1", "2", "3", "15", "16", "17", "31",
+                   "2^64+1", "e384"]
+
+
 @pytest.mark.parametrize("n", [37, 261])
-@pytest.mark.parametrize("field,exponent", [("fp", "p-2"), ("fp", "(p+1)/4"), ("fp", "(p-3)/4"),
-                                            ("fr", "r-2")])
+@pytest.mark.parametrize("field,exponent", [("fp", e) for e in CHAIN_EXPONENTS]
+                         + [("fr", "r-2"), ("fr", "17"), ("fr", "e384")])
 def test_chain_kernels(harness, field, exponent, n):
-    """The power chain of one launch, x^e for the Fermat inverse (Fp, Fr),
-    the square root (Fp) and the hash to G1's inverse square root (Fp,
-    x^((p-3)/4)), and the product of the same field, run over
-    the whole grid with a guard after the output: 37 rows (one ragged
-    block of 128 threads) and 261 (two full blocks and a ragged one), with
-    rows of 0, 1 and m - 1 at both ends and random canonical values
-    between.  Each equals the plain version bit for bit and the host's
+    """The power chain of one launch x^e (a 4-bit sliding window), the
+    product of the same field and mont_sqr, run over the whole grid with a
+    guard after the output: 37 rows (one ragged block of 128 threads) and
+    261 (two full blocks and a ragged one).  The chain at each exponent of
+    CHAIN_EXPONENTS (Fr: r - 2, 17, a random 384-bit e) on rows of 0, 1
+    and m - 1 at both ends and random canonical values between.  The
+    product and the square on the carry-heavy values at both ends (pairs
+    of `carry_heavy` values in the first rows, the reverse pairs in the
+    last; every pair at 261 rows), and between them random operands,
+    for Fp below 2p (raw sums), for Fr canonical.  Each equals the plain
+    version (the square: mont_mul_plain(a, a)) bit for bit and the host's
     integers."""
     F = FP.FP_CTX if field == "fp" else FP.FR_CTX
     m = F.modulus
-    e = {"p-2": m - 2, "(p+1)/4": (m + 1) // 4, "(p-3)/4": (m - 3) // 4, "r-2": m - 2}[exponent]
-    edge = [0, 1, m - 1]
     seed = 300 + len(exponent) + F.limbs + n
+    if exponent not in ("p-2", "(p+1)/4", "(p-3)/4", "r-2"):     # the window's edges
+        seed += 1000 * (1 + CHAIN_EXPONENTS.index(exponent))
+    rng = np.random.default_rng(seed)
+    e = {"p-2": m - 2, "(p+1)/4": (m + 1) // 4, "(p-3)/4": (m - 3) // 4, "r-2": m - 2,
+         "2^64+1": (1 << 64) + 1,
+         "e384": int.from_bytes(rng.bytes(48), "little") | (1 << 383)}.get(exponent)
+    e = int(exponent) if e is None else e
+    edge = [0, 1, m - 1]
     xv = edge + rand_ints(seed, n - 6, m) + edge[::-1]
-    yv = edge[::-1] + rand_ints(seed + 1, n - 6, m) + edge
-    x, y, pw, mul = run_chain(harness, F, e, xv, yv)
+    heavy = carry_heavy(F)
+    pairs = [(u, heavy[-1 - i]) for i, u in enumerate(heavy)]
+    pairs += [(u, v) for u in heavy for v in heavy if (u, v) not in pairs]
+    pairs = pairs[: (n - 1) // 2]
+    bound = 2 * m - 1 if field == "fp" else m
+    mid = n - 2 * len(pairs)
+    av = [u for u, _ in pairs] + rand_ints(seed + 1, mid, bound) + [v for _, v in pairs[::-1]]
+    bv = [v for _, v in pairs] + rand_ints(seed + 2, mid, bound) + [u for u, _ in pairs[::-1]]
+    x, a, b, pw, mul, sq = run_chain(harness, F, e, xv, av, bv)
     assert torch.equal(pw, F.pow_fixed_plain(x, e))
     r_inv, r_mod = F.r_inv, F.r_mod
     assert [F.int_of(r) for r in pw.numpy()] == [
         pow(v * r_inv % m, e, m) * r_mod % m for v in xv]
-    assert torch.equal(mul, F.mont_mul_plain(x, y))
-    assert [F.int_of(r) for r in mul.numpy()] == [a * b * r_inv % m for a, b in zip(xv, yv)]
+    assert torch.equal(mul, F.mont_mul_plain(a, b))
+    assert [F.int_of(r) for r in mul.numpy()] == [u * v * r_inv % m for u, v in zip(av, bv)]
+    assert torch.equal(sq, F.mont_mul_plain(a, a))
+    assert [F.int_of(r) for r in sq.numpy()] == [u * u * r_inv % m for u in av]
 
 
 @pytest.mark.parametrize("name", ["SQR", "SQR3", "USQR", "CYCMUL", "SPARSE"])
