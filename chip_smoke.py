@@ -30,18 +30,20 @@ Phases, one line each; any failure raises and ends the run non-zero:
            the pairing gave them before K8-K11; since then no path launches
            K3, and K4 only in the final exponentiation's inverse); K5: one
            MSM bucket step, 64 lanes x 33 windows; K6, K7: one GLV ladder
-           step at B = 8192; K8-K10 at B = 2048, K9 also at 13, 512, 519
-           and 1,024 rows (2, 4, 4 and 8 instances per block, random rows
-           between the edge rows); K10's cyclotomic
+           step at B = 8192; K8-K10 at B = 2048, K8 and K9 also at 13, 512,
+           519 and 1,024 rows (2, 4, 4 and 8 instances per block, random
+           rows between the edge rows), K8 at 4,096 (its second layout);
+           K10's cyclotomic
            power x^|x| of one launch (the final exponentiation's g^|x|) at
            B = 2048 and 512, and at 2048 also x^(2^63) (its 63 squares
            alone); K11 over k stacked lines, k = 1 at B = 2048, k = 2 and
            3 at 512 (the verifies' shared Miller loops), k = 4 at 512 (a
            product of four pairs); K12-K14, the G2 group law, at B = 2048
-           (the pairing's Miller loop, the G2 ladder), K14 also at 13, 512,
-           519, 1,024 and 4,096 rows; the chains, the power and K2-K14 each also at a row
-           count that leaves its last block ragged), each held bit for bit
-           against its plain PyTorch version on the card (the chains, the
+           (the pairing's Miller loop, the G2 ladder), K12 and K14 also at
+           13, 512, 519 and 1,024 rows, K14 at 4,096; the chains, the
+           power and K2-K14 each also at a row count that leaves its last
+           block ragged), each held bit for bit against its plain PyTorch
+           version on the card (the chains, the
            Fr product, K2-K4 and K8-K11 with edge rows at both ends, K5-K7
            and K12-K14 with the identity, P = Q and P = -Q in their first
            and last rows, checked against host points); device time of both
@@ -297,13 +299,13 @@ FP2_SQR_MULADDS = min(2 * MULADDS_PER_PRODUCT, 3 * SQR_MULADDS,
 K2_ROWS_PER_PAIR = (15, 1, 2, 3, 4, 5, 6)
 K4_ROWS_PER_PAIR = (3, 2)
 #: added to a headline row count, leaves the last block of K2 (32 rows per
-#: block), K3 (64), K4 (16), K5 (16), K6 (16), K7 (32), K8 (8), K9-K11 and
-#: the power (8 from 1,024 rows on, 4 from 512, else 2), K12, K13 (8) and
-#: K14 (as K9) ragged
+#: block), K3 (64), K4 (16), K5 (16), K6 (16), K7 (32), K8-K11 and the
+#: power (8 from 1,024 rows on, 4 from 512, else 2), K12 and K14 (as K8)
+#: and K13 (8) ragged
 RAGGED = 7
-#: row counts at which K9 and K14 run at each of their instances per block
-#: (csrc/fp381.cuh `rows_per_block`), every one with random rows between
-#: the edge rows: 2 at 13 rows (the last block ragged), 4 at 512 and 519
+#: row counts at which K8, K9, K12 and K14 run at each of their instances
+#: per block (csrc/fp381.cuh `rows_per_block`), every one with random rows
+#: between the edge rows: 2 at 13 rows (the last block ragged), 4 at 512 and 519
 #: (ragged), 8 at 1,024 (the pairing's B and B + RAGGED add 8 at 2,048 and
 #: ragged); the paths' launches below 13 rows are left to the rows phase's
 #: random draws
@@ -369,6 +371,7 @@ def _ptxas_report(log: str) -> dict:
     for mangled, v in out.items():
         for k in ("mont_mul_kernel", "pow_fixed_kernel", "fp2_mul_kernel", "fp2_sqr_kernel", "fp6_mul_kernel",
                   "g1_madd_kernel", "g1_add_kernel", "g1_dbl_kernel", "fp12_mul_kernel",
+                  "fp12_mul_step_kernel",
                   "fp12_sqr_kernel", "fp12_usqr_kernel", "fp12_sparse_mul_kernel",
                   "fp12_cyc_pow_kernel",
                   "g2_madd_kernel", "g2_add_kernel", "g2_dbl_kernel"):
@@ -692,9 +695,10 @@ def phase_kernels(dev):
                       prod * MULADDS_PER_PRODUCT, None, {}))
     # K8-K10: the pairing's B rows (the Miller loop's squares, the final
     # exponentiation's products, the GT power's cyclotomic squares) and a
-    # ragged count; edge rows at both ends as K2-K4's, all p-1 against all
-    # p-1 among them (the largest pre-sums).  The rows phase adds every
-    # other count the paths launch them at.
+    # ragged count, K8 and K9 also at R_COUNTS, K8 at 4,096 (its layout from
+    # 4,096 rows on, csrc/fp12.cu K8_STEP_ROWS); edge rows at both ends as
+    # K2-K4's, all p-1 against all p-1 among them (the largest pre-sums).
+    # The rows phase adds every other count the paths launch them at.
     def fp12_ins(rows, shapes, k=None):
         """Operands of these row shapes at `rows` rows with tower_edge's
         edge rows at both ends; with k, the second is a stack of k such
@@ -708,7 +712,8 @@ def phase_kernels(dev):
 
     fp12 = ("crypto12381_tpu_torch/csrc/fp12.cu", "crypto12381_tpu/fields/fp32k.py:")
     for name, shapes, prod, kern, plain, line, counts in (
-        ("K8 fp12_mul", ((2, 3, 2), (2, 3, 2)), 54, FK.fp12_mul, FK.fp12_mul_plain, 394, ()),
+        ("K8 fp12_mul", ((2, 3, 2), (2, 3, 2)), 54, FK.fp12_mul, FK.fp12_mul_plain, 394,
+         R_COUNTS + (2 * B,)),
         ("K9 fp12_sqr", ((2, 3, 2),), 36, FK.fp12_sqr, FK.fp12_sqr_plain, 410, R_COUNTS),
         ("K10 fp12_usqr", ((2, 3, 2),), 18, FK.fp12_usqr, FK.fp12_usqr_plain, 424, ()),
     ):
@@ -755,12 +760,12 @@ def phase_kernels(dev):
                       f"crypto12381_tpu/fields/fp32k.py:{line}", kern, plain, ins, rows,
                       muladds, edge_want, {}))
     # K12-K14: the G2 group law at the pairing's and the G2 ladder's 2,048
-    # rows and at a ragged count (blocks of 8), the edge rows in the first
-    # and the last block; K14 also at R_COUNTS and the G2 MSM's 4,096; the
+    # rows and at a ragged count, the edge rows in the first and the last
+    # block; K12 and K14 also at R_COUNTS, K14 at the G2 MSM's 4,096; the
     # rows phase adds the other counts (the Miller loops' fixed points at 1
     # row, the MSM's bucket steps and trees)
     for name, muladds, kern, plain, line, counts in (
-        ("K12 g2_add", 36 * M, FK.g2_add, FK.g2_add_plain, 781, ()),
+        ("K12 g2_add", 36 * M, FK.g2_add, FK.g2_add_plain, 781, R_COUNTS),
         ("K13 g2_madd", 33 * M, FK.g2_madd, FK.g2_madd_plain, 667, ()),
         ("K14 g2_dbl", 18 * M + 2 * FP2_SQR_MULADDS, FK.g2_dbl, FK.g2_dbl_plain, 741,
          R_COUNTS + (2 * B,)),

@@ -53,28 +53,25 @@
 //
 // One thread per instance would run 18 to 54 products as one dependent
 // chain in far too many registers (K4's 18 already spilled), at the
-// pairing's 2,048 rows a partial wave.  Each kernel therefore gives each
-// Fp product its own thread, as K2-K4 do (tower.cu): 54 (K8), 36 (K9), 18
-// (K10 and the power) or 45 (K11) threads per instance.  A block takes
+// pairing's 2,048 rows a partial wave.  Each kernel therefore spreads an
+// instance over threads, as K2-K4 do (tower.cu): one Fp product per thread
+// in K8 (54 threads per instance), K9 (36), K10 (18) and K11 (45), one Fp2
+// product (three Fp products) per thread in the power's product step and
+// K8Step, K8's layout from 4,096 rows on (18).  A block takes R
 // consecutive instances and runs in phases with a barrier between each
 // two; each phase is a function of (phase, block, thread) that the
-// __global__ body only calls.  Pre-sums and combines loop w = tid,
-// tid + BLOCK, ... over their items, item w being coefficient w / ROWS of
-// instance w % ROWS.  A shared Fp12 row is padded from 576 to 592 bytes
-// and an Fp6 row from 288 to 304, so that the 16-byte accesses of 8
-// consecutive threads fall in 32 distinct banks (a product or an Fp2
-// value is 48 bytes, which does the same).  The last block of a ragged
+// __global__ body only calls.  Thread q R + i works on item q (a product,
+// or an output coefficient) of instance i.  A shared Fp12 row is padded
+// from 576 to 592 bytes and an Fp6 row from 288 to 304, so that the
+// 16-byte accesses of 8 consecutive threads fall in 32 distinct banks (a
+// product or an Fp2 value is 48 bytes, which does the same).  The last block of a ragged
 // launch masks its copies, products and combines; every thread reaches
 // every barrier.
 //
-// K8 (8 instances per block): stage; pre-sum (a + b and c + d); product
-// (the thread forms its two operands, the Fp2 Karatsuba's raw sum
-// included, runs mont_mul, fp381.cuh's CIOS product of K1, and writes the
-// product back); the Fp2, Fp6 and Fp12 combines; store.  Shared memory
-// 35,072 bytes, later phases writing over what is dead by then.
-//
-// K9, K10, K11 and the power were redesigned after their first form (K8's)
-// sat at about 0.010-0.011 ms per launch at any row count up to 1,024
+// All five kernels were redesigned after their first form (8 instances per
+// block, one Fp product per thread, a phase for each pre-sum and combine
+// level: K8 stage, pre-sum, product, the Fp2, Fp6 and Fp12 combines,
+// store) sat at about 0.009-0.011 ms per launch at any row count up to 1,024
 // rows, 5-10x their bounds: the launch, the stage, one product's latency
 // and every barrier-separated phase (K9's first form, 7 phases, took
 // 0.010539 ms at 1 row and 0.014818 at 2,048 on an H100 at 700 W; at
@@ -84,8 +81,8 @@
 //   - the instances per block R are a template parameter, 8, 4 or 2,
 //     picked from n (rows_per_block): at least 128 blocks where n allows,
 //     so 512 rows make 128 blocks of 4 (the first form's 16 per block made
-//     32 blocks on 132 SMs); __launch_bounds__ asks for 2 blocks per SM,
-//     so that 2,048 rows (256 blocks of 8) run in one wave;
+//     32 blocks on 132 SMs); __launch_bounds__ asks for 2 blocks per SM
+//     (K8Step 4), so that 2,048 rows (256 blocks of 8) run in one wave;
 //   - pre-sums are formed by the product's own thread from shared memory
 //     (K10's X_j + Y_j, K11's a_j + b_j, their pair sums and the line's
 //     pair sums, the power's pair sums of a + b), a predicated sum of up
@@ -93,7 +90,7 @@
 //     (K9's a + b and a + v b, the power's c + d), so there is no pre-sum
 //     phase;
 //   - a combine computes each output coefficient as one signed sum of the
-//     products, a row of a table (SQR, USQR, CYCMUL, SPARSE, generated
+//     products, a row of a table (SQR, USQR, CYCMUL, SPARSE, MUL3, generated
 //     from the algebra by tools/fp12_tables.py), and writes it over its
 //     input Fp12 row in place: each output depends only on the products
 //     and, in K10, on its own input coefficient.  K9's rows are long (up to
@@ -107,6 +104,20 @@
 //     card (K11 0.0415 ms at 2,048 rows, 148 registers);
 //   - K10's product thread forms both coefficients' operands of its Fp2
 //     square and selects one, for the same reason.
+// K8 (its first form took 0.008662 ms at 1 row and 0.012852 at 2,048 on
+// an H100 at 700 W): stage x, y, a + b and c + d (from device memory) and
+// product, then below 1,024 rows (R < 8) a table combine in thirds (MUL3)
+// and a store that adds the thirds (4 phases), at R = 8 the first form's
+// Fp2, Fp6 and Fp12 combines, one phase each (5 phases; 7 before); the
+// last phase writes to device memory.  From 4,096 rows on K8Step runs the
+// power's product step (mul_product, mul_combine: the same functions),
+// 18 threads per instance with three products each, 3 phases.  Each was
+// the fastest form at its row counts in one call on the card, against
+// these three everywhere and a 54-thread form that ran the CYCMUL table
+// after an Fp2 combine (PERF.md, PR 18): 18 threads with three dependent
+// products each lose to 54 threads while the card is not full (mont_mul's
+// carry chains are one flag, so a thread's products do not overlap), the
+// table combines' extra additions lose once the card is busy.
 // K9 and K10: stage, product, combine, store (4 phases; 7 and 5 before;
 // K9's store also adds the partial sums at R < 8).  K11: stage f
 // and line 0; per line s a product phase, which also issues the cp.async
@@ -136,6 +147,11 @@
 // at 512 rows it is one product's latency per step.
 //
 // Shared memory per block (limbs), R instances:
+//   K8     X, Y (R rows of 148 each), P: a + b and c + d (2 R rows of 76),
+//          T: the 54 products T[q][i], and over X, Y and P the partial
+//          sums or Fp2 products, over T the Fp6 products; R = 8: 35,072
+//          bytes; K8Step X, Y, YS: c + d (R rows of 76), W: the 18 Fp2
+//          products as 36 Fp values per instance; 25,728 bytes;
 //   K9     X (R rows of 148), P: a + b and a + v b (2 R rows of 76), T: the
 //          36 products of each instance, T[q][i], and at R < 8 W: the 36
 //          partial sums; R = 8: 23,424 bytes;
@@ -200,98 +216,6 @@ __device__ __forceinline__ void fp12_kara_coeff(uint32_t* r, U u, int o) {
     ld_fp(r, u(2, c, f));
     sub_sh(r, u(0, c, f));
     sub_sh(r, u(1, c, f));
-  }
-}
-
-// ------------------------------------------------------------- K8
-
-constexpr int K8_ROWS = 8;                       // instances per block
-constexpr int K8_BLOCK = 54 * K8_ROWS;           // one thread per Fp product
-// shared layout (limbs): operands X, Y; pre-sums P[k][i] (k = 0: a + b,
-// 1: c + d); products T[q][i]; then the Fp2 products V[v][i] over the
-// operands, the Fp6 products U[o][i] over T, and the outputs over V
-constexpr int K8_X = 0, K8_Y = K8_ROWS * S12, K8_P = 2 * K8_ROWS * S12;
-constexpr int K8_T = K8_P + 2 * K8_ROWS * S6;
-constexpr int K8_V = 0, K8_U = K8_T, K8_O = 0;
-constexpr int K8_SMEM = K8_T + 54 * K8_ROWS * NL;
-constexpr int K8_PHASES = 7;
-static_assert(36 * K8_ROWS * NL <= K8_T, "V fits over the operands");
-static_assert(K8_ROWS * S12 <= 36 * K8_ROWS * NL, "the outputs fit over V");
-
-// Phase `ph` of K8 for thread `tid` of block `blk`.
-__device__ __forceinline__ void fp12_mul_phase(int ph, uint32_t* sm, const uint32_t* x,
-                                               const uint32_t* y, uint32_t* out, int64_t n,
-                                               int64_t blk, int tid) {
-  const int64_t row0 = blk * K8_ROWS;
-  const int rows = block_rows(n, blk, K8_ROWS);
-  if (ph == 0) {                            // stage
-    stage_in<F12, S12, K8_BLOCK>(sm + K8_X, x + row0 * F12, rows, tid);
-    stage_in<F12, S12, K8_BLOCK>(sm + K8_Y, y + row0 * F12, rows, tid);
-  } else if (ph == 1) {                     // pre-sum e = 6 k + c of instance i
-    for (int w = tid; w < 12 * K8_ROWS; w += K8_BLOCK) {
-      const int e = w / K8_ROWS, i = w % K8_ROWS, k = e / 6;
-      if (i < rows) {
-        const uint32_t* half0 = sm + (k ? K8_Y : K8_X) + i * S12 + e % 6 * NL;
-        uint32_t r[NL];
-        ld_fp(r, half0);
-        add_sh(r, half0 + F6);
-        st_fp(sm + K8_P + (k * K8_ROWS + i) * S6 + e % 6 * NL, r);
-      }
-    }
-  } else if (ph == 2) {                     // product q = 18 k + q6 of instance i
-    const int q = tid / K8_ROWS, i = tid % K8_ROWS, k = q / 18;
-    if (i < rows) {                         // k = 0: a c, 1: b d, 2: (a + b)(c + d)
-      const uint32_t* xs = k < 2 ? sm + K8_X + i * S12 + k * F6 : sm + K8_P + i * S6;
-      const uint32_t* ys =
-          k < 2 ? sm + K8_Y + i * S12 + k * F6 : sm + K8_P + (K8_ROWS + i) * S6;
-      uint32_t a[NL], b[NL];
-      fp6_operand(a, xs, q % 18);
-      fp6_operand(b, ys, q % 18);
-      mont_mul<NL>(a, a, b);
-      st_fp(sm + K8_T + tid * NL, a);
-    }
-  } else if (ph == 3) {                     // Fp2 coefficient v of instance i
-    for (int w = tid; w < 36 * K8_ROWS; w += K8_BLOCK) {
-      const int v = w / K8_ROWS, i = w % K8_ROWS;
-      if (i < rows) {                       // its Fp products are q = 3 (v / 2) + 0..2
-        uint32_t r[NL];
-        fp2_coeff(r, sm + K8_T + (3 * (v / 2) * K8_ROWS + i) * NL, K8_ROWS * NL, v % 2);
-        st_fp(sm + K8_V + w * NL, r);
-      }
-    }
-  } else if (ph == 4) {                     // coefficient o = 6 k + c of Fp6 product k
-    for (int w = tid; w < 18 * K8_ROWS; w += K8_BLOCK) {
-      const int o = w / K8_ROWS, i = w % K8_ROWS, c = o % 6;
-      if (i < rows) {
-        uint32_t r[NL];
-        fp6_coeff(r, sm + K8_V + (12 * (o / 6) * K8_ROWS + i) * NL, K8_ROWS * NL, c / 2,
-                  c % 2);
-        st_fp(sm + K8_U + w * NL, r);
-      }
-    }
-  } else if (ph == 5) {                     // output coefficient o of instance i
-    for (int w = tid; w < 12 * K8_ROWS; w += K8_BLOCK) {
-      const int o = w / K8_ROWS, i = w % K8_ROWS;
-      if (i < rows) {
-        uint32_t r[NL];
-        fp12_kara_coeff(r, [=](int k, int c, int f) {
-          return sm + K8_U + ((6 * k + 2 * c + f) * K8_ROWS + i) * NL; }, o);
-        st_fp(sm + K8_O + i * S12 + o * NL, r);
-      }
-    }
-  } else {                                  // store
-    stage_out<F12, S12, K8_BLOCK>(out + row0 * F12, sm + K8_O, rows, tid);
-  }
-}
-
-__global__ void __launch_bounds__(K8_BLOCK)
-fp12_mul_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
-                uint32_t* __restrict__ out, int64_t n) {
-  __shared__ __align__(16) uint32_t sm[K8_SMEM];
-#pragma unroll
-  for (int ph = 0; ph < K8_PHASES; ++ph) {
-    fp12_mul_phase(ph, sm, x, y, out, n, blockIdx.x, threadIdx.x);
-    if (ph + 1 < K8_PHASES) __syncthreads();
   }
 }
 
@@ -495,6 +419,85 @@ __device__ const uint8_t SPARSE_SUB[12][11] = {
     {5, 17, 20, 29, 32, 34, 34, 36, 37, 255, 255},
     {6, 21, 24, 27, 31, 33, 43, 255, 255, 255, 255},
     {8, 23, 26, 29, 30, 31, 35, 42, 43, 255, 255},
+};
+
+// MUL3: per output, the Fp products T[18 k + 3 p + kk] (K8's rows in thirds) it adds and subtracts
+constexpr int MUL3_POS = 6, MUL3_NEG = 6;
+__device__ const uint8_t MUL3_ADD[36][6] = {
+    {0, 12, 21, 33, 255, 255},
+    {2, 7, 19, 25, 255, 255},
+    {1, 6, 23, 30, 255, 255},
+    {0, 4, 20, 25, 255, 255},
+    {1, 15, 24, 255, 255, 255},
+    {0, 6, 18, 22, 255, 255},
+    {1, 6, 19, 24, 36, 48},
+    {0, 8, 18, 26, 38, 43},
+    {0, 10, 26, 40, 45, 255},
+    {2, 7, 20, 25, 36, 40},
+    {0, 16, 24, 39, 255, 255},
+    {2, 8, 20, 26, 36, 42},
+    {5, 12, 21, 33, 255, 255},
+    {4, 7, 19, 25, 255, 255},
+    {4, 9, 26, 255, 255, 255},
+    {1, 8, 22, 25, 255, 255},
+    {3, 19, 24, 255, 255, 255},
+    {1, 7, 19, 26, 255, 255},
+    {3, 6, 21, 24, 41, 48},
+    {1, 13, 19, 31, 40, 43},
+    {3, 18, 28, 42, 255, 255},
+    {5, 9, 23, 27, 37, 44},
+    {4, 18, 34, 43, 255, 255},
+    {3, 15, 21, 33, 37, 43},
+    {8, 20, 26, 255, 255, 255},
+    {4, 14, 23, 35, 255, 255},
+    {6, 18, 30, 255, 255, 255},
+    {3, 11, 22, 32, 255, 255},
+    {7, 22, 27, 255, 255, 255},
+    {5, 17, 21, 29, 255, 255},
+    {3, 14, 21, 32, 44, 255},
+    {5, 13, 23, 31, 40, 50},
+    {8, 21, 37, 42, 255, 255},
+    {7, 10, 25, 28, 39, 47},
+    {6, 22, 37, 51, 255, 255},
+    {4, 16, 22, 34, 41, 53},
+};
+__device__ const uint8_t MUL3_SUB[36][6] = {
+    {1, 6, 18, 24, 255, 255},
+    {0, 8, 20, 26, 255, 255},
+    {0, 10, 21, 32, 255, 255},
+    {2, 7, 18, 26, 255, 255},
+    {0, 16, 26, 255, 255, 255},
+    {2, 8, 20, 25, 255, 255},
+    {0, 12, 23, 30, 39, 50},
+    {2, 7, 20, 25, 36, 44},
+    {1, 6, 22, 27, 44, 255},
+    {0, 4, 18, 22, 38, 43},
+    {1, 15, 25, 40, 255, 255},
+    {0, 6, 18, 24, 38, 44},
+    {3, 6, 18, 24, 255, 255},
+    {1, 13, 22, 34, 255, 255},
+    {3, 19, 24, 255, 255, 255},
+    {5, 9, 19, 31, 255, 255},
+    {4, 18, 28, 255, 255, 255},
+    {3, 15, 23, 27, 255, 255},
+    {5, 12, 26, 37, 42, 255},
+    {4, 7, 22, 25, 37, 49},
+    {4, 9, 24, 36, 46, 255},
+    {1, 8, 19, 26, 41, 45},
+    {3, 19, 33, 42, 255, 255},
+    {1, 7, 19, 25, 39, 51},
+    {3, 14, 23, 35, 255, 255},
+    {5, 13, 22, 34, 255, 255},
+    {8, 21, 24, 255, 255, 255},
+    {7, 10, 23, 31, 255, 255},
+    {6, 21, 255, 255, 255, 255},
+    {4, 16, 25, 28, 255, 255},
+    {8, 18, 30, 39, 42, 255},
+    {4, 14, 22, 32, 41, 49},
+    {6, 19, 24, 39, 255, 255},
+    {3, 11, 21, 29, 43, 46},
+    {7, 21, 36, 52, 255, 255},
+    {5, 17, 23, 35, 40, 52},
 };
 
 // ------------------------------------- K10, the power and K11: shared pieces
@@ -751,6 +754,216 @@ fp12_usqr_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out, int
   }
 }
 
+// ------------------------------------- K8 and the power's product step
+
+// Component e < 6 of the half sum c + d of the R Fp12 rows at g in device
+// memory, instance i = tid % R with e = tid / R, reduced, into the rows of
+// S6 at ys.
+template <int R>
+__device__ __forceinline__ void stage_half_sum(uint32_t* ys, const uint32_t* g, int rows, int tid) {
+  const int e = tid / R, i = tid % R;
+  if (e < 6 && i < rows) {
+    const uint32_t* c = g + (int64_t)i * F12 + e * NL;
+    uint32_t r[NL], s[NL];
+    load<NL>(r, c);
+    load<NL>(s, c + F6);
+    add_mod<NL>(r, r, s);
+    st_fp(ys + i * S6 + e * NL, r);
+  }
+}
+
+// The product phase of the Fp12 product a y, for the R rows a and y (of
+// S12) and y's half sums c + d at ys (rows of S6): thread pp R + i runs Fp2
+// product p = pp % 6 of Fp6 product k = pp / 6 (a c, b d, (a + b)(c + d))
+// of instance i, the three Fp products of its Karatsuba in registers (its
+// pair sums formed here: a + b's from a's four coefficients), and writes
+// the product's two components to w[2 pp + g][i].
+template <int R>
+__device__ __forceinline__ void mul_product(const uint32_t* a, const uint32_t* y,
+                                            const uint32_t* ys, uint32_t* w, int rows, int tid) {
+  const int pp = tid / R, i = tid % R, k = pp / 6, p = pp % 6;
+  if (i >= rows) return;
+  const uint32_t* l = a + i * S12 + (k == 1 ? F6 : 0);
+  const uint32_t* r = k < 2 ? y + i * S12 + k * F6 : ys + i * S6;
+  uint32_t l0[NL], l1[NL], r0[NL], r1[NL], t0[NL], t1[NL];
+  pair_sum(l0, l, k == 2 ? 2 : 1, p, 0);
+  pair_sum(l1, l, k == 2 ? 2 : 1, p, 1);
+  pair_sum(r0, r, 1, p, 0);
+  pair_sum(r1, r, 1, p, 1);
+  mont_mul<NL>(t0, l0, r0);                 // l0 r0, l1 r1, (l0 + l1)(r0 + r1)
+  mont_mul<NL>(t1, l1, r1);
+  add_raw<NL>(l0, l0, l1);
+  add_raw<NL>(r0, r0, r1);
+  mont_mul<NL>(l1, l0, r0);
+  uint32_t* o = w + (2 * pp * R + i) * NL;
+  sub_mod<NL>(r1, t0, t1);                  // re = t0 - t1
+  st_fp(o, r1);
+  add_mod<NL>(t0, t0, t1);                  // im = t2 - t0 - t1
+  sub_mod<NL>(l1, l1, t0);
+  st_fp(o + R * NL, l1);
+}
+
+// The combine phase of the Fp12 product: output coefficient o of instance
+// i, the row o of CYCMUL over the Fp2 products at w (the Fp6 and Fp12
+// combines in one sum), written to dst + i stride + o NL, in shared or in
+// device memory.
+template <int R>
+__device__ __forceinline__ void mul_combine(const uint32_t* w, uint32_t* dst, int stride, int rows,
+                                            int tid) {
+  const int o = tid / R, i = tid % R;
+  if (o >= 12 || i >= rows) return;
+  uint32_t r[NL];
+  signed_sum<CYCMUL_POS, CYCMUL_NEG>(r, w + i * NL, R * NL, CYCMUL_ADD[o], CYCMUL_SUB[o]);
+  st_fp(dst + i * stride + o * NL, r);
+}
+
+// K8 runs one of two layouts, each picked where it measured fastest.
+// Below K8_STEP_ROWS rows, K8<R>: 54 threads per instance, one Fp product
+// each, the half sums a + b and c + d formed in the stage from device
+// memory; at R < 8 (SPLIT, below 1,024 rows, where a block's latency is
+// the launch's time) each output is three partial sums, rows of MUL3 over
+// the 54 products on 36 threads, which the store phase adds (4 phases); at
+// R = 8 the Fp2, Fp6 and Fp12 combines each have a phase, the fewest
+// instructions (5 phases).  From K8_STEP_ROWS rows on, where K8<8> takes
+// two waves, K8Step<8>: the power's product step, 18 threads per instance
+// with three Fp products each (3 phases).
+constexpr int64_t K8_STEP_ROWS = 4096;
+
+// Layout of K8 at R instances per block (limbs): the operands X and Y (R
+// rows of S12 each), the half sums P[k][i] (k = 0: a + b, 1: c + d; R rows
+// of S6 each), the 54 products T[q][i]; over X, Y and P (dead after the
+// product phase) the partial sums or the Fp2 products V[w][i], over T
+// (dead after the Fp2 combine) the Fp6 products U[o][i].
+template <int R>
+struct K8 {
+  static constexpr int BLOCK = 54 * R;       // one thread per Fp product
+  static constexpr bool SPLIT = R < 8;
+  static constexpr int D = R * NL;
+  static constexpr int X = 0, Y = R * S12, P = 2 * R * S12, T = P + 2 * R * S6;
+  static constexpr int V = 0, U = T;
+  static constexpr int SMEM = T + 54 * D;
+  static constexpr int PHASES = SPLIT ? 4 : 5;
+};
+static_assert(36 * K8<8>::D <= K8<8>::T, "36 partial sums or Fp2 values fit below T");
+
+// Phase `ph` of K8 for thread `tid` of block `blk`: stage (with the half
+// sums), product, then at R < 8 the partial sums and a store that adds
+// them, at R = 8 the Fp2, Fp6 and Fp12 combines; the outputs go to device
+// memory.
+template <int R>
+__device__ __forceinline__ void fp12_mul_phase(int ph, uint32_t* sm, const uint32_t* x,
+                                               const uint32_t* y, uint32_t* out, int64_t n,
+                                               int64_t blk, int tid) {
+  using L = K8<R>;
+  const int64_t row0 = blk * R;
+  const int rows = block_rows(n, blk, R);
+  const int q = tid / R, i = tid % R;
+  if (ph == 0) {                            // stage; half sum q of instance i
+    stage_in<F12, S12, L::BLOCK>(sm + L::X, x + row0 * F12, rows, tid);
+    stage_in<F12, S12, L::BLOCK>(sm + L::Y, y + row0 * F12, rows, tid);
+    if (q < 12 && i < rows) {               // a + b (q < 6), c + d
+      const uint32_t* c = (q < 6 ? x : y) + (row0 + i) * F12 + q % 6 * NL;
+      uint32_t r[NL], s[NL];
+      load<NL>(r, c);
+      load<NL>(s, c + F6);
+      add_mod<NL>(r, r, s);
+      st_fp(sm + L::P + (q / 6 * R + i) * S6 + q % 6 * NL, r);
+    }
+    return;
+  }
+  if (i >= rows) return;
+  uint32_t r[NL];
+  if (ph == 1) {                            // product q = 18 k + q6 of instance i
+    const int k = q / 18;                   // k = 0: a c, 1: b d, 2: (a + b)(c + d)
+    const uint32_t* xs = k < 2 ? sm + L::X + i * S12 + k * F6 : sm + L::P + i * S6;
+    const uint32_t* ys = k < 2 ? sm + L::Y + i * S12 + k * F6 : sm + L::P + (R + i) * S6;
+    uint32_t b[NL];
+    fp6_operand(r, xs, q % 18);
+    fp6_operand(b, ys, q % 18);
+    mont_mul<NL>(r, r, b);
+    st_fp(sm + L::T + tid * NL, r);
+  } else if (L::SPLIT) {
+    if (ph == 2 && q < 36) {                // partial sum q of instance i
+      signed_sum<MUL3_POS, MUL3_NEG>(r, sm + L::T + i * NL, L::D, MUL3_ADD[q], MUL3_SUB[q]);
+      st_fp(sm + L::V + tid * NL, r);
+    } else if (ph == 3 && q < 12) {         // output q: its three partial sums
+      ld_fp(r, sm + L::V + tid * NL);
+      add_sh(r, sm + L::V + (12 * R + tid) * NL);
+      add_sh(r, sm + L::V + (24 * R + tid) * NL);
+      st_fp(out + (row0 + i) * F12 + q * NL, r);
+    }
+  } else if (ph == 2) {                     // Fp2 coefficient q of instance i
+    if (q < 36) {                           // its Fp products are 3 (q / 2) + 0..2
+      fp2_coeff(r, sm + L::T + (3 * (q / 2) * R + i) * NL, L::D, q % 2);
+      st_fp(sm + L::V + tid * NL, r);
+    }
+  } else if (ph == 3) {                     // coefficient q = 6 k + c of Fp6 product k
+    if (q < 18) {
+      fp6_coeff(r, sm + L::V + (12 * (q / 6) * R + i) * NL, L::D, q % 6 / 2, q % 2);
+      st_fp(sm + L::U + tid * NL, r);
+    }
+  } else if (q < 12) {                      // output coefficient q
+    fp12_kara_coeff(r, [=](int k, int c, int f) {
+      return sm + L::U + ((6 * k + 2 * c + f) * R + i) * NL; }, q);
+    st_fp(out + (row0 + i) * F12 + q * NL, r);
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(K8<R>::BLOCK, 2)
+fp12_mul_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+                uint32_t* __restrict__ out, int64_t n) {
+  __shared__ __align__(16) uint32_t sm[K8<R>::SMEM];
+#pragma unroll
+  for (int ph = 0; ph < K8<R>::PHASES; ++ph) {
+    fp12_mul_phase<R>(ph, sm, x, y, out, n, blockIdx.x, threadIdx.x);
+    if (ph + 1 < K8<R>::PHASES) __syncthreads();
+  }
+}
+
+// Layout of K8Step at R instances per block (limbs): X and Y (R rows of
+// S12 each), y's half sums c + d YS (R rows of S6), the 18 Fp2 products
+// W[2 pp + g][i].
+template <int R>
+struct K8Step {
+  static constexpr int BLOCK = 18 * R;       // one thread per Fp2 product
+  static constexpr int X = 0, Y = R * S12, YS = 2 * R * S12, W = YS + R * S6;
+  static constexpr int SMEM = W + 36 * R * NL;
+  static constexpr int PHASES = 3;
+};
+
+// Phase `ph` of K8Step for thread `tid` of block `blk`: stage (with y's
+// half sums), product, combine (written to device memory).
+template <int R>
+__device__ __forceinline__ void fp12_mul_step_phase(int ph, uint32_t* sm, const uint32_t* x,
+                                                    const uint32_t* y, uint32_t* out, int64_t n,
+                                                    int64_t blk, int tid) {
+  using L = K8Step<R>;
+  const int64_t row0 = blk * R;
+  const int rows = block_rows(n, blk, R);
+  if (ph == 0) {
+    stage_in<F12, S12, L::BLOCK>(sm + L::X, x + row0 * F12, rows, tid);
+    stage_in<F12, S12, L::BLOCK>(sm + L::Y, y + row0 * F12, rows, tid);
+    stage_half_sum<R>(sm + L::YS, y + row0 * F12, rows, tid);
+  } else if (ph == 1) {
+    mul_product<R>(sm + L::X, sm + L::Y, sm + L::YS, sm + L::W, rows, tid);
+  } else {
+    mul_combine<R>(sm + L::W, out + row0 * F12, F12, rows, tid);
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(K8Step<R>::BLOCK, 4)
+fp12_mul_step_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+                     uint32_t* __restrict__ out, int64_t n) {
+  __shared__ __align__(16) uint32_t sm[K8Step<R>::SMEM];
+#pragma unroll
+  for (int ph = 0; ph < K8Step<R>::PHASES; ++ph) {
+    fp12_mul_step_phase<R>(ph, sm, x, y, out, n, blockIdx.x, threadIdx.x);
+    if (ph + 1 < K8Step<R>::PHASES) __syncthreads();
+  }
+}
+
 // ---------------------------------------- the cyclotomic power x^e
 
 // Layout at R instances per block (limbs): x's rows X and the accumulator
@@ -797,50 +1010,15 @@ __device__ __forceinline__ void fp12_cyc_pow_phase(int ph, uint32_t* sm, const u
   if (ph == CP_STAGE) {                     // X = A = x; XS = c + d from device memory
     stage_in<F12, S12, L::BLOCK>(sm + L::X, x + row0 * F12, rows, tid);
     stage_in<F12, S12, L::BLOCK>(sm + L::A, x + row0 * F12, rows, tid);
-    const int e = tid / R, i = tid % R;
-    if (e < 6 && i < rows) {
-      const uint32_t* g = x + (row0 + i) * F12 + e * NL;
-      uint32_t r[NL], s[NL];
-      load<NL>(r, g);
-      load<NL>(s, g + F6);
-      add_mod<NL>(r, r, s);
-      st_fp(sm + L::XS + i * S6 + e * NL, r);
-    }
+    stage_half_sum<R>(sm + L::XS, x + row0 * F12, rows, tid);
   } else if (ph == CP_SQR_PRODUCT) {
     usqr_product<R>(sm + L::A, sm + L::Q, rows, tid);
   } else if (ph == CP_SQR_COMBINE) {
     usqr_combine<R>(sm + L::A, sm + L::Q, rows, tid);
-  } else if (ph == CP_MUL_PRODUCT) {        // Fp2 product p of Fp6 product k of A x
-    const int pp = tid / R, i = tid % R, k = pp / 6, p = pp % 6;
-    if (i < rows) {                         // k = 0: a c, 1: b d, 2: (a + b)(c + d)
-      const uint32_t* a = sm + L::A + i * S12 + (k == 1 ? F6 : 0);
-      const uint32_t* y = k < 2 ? sm + L::X + i * S12 + k * F6 : sm + L::XS + i * S6;
-      const int nh = k == 2 ? 2 : 1;
-      uint32_t l0[NL], l1[NL], r0[NL], r1[NL], t0[NL], t1[NL];
-      pair_sum(l0, a, nh, p, 0);
-      pair_sum(l1, a, nh, p, 1);
-      pair_sum(r0, y, 1, p, 0);
-      pair_sum(r1, y, 1, p, 1);
-      mont_mul<NL>(t0, l0, r0);             // l0 r0, l1 r1, (l0 + l1)(r0 + r1)
-      mont_mul<NL>(t1, l1, r1);
-      add_raw<NL>(l0, l0, l1);
-      add_raw<NL>(r0, r0, r1);
-      mont_mul<NL>(l1, l0, r0);
-      uint32_t* o = sm + L::Q + (2 * pp * R + i) * NL;
-      sub_mod<NL>(r1, t0, t1);              // re = t0 - t1
-      st_fp(o, r1);
-      add_mod<NL>(t0, t0, t1);              // im = t2 - t0 - t1
-      sub_mod<NL>(l1, l1, t0);
-      st_fp(o + R * NL, l1);
-    }
-  } else if (ph == CP_MUL_COMBINE) {        // output coefficient o of A x, over A
-    const int o = tid / R, i = tid % R;
-    if (o < 12 && i < rows) {
-      uint32_t r[NL];
-      signed_sum<CYCMUL_POS, CYCMUL_NEG>(r, sm + L::Q + i * NL, R * NL, CYCMUL_ADD[o],
-                                         CYCMUL_SUB[o]);
-      st_fp(sm + L::A + i * S12 + o * NL, r);
-    }
+  } else if (ph == CP_MUL_PRODUCT) {        // the product A x
+    mul_product<R>(sm + L::A, sm + L::X, sm + L::XS, sm + L::Q, rows, tid);
+  } else if (ph == CP_MUL_COMBINE) {        // written over A
+    mul_combine<R>(sm + L::Q, sm + L::A, S12, rows, tid);
   } else {                                  // store
     stage_out<F12, S12, L::BLOCK>(out + row0 * F12, sm + L::A, rows, tid);
   }
@@ -989,9 +1167,15 @@ fp12_sparse_mul_kernel(const uint32_t* __restrict__ f, const uint32_t* __restric
 }
 
 extern "C" int fp12_mul(const void* x, const void* y, void* out, int64_t n, void* stream) {
-  if (n > 0) {
-    fp12_mul_kernel<<<grid_of(n, K8_ROWS), K8_BLOCK, 0, (cudaStream_t)stream>>>(
+  if (n >= K8_STEP_ROWS) {
+    fp12_mul_step_kernel<8><<<grid_of(n, 8), K8Step<8>::BLOCK, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)x, (const uint32_t*)y, (uint32_t*)out, n);
+  } else if (n > 0) {
+    with_rows(n, [&](auto rc) {
+      constexpr int R = decltype(rc)::value;
+      fp12_mul_kernel<R><<<grid_of(n, R), K8<R>::BLOCK, 0, (cudaStream_t)stream>>>(
+          (const uint32_t*)x, (const uint32_t*)y, (uint32_t*)out, n);
+    });
   }
   return (int)cudaGetLastError();
 }

@@ -27,9 +27,9 @@
 //
 // Each kernel therefore gives each Fp product of a round its own thread, as
 // K5-K11 do: 18 threads per K12 or K13 instance (K13's round 1 runs 15
-// products and leaves 3 threads idle), 12 per K14 instance.  A K12 or K13
-// block takes G2_ROWS consecutive instances and runs in phases with a
-// barrier between each two:
+// products and leaves 3 threads idle), 12 per K14 instance.  A K13 block
+// (and K12's, K14's in their first forms) takes G2_ROWS consecutive
+// instances and runs in phases with a barrier between each two:
 //   stage      the block's span of each operand into shared memory, 16
 //              bytes per thread, consecutive threads on consecutive bytes;
 //   product 1  Fp product q = 3 j + k of instance i, piece k of the Fp2
@@ -46,13 +46,14 @@
 //              rcb_lhs/rcb_rhs, the same six products as K5 and K6);
 //   combine 2  X3, Y3 and Z3, one Fp coefficient per item (6 per instance);
 //   store      the outputs from shared memory, 16 bytes per thread.
-// K12 and K13 share one copy of their last three phases (rcb2_round2_phase).
+// K13 runs its last three phases through rcb2_round2_phase, which K12's
+// first form shared; K12 at R = 8 keeps its combine 1 (k12_operand).
 //
 // K14 was redesigned after its first form (that layout: 8 instances per
 // block, six phases, 24 Fp products, a combine 1 that branched four ways
 // per lane) took 0.009626 ms at 1 row and 0.012249 at 2,048 on an H100 at
 // 700 W, 8x its bound.  A block takes R = 8, 4 or 2 instances, a template
-// parameter picked from n (fp381.cuh rows_per_block, as fp12.cu's K9-K11),
+// parameter picked from n (fp381.cuh rows_per_block, as fp12.cu's K8-K11),
 // and runs four phases: stage; round 1; round 2, whose thread forms its
 // two Karatsuba operands in registers from the round-1 products
 // (k14_round2, kara_pick: the same instructions on every lane, then a
@@ -70,14 +71,36 @@
 // blocks of 8) took two waves.  A form that folded each component into
 // its operand as it came (12 fewer live values, an 8-byte spill) ran
 // slower on the card at 2,048 and 4,096 rows.
+//
+// K12 was redesigned after its first form (8 instances per block, six
+// phases, a combine 1 on 12 of an instance's 18 threads and a store phase)
+// took 0.009660 ms at 1 row, 0.012613 at 2,048 and 0.542550 at 136,224
+// (the G2 MSM's bucket sums; 32% of its bound there) on an H100 at 700 W.
+// It takes R = 8, 4 or 2 instances per block as K14 does and runs five
+// phases: stage; round 1; combine 1; round 2; combine 2, which writes X3,
+// Y3 and Z3 to device memory.  Below 1,024 rows (R < 8), where a block's
+// latency is the launch's time and a warp holds every kind of item of an
+// instance, every lane runs the same instructions: round 1 forms its
+// operands by selects (fp6_operand_sel), and combine 1 makes each of the
+// 18 Karatsuba pieces (component 0, component 1, their sum) of the six
+// round-2 operands on its own thread, straight from the round-1 Fp
+// products (k12_piece: every operand as D +/- 12^z (A +/- B +/- C) over
+// pieces), so round 2 multiplies two pieces as they lie.  At R = 8 the
+// first form's combine 1 stays (12 components on 12 threads, the fewest
+// instructions; round 2 forms the Karatsuba sums): in one call the select
+// form took 0.0155 ms at 2,048 rows and 0.627 at 136,224 where the first
+// form took 0.0125 and 0.538, and this layout takes 0.0124 and 0.481.  A
+// 4-phase form whose round-2 threads formed both operand pieces in
+// registers took 0.017189 at 2,048 and 0.781674 at 136,224.
 // Each phase is a function of (phase, block, thread), and the __global__
 // body only calls the phases with a barrier after each.  A projective row
 // in shared memory is padded from 288 to 304 bytes and an affine row from
 // 192 to 208, so that the 16-byte accesses of 8 consecutive threads fall in
 // 32 distinct banks; products and coefficients take 48-byte slots,
-// consecutive instances in consecutive slots.  No phase writes over data of
-// another: shared memory per block is 25,728 bytes (K12), 23,808 (K13)
-// and 11,648 (K14 at R = 8).  The last block of a ragged launch masks its copies,
+// consecutive instances in consecutive slots.  No phase writes over data
+// another phase still reads: shared memory per block is 18,688 bytes (K12
+// at R = 8, its round-2 products over the round-1 ones), 23,808 (K13) and
+// 10,880 (K14 at R = 8).  The last block of a ragged launch masks its copies,
 // products and combines; every thread reaches every barrier.
 //
 // Bound proof of the product operands: each is a canonical coordinate,
@@ -111,6 +134,18 @@ constexpr int G2_D = G2_ROWS * NL;  // from one product's (or item's) slot to th
 __device__ __forceinline__ void xi12(uint32_t* r, const uint32_t* s0, const uint32_t* s1, int f) {
   if (f == 0) sub_mod<NL>(r, s0, s1); else add_mod<NL>(r, s0, s1);
   mul12(r, r);
+}
+
+// Operand k of a Karatsuba product of the pair (x0, x1) of Fp values in
+// registers: x0 (k = 0), x1 (k = 1) or the raw sum x0 + x1 (k = 2, < 2p),
+// selected, so that threads with different k run the same instructions.
+// r may alias x0 or x1.
+__device__ __forceinline__ void kara_pick(uint32_t* r, const uint32_t* x0, const uint32_t* x1,
+                                          int k) {
+  uint32_t s[NL];
+  add_raw<NL>(s, x0, x1);
+#pragma unroll
+  for (int j = 0; j < NL; ++j) r[j] = k == 0 ? x0[j] : (k == 1 ? x1[j] : s[j]);
 }
 
 // Component g of Fp2 product m of a round, from its Fp products
@@ -189,19 +224,30 @@ __device__ __forceinline__ void rcb2_round2_phase(int ph, uint32_t* sm, uint32_t
 //             m4 = (Y1 + Z1)(Y2 + Z2), m5 = (X1 + Z1)(X2 + Z2);
 //   combine 1 t3 = m3 - t0 - t1, t4 = m4 - t1 - t2, bt5 = 12 xi (m5 - t0 - t2),
 //             w = 3 t0, z3a = t1 + 12 xi t2, t1m = t1 - 12 xi t2;
-//   round 2   the six products of curve.cuh's rcb_lhs/rcb_rhs.
+//   round 2   the six products of curve.cuh's rcb_lhs/rcb_rhs;
+//   combine 2 X3 = V0 - V1, Y3 = V2 + V3, Z3 = V4 + V5.
 
-constexpr int K12_BLOCK = 18 * G2_ROWS;      // one thread per Fp product of a round
-// shared layout (limbs): P rows, Q rows, the round-1 products T[q][i], the
-// round-2 operands U[o][i], the round-2 products V[q][i], the outputs
-constexpr int K12_P = 0, K12_Q = G2_ROWS * S6, K12_T = 2 * G2_ROWS * S6;
-constexpr int K12_U = K12_T + 18 * G2_D, K12_V = K12_U + 12 * G2_D;
-constexpr int K12_O = K12_V + 18 * G2_D;
-constexpr int K12_SMEM = K12_O + G2_ROWS * S6;
-constexpr int K12_PHASES = 6;
+// Layout at R instances per block (limbs): P and Q rows, the round-1
+// products T[q][i], the round-2 operands U, the round-2 products V[q][i]
+// over T (dead by round 2); D from one slot to the next.  PIECES (R < 8):
+// combine 1 makes the 18 Karatsuba pieces U[3 j + kk][i] of the round-2
+// operands on all 18 threads of an instance, the same instructions on every
+// lane; else (R = 8, the fewest instructions) the first form's 12
+// components U[2 j + f][i] on 12, which round 2 turns into pieces.
+template <int R>
+struct K12 {
+  static constexpr int BLOCK = 18 * R;       // one thread per Fp product of a round
+  static constexpr bool PIECES = R < 8;
+  static constexpr int D = R * NL;
+  static constexpr int P = 0, Q = R * S6, T = 2 * R * S6, U = T + 18 * D, V = T;
+  static constexpr int SMEM = U + 18 * D;
+  static constexpr int PHASES = 5;
+};
+static_assert(K12<8>::D == G2_D, "at R = 8 combine 1 is k12_operand over G2_D slots");
 
 // Round-2 operand j of K12 (t3, t4, bt5, w, z3a, t1m), component f, from
-// the round-1 Fp2 products t0, t1, t2, m3, m4, m5 (Fp products at t).
+// the round-1 Fp2 products t0, t1, t2, m3, m4, m5 (Fp products at t, slots
+// G2_D apart).
 __device__ __forceinline__ void k12_operand(uint32_t* r, const uint32_t* t, int j, int f) {
   if (j < 2) {                     // t3 = m3 - t0 - t1, t4 = m4 - t1 - t2
     fp2_diff(r, t, 3 + j, j, j + 1, f);
@@ -218,43 +264,154 @@ __device__ __forceinline__ void k12_operand(uint32_t* r, const uint32_t* t, int 
   }
 }
 
-// Phase `ph` of K12 for thread `tid` of block `blk`.
+// The operand of Fp product q = 3 p + k of an Fp6 Karatsuba from the Fp6
+// value x in shared memory, fp6_operand's, with the same instructions on
+// every lane: both components of pair p's pre-sum are formed, the sums
+// selected away for p < 3, then kara_pick.
+__device__ __forceinline__ void fp6_operand_sel(uint32_t* r, const uint32_t* x, int q) {
+  const int p = q / 3, j = p < 3 ? p : (p == 4 ? 1 : 0), l = p < 3 ? p : (p == 3 ? 1 : 2);
+  uint32_t a0[NL], a1[NL], b0[NL], b1[NL];
+  ld_fp(a0, x + j * F2);
+  ld_fp(a1, x + j * F2 + NL);
+  ld_fp(b0, x + l * F2);
+  ld_fp(b1, x + l * F2 + NL);
+  add_mod<NL>(b0, a0, b0);
+  add_mod<NL>(b1, a1, b1);
+#pragma unroll
+  for (int k = 0; k < NL; ++k) {
+    b0[k] = p < 3 ? a0[k] : b0[k];
+    b1[k] = p < 3 ? a1[k] : b1[k];
+  }
+  kara_pick(r, b0, b1, q % 3);
+}
+
+// Piece kk of the Fp2 Karatsuba product whose Fp products T0, T1, T2 are
+// at t, t + d, t + 2 d (xi = 0), or of xi times it (xi = 1,
+// xi (y0 + y1 i) = (y0 - y1) + (y0 + y1) i): the operand a round-2 thread
+// with piece kk multiplies, component 0 (kk = 0), component 1 (kk = 1) or
+// their sum (kk = 2):
+//   xi = 0: T0 - T1, (T2 - T1) - T0, (T2 - T1) - T1;
+//   xi = 1: (T0 - T2) + T0, (T2 - T1) - T1, (T0 - T1) + (T0 - T1).
+// Each is u = T_a - T_b, then u, u + y or u - y with y = T_c or u; the
+// operands are picked by address and the result by a select, so every
+// lane runs the same instructions whatever its case c = 3 xi + kk.
+__device__ __forceinline__ void piece(uint32_t* r, const uint32_t* t, int d, bool xi, int kk) {
+  const int c = 3 * xi + kk;
+  uint32_t u[NL], y[NL], v[NL];
+  ld_fp(u, t + ((0x020220 >> 4 * c) & 15) * d);        // a
+  sub_sh(u, t + ((0x112111 >> 4 * c) & 15) * d);       // b
+  ld_fp(y, t + ((0x010100 >> 4 * c) & 15) * d);        // c
+#pragma unroll
+  for (int k = 0; k < NL; ++k) y[k] = c == 5 ? u[k] : y[k];
+  add_mod<NL>(v, u, y);
+  sub_mod<NL>(y, u, y);
+#pragma unroll
+  for (int k = 0; k < NL; ++k) r[k] = c == 0 ? u[k] : ((c == 3 || c == 5) ? v[k] : y[k]);
+}
+
+// a = a + b (op 0), a - b (op 1) or a (op 2), selected.
+__device__ __forceinline__ void signed_step(uint32_t* a, const uint32_t* b, int op) {
+  uint32_t s[NL], u[NL];
+  add_mod<NL>(s, a, b);
+  sub_mod<NL>(u, a, b);
+#pragma unroll
+  for (int k = 0; k < NL; ++k) a[k] = op == 0 ? s[k] : (op == 1 ? u[k] : a[k]);
+}
+
+// Piece kk of K12's round-2 operand j (t3, t4, bt5, w, z3a, t1m) from the
+// round-1 Fp products at t (slot stride d; Fp2 product m at t + 3 m d),
+// the same instructions on every lane: each operand is D +/- 12^z
+// (A +/- B +/- C) over pieces of round-1 products, with
+//   t3 = m3 - t0 - t1, t4 = m4 - t1 - t2, w = t0 + t0 + t0 (no 12, no D);
+//   bt5 = 12 (xi m5 - xi t0 - xi t2) (no D);
+//   z3a = t1 + 12 (xi t2), t1m = t1 - 12 (xi t2) (no B, C).
+// A piece is linear in its Fp2 value, so 12 xi Y's piece is 12 times xi Y's.
+__device__ __forceinline__ void k12_piece(uint32_t* r, const uint32_t* t, int d, int j, int kk) {
+  const bool xi = (0x34 >> j) & 1;           // bt5, z3a, t1m: xi pieces and the 12
+  const int op = (0x220111 >> 4 * j) & 15;   // B and C: -, -, -, +, none, none
+  uint32_t a[NL], b[NL], c[NL];
+  piece(a, t + 3 * ((0x220543 >> 4 * j) & 15) * d, d, xi, kk);
+  piece(b, t + 3 * ((0x000010 >> 4 * j) & 15) * d, d, xi, kk);
+  piece(c, t + 3 * ((0x000221 >> 4 * j) & 15) * d, d, xi, kk);
+  signed_step(a, b, op);
+  signed_step(a, c, op);
+  mul12(b, a);
+#pragma unroll
+  for (int k = 0; k < NL; ++k) a[k] = xi ? b[k] : a[k];
+  piece(b, t + 3 * d, d, false, kk);         // D = t1: D + a (z3a), D - a (t1m)
+  signed_step(b, a, j == 4 ? 0 : (j == 5 ? 1 : 2));
+#pragma unroll
+  for (int k = 0; k < NL; ++k) r[k] = j >= 4 ? b[k] : a[k];
+}
+
+// Phase `ph` of K12 for thread `tid` of block `blk`: stage, round 1,
+// combine 1, round 2, combine 2 (written to device memory).
+template <int R>
 __device__ __forceinline__ void g2_add_phase(int ph, uint32_t* sm, const uint32_t* p,
                                              const uint32_t* q, uint32_t* out, int64_t n,
                                              int64_t blk, int tid) {
-  const int64_t row0 = blk * G2_ROWS;
-  const int rows = block_rows(n, blk, G2_ROWS);
-  const int e = tid / G2_ROWS, i = tid % G2_ROWS;
+  using L = K12<R>;
+  const int64_t row0 = blk * R;
+  const int rows = block_rows(n, blk, R);
+  const int e = tid / R, i = tid % R;
   if (ph == 0) {                            // stage
-    stage_in<G2P, S6, K12_BLOCK>(sm + K12_P, p + row0 * G2P, rows, tid);
-    stage_in<G2P, S6, K12_BLOCK>(sm + K12_Q, q + row0 * G2P, rows, tid);
+    stage_in<G2P, S6, L::BLOCK>(sm + L::P, p + row0 * G2P, rows, tid);
+    stage_in<G2P, S6, L::BLOCK>(sm + L::Q, q + row0 * G2P, rows, tid);
+  } else if (i >= rows) {
+    return;
   } else if (ph == 1) {                     // round-1 Fp product e of instance i
-    if (i < rows) {
-      uint32_t x[NL], y[NL];
-      fp6_operand(x, sm + K12_P + i * S6, e);
-      fp6_operand(y, sm + K12_Q + i * S6, e);
-      mont_mul<NL>(x, x, y);
-      st_fp(sm + K12_T + tid * NL, x);
+    uint32_t x[NL], y[NL];
+    if (L::PIECES) {
+      fp6_operand_sel(x, sm + L::P + i * S6, e);
+      fp6_operand_sel(y, sm + L::Q + i * S6, e);
+    } else {
+      fp6_operand(x, sm + L::P + i * S6, e);
+      fp6_operand(y, sm + L::Q + i * S6, e);
     }
-  } else if (ph == 2) {                     // component e % 2 of round-2 operand e / 2
-    if (e < 12 && i < rows) {
-      uint32_t r[NL];
-      k12_operand(r, sm + K12_T + i * NL, e / 2, e % 2);
-      st_fp(sm + K12_U + tid * NL, r);
+    mont_mul<NL>(x, x, y);
+    st_fp(sm + L::T + tid * NL, x);
+  } else if (ph == 2) {                     // combine 1: pieces, or components (e < 12)
+    uint32_t r[NL];
+    if (L::PIECES) {
+      k12_piece(r, sm + L::T + i * NL, L::D, e / 3, e % 3);
+      st_fp(sm + L::U + tid * NL, r);
+    } else if (e < 12) {
+      k12_operand(r, sm + L::T + i * NL, e / 2, e % 2);
+      st_fp(sm + L::U + tid * NL, r);
     }
-  } else {                                  // round 2, combine 2, store
-    rcb2_round2_phase<K12_U, K12_V, K12_O>(ph, sm, out + row0 * G2P, rows, tid);
+  } else if (ph == 3) {                     // piece e % 3 of round-2 Fp2 product e / 3
+    const int k = e / 3, kk = e % 3;
+    const uint32_t* u = sm + L::U + i * NL;
+    uint32_t x[NL], y[NL];
+    if (L::PIECES) {
+      ld_fp(x, u + (3 * rcb_lhs(k) + kk) * L::D);
+      ld_fp(y, u + (3 * rcb_rhs(k) + kk) * L::D);
+    } else {
+      kara_operand(x, u + 2 * rcb_lhs(k) * L::D, kk, L::D);
+      kara_operand(y, u + 2 * rcb_rhs(k) * L::D, kk, L::D);
+    }
+    mont_mul<NL>(x, x, y);
+    st_fp(sm + L::V + tid * NL, x);
+  } else if (e < 6) {                       // component e % 2 of coordinate e / 2
+    const int c = e / 2, f = e % 2;         // X3 = V0 - V1, Y3 = V2 + V3, Z3 = V4 + V5
+    const uint32_t* v = sm + L::V + i * NL;
+    uint32_t r[NL], s[NL];
+    fp2_coeff(r, v + 6 * c * L::D, L::D, f);
+    fp2_coeff(s, v + 3 * (2 * c + 1) * L::D, L::D, f);
+    if (c == 0) sub_mod<NL>(r, r, s); else add_mod<NL>(r, r, s);
+    st_fp(out + (row0 + i) * G2P + c * F2 + f * NL, r);
   }
 }
 
-__global__ void __launch_bounds__(K12_BLOCK)
+template <int R>
+__global__ void __launch_bounds__(K12<R>::BLOCK, 5)
 g2_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
               uint32_t* __restrict__ out, int64_t n) {
-  __shared__ __align__(16) uint32_t sm[K12_SMEM];
+  __shared__ __align__(16) uint32_t sm[K12<R>::SMEM];
 #pragma unroll
-  for (int ph = 0; ph < K12_PHASES; ++ph) {
-    g2_add_phase(ph, sm, p, q, out, n, blockIdx.x, threadIdx.x);
-    if (ph + 1 < K12_PHASES) __syncthreads();
+  for (int ph = 0; ph < K12<R>::PHASES; ++ph) {
+    g2_add_phase<R>(ph, sm, p, q, out, n, blockIdx.x, threadIdx.x);
+    if (ph + 1 < K12<R>::PHASES) __syncthreads();
   }
 }
 
@@ -401,18 +558,6 @@ __device__ __forceinline__ void k14_round1(uint32_t* l, uint32_t* r, const uint3
   if (e >= 8) mul12(l, l);
 }
 
-// Operand k of a Karatsuba product of the pair (x0, x1) of Fp values in
-// registers: x0 (k = 0), x1 (k = 1) or the raw sum x0 + x1 (k = 2, < 2p),
-// selected, so that threads with different k run the same instructions.
-// r may alias x0 or x1.
-__device__ __forceinline__ void kara_pick(uint32_t* r, const uint32_t* x0, const uint32_t* x1,
-                                          int k) {
-  uint32_t s[NL];
-  add_raw<NL>(s, x0, x1);
-#pragma unroll
-  for (int j = 0; j < NL; ++j) r[j] = k == 0 ? x0[j] : (k == 1 ? x1[j] : s[j]);
-}
-
 // The round-2 operands of K14's Fp2 product k from the round-1 Fp
 // products at t (slot stride d), both components of each, into (u0, u1)
 // and (v0, v1): t0m (k < 2) or t0, and xy, y3a, t2 or t1 (k = 0..3).
@@ -509,9 +654,11 @@ g2_dbl_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ out, int64_
 
 extern "C" int g2_add(const void* p, const void* q, void* out, int64_t n, void* stream) {
   if (n > 0) {
-    g2_add_kernel<<<(unsigned)((n + G2_ROWS - 1) / G2_ROWS), K12_BLOCK, 0,
-                    (cudaStream_t)stream>>>(
-        (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, n);
+    with_rows(n, [&](auto rc) {
+      constexpr int R = decltype(rc)::value;
+      g2_add_kernel<R><<<grid_of(n, R), K12<R>::BLOCK, 0, (cudaStream_t)stream>>>(
+          (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, n);
+    });
   }
   return (int)cudaGetLastError();
 }

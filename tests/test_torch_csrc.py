@@ -33,10 +33,10 @@ and between multiples of a block, with those rows at both ends of the
 launch; for the Fp12 kernels K8-K11 (csrc/fp12.cu), K11 over 1-5
 lines and the cyclotomic power x^e of one launch (run through the
 kernel's own schedule of phases) likewise at row counts below, at and
-between multiples of their blocks, K9-K11 and the power at every
+between multiples of their blocks, K8-K11 and the power at every
 instantiation of instances per block, with rows of all-0, all-1 and
 all-(p-1) operands at both ends; and for the G2 curve
-kernels K12-K14 (csrc/g2.cu; K14 at every instantiation) at row counts
+kernels K12-K14 (csrc/g2.cu; K12 and K14 at every instantiation) at row counts
 below, at, between and on multiples of their block, on G2 points with
 the identity, P = Q and P = -Q at both ends of the launch, against the
 plain versions and, made affine, the host's P + Q and 2P. The header's
@@ -203,28 +203,31 @@ int with_r(int r, Go go) {
   if (r == 2) return go(std::integral_constant<int, 2>());
   return 1;
 }
-// K8-K11 on n rows, K9-K11 at R instances per block (K8's layout is
-// fixed): Fp12 operands x and y (144 words a row) and the sparse line (72
-// words a row); the four outputs one after another.
+// K8-K11 on n rows at R instances per block, K8 in both its layouts (K8
+// and K8Step): Fp12 operands x and y (144 words a row) and the sparse line
+// (72 words a row); the five outputs one after another.
 template <int R>
 int fp12s(const char* in, const char* outp) {
   FILE* f = fopen(in, "rb");
   int64_t n;
   if (fread(&n, 8, 1, f) != 1) return 1;
-  std::vector<uint32_t> x(n * 144), y(n * 144), l(n * 72), o8, o9, o10, o11, unused;
+  std::vector<uint32_t> x(n * 144), y(n * 144), l(n * 72), o8, o8s, o9, o10, o11, unused;
   if (fread(x.data(), 4, n * 144, f) != (size_t)(n * 144)) return 1;
   if (fread(y.data(), 4, n * 144, f) != (size_t)(n * 144)) return 1;
   if (fread(l.data(), 4, n * 72, f) != (size_t)(n * 72)) return 1;
   fclose(f);
   if (!coop(o8, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
-        fp12_mul_phase(ph, sm, x.data(), y.data(), out, n, blk, t); },
-      n, K8_ROWS, K8_BLOCK, K8_PHASES, K8_SMEM, 144)) return 2;
+        fp12_mul_phase<R>(ph, sm, x.data(), y.data(), out, n, blk, t); },
+      n, R, K8<R>::BLOCK, K8<R>::PHASES, K8<R>::SMEM, 144)) return 2;
+  if (!coop(o8s, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
+        fp12_mul_step_phase<R>(ph, sm, x.data(), y.data(), out, n, blk, t); },
+      n, R, K8Step<R>::BLOCK, K8Step<R>::PHASES, K8Step<R>::SMEM, 144)) return 2;
   if (!coop(o9, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
         fp12_sqr_phase<R>(ph, sm, x.data(), out, n, blk, t); },
       n, R, K9<R>::BLOCK, K9<R>::PHASES, K9<R>::SMEM, 144)) return 2;
   if (!fp12_r<R>(o10, o11, unused, x.data(), l.data(), 1, nullptr, n)) return 2;
   FILE* g = fopen(outp, "wb");
-  for (auto* o : {&o8, &o9, &o10, &o11}) fwrite(o->data(), 4, n * 144, g);
+  for (auto* o : {&o8, &o8s, &o9, &o10, &o11}) fwrite(o->data(), 4, n * 144, g);
   fclose(g);
   return 0;
 }
@@ -254,7 +257,7 @@ int fp12pow(const char* in, const char* outp) {
   fclose(g);
   return 0;
 }
-// K12-K14 on n rows, K14 at R instances per block (K12's and K13's layout
+// K12-K14 on n rows, K12 and K14 at R instances per block (K13's layout
 // is fixed): projective P and Q (72 words a row) and affine Q' (48 words a
 // row); the outputs K12 P + Q, K13 P + Q', K14 2P one after another.
 template <int R>
@@ -268,8 +271,8 @@ int g2s(const char* in, const char* outp) {
   if (fread(qa.data(), 4, n * 48, f) != (size_t)(n * 48)) return 1;
   fclose(f);
   if (!coop(o12, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
-        g2_add_phase(ph, sm, p.data(), q.data(), out, n, blk, t); },
-      n, G2_ROWS, K12_BLOCK, K12_PHASES, K12_SMEM, 72)) return 2;
+        g2_add_phase<R>(ph, sm, p.data(), q.data(), out, n, blk, t); },
+      n, R, K12<R>::BLOCK, K12<R>::PHASES, K12<R>::SMEM, 72)) return 2;
   if (!coop(o13, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
         g2_madd_phase(ph, sm, p.data(), qa.data(), out, n, blk, t); },
       n, G2_ROWS, K13_BLOCK, K13_PHASES, K13_SMEM, 72)) return 2;
@@ -504,8 +507,9 @@ def test_cooperative_tower_kernels(harness, n):
 
 def run_fp12(harness, x, y, line, rows):
     """K8-K11 on the host over the rows of the Fp12 operands x, y and the
-    sparse line, K9-K11 at `rows` instances per block: (fp12_mul(x, y),
-    fp12_sqr(x), fp12_usqr(x), fp12_sparse_mul(x, line))."""
+    sparse line, at `rows` instances per block: (fp12_mul(x, y) in K8's
+    layout and in K8Step's, fp12_sqr(x), fp12_usqr(x),
+    fp12_sparse_mul(x, line))."""
     d, exe = harness
     n = x.shape[0]
     with open(d / "fp12.bin", "wb") as f:
@@ -514,7 +518,7 @@ def run_fp12(harness, x, y, line, rows):
     subprocess.run([str(exe), "fp12", str(rows), str(d / "fp12.bin"), str(d / "fp12.out")],
                    check=True, timeout=300)
     o = torch.from_numpy(np.fromfile(d / "fp12.out", np.int32))
-    return o.reshape(4, n, 2, 3, 2, 12).unbind(0)
+    return o.reshape(5, n, 2, 3, 2, 12).unbind(0)
 
 
 def rand_fp12(rng, shape):
@@ -536,8 +540,8 @@ def fp12_edges(n):
 @pytest.mark.parametrize("rows", [8, 4, 2])
 @pytest.mark.parametrize("n", [1, 7, 8, 13, 16, 17, 40])
 def test_cooperative_fp12_kernels(harness, n, rows):
-    """K8 (8 instances per block) and K9, K10 and K11 at `rows` instances
-    per block (every instantiation) at row counts below, at, between and on
+    """K8 (both its layouts), K9, K10 and K11 at `rows` instances per block
+    (every instantiation) at row counts below, at, between and on
     multiples of a block: random canonical operands, with the edge rows of
     `fp12_edges` (the line of a row takes the second operand's value), so
     all-0, all-1 and all-(p-1) rows at both ends. Each output equals the
@@ -549,8 +553,9 @@ def test_cooperative_fp12_kernels(harness, n, rows):
         if 0 <= r < n:
             x[r] = torch.from_numpy(FP.limbs_of(u))
             y[r] = line[r] = torch.from_numpy(FP.limbs_of(v))
-    k8, k9, k10, k11 = run_fp12(harness, x, y, line, rows)
+    k8, k8_step, k9, k10, k11 = run_fp12(harness, x, y, line, rows)
     assert torch.equal(k8, FK.fp12_mul_plain(x, y))
+    assert torch.equal(k8_step, FK.fp12_mul_plain(x, y))
     assert torch.equal(k9, FK.fp12_sqr_plain(x))
     assert torch.equal(k10, FK.fp12_usqr_plain(x))
     assert torch.equal(k11, FK.fp12_sparse_mul_plain(x, line))
@@ -648,7 +653,7 @@ def test_cooperative_curve_kernels(harness, n):
 
 def run_g2(harness, p, q, qa, rows):
     """K12-K14 on the host over the rows of projective P, Q (n, 3, 2, 12)
-    and affine Q' (n, 2, 2, 12), K14 at `rows` instances per block:
+    and affine Q' (n, 2, 2, 12), K12 and K14 at `rows` instances per block:
     (g2_add(P, Q), g2_madd(P, Q'), g2_dbl(P))."""
     d, exe = harness
     n = p.shape[0]
@@ -664,7 +669,7 @@ def run_g2(harness, p, q, qa, rows):
 @pytest.mark.parametrize("rows", [8, 4, 2])
 @pytest.mark.parametrize("n", [1, 5, 8, 13, 16, 17, 40])
 def test_cooperative_g2_kernels(harness, n, rows):
-    """K12, K13 (8 instances per block) and K14 at `rows` instances per
+    """K13 (8 instances per block), K12 and K14 at `rows` instances per
     block (every instantiation) at row counts below, at, between and on
     multiples of a block: P + Q and 2P for projective P
     (random Z), affine Q (K13) and projective Q (K12, another random Z) on
@@ -781,11 +786,12 @@ def test_chain_kernels(harness, field, exponent, n):
     assert [F.int_of(r) for r in sq.numpy()] == [u * u * r_inv % m for u in av]
 
 
-@pytest.mark.parametrize("name", ["SQR", "SQR3", "USQR", "CYCMUL", "SPARSE"])
+@pytest.mark.parametrize("name", ["SQR", "SQR3", "USQR", "CYCMUL", "SPARSE", "MUL3"])
 def test_combine_tables_match_generator(name):
     """Each combine table of csrc/fp12.cu (K9's SQR and SQR3, K10's USQR,
-    the power's CYCMUL, K11's SPARSE) is, size constants and rows alike, what
-    tools/fp12_tables.py generates from the algebra."""
+    the power's and K8Step's CYCMUL, K11's SPARSE, K8's MUL3) is, size
+    constants and rows alike, what tools/fp12_tables.py generates from the
+    algebra."""
     gen = subprocess.run([sys.executable, str(ROOT / "tools" / "fp12_tables.py")],
                          capture_output=True, text=True, check=True, timeout=120).stdout
     pattern = re.compile(rf"// {name}: .*?\n}};\n.*?{name}_SUB\[.*?\n}};", re.S)

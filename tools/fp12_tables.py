@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Generate the combine tables of csrc/fp12.cu.
 
-Each output coefficient of the Fp12 square (K9), the cyclotomic square
-(K10), the power's product step and the sparse line product (K11) is a
-signed sum of the Fp products (or Fp2 product components) its product
+Each output coefficient of the Fp12 product (K8), the Fp12 square (K9),
+the cyclotomic square (K10), the power's product step and the sparse line
+product (K11) is a signed sum of the Fp products (or Fp2 product components) its product
 phase wrote to shared memory.  This script runs each combine's algebra (the algebra of
 fields/fused.py's plain versions) on linear forms over those products and
 prints, per output, the products it adds and the ones it subtracts (a
@@ -104,6 +104,15 @@ def cyc_mul_forms():
     return fp12_kara(*fp6)
 
 
+def mul_forms():
+    """K8: the 12 outputs over its 54 Fp products T[18 k + 3 p + kk] (pair p
+    of Fp6 product k, a c, b d or (a + b)(c + d); re = T0 - T1,
+    im = T2 - T0 - T1)."""
+    P = [(leaf(3 * p) - leaf(3 * p + 1), leaf(3 * p + 2) - leaf(3 * p) - leaf(3 * p + 1))
+         for p in range(18)]
+    return fp12_kara(*(fp6_combine(P[6 * k:6 * k + 6]) for k in range(3)))
+
+
 def sparse_forms():
     """K11: the 12 outputs over the 45 Fp products T[3 p + k] of its 15 Fp2
     products (re = T0 - T1, im = T2 - T0 - T1)."""
@@ -158,6 +167,8 @@ def main() -> None:
                 "square coefficients Q[2 s + k] (times 3, then -/+ 2 x_o)"))
     print(table("CYCMUL", signed_rows(cyc_mul_forms()), "Fp2 product components W[2 pp + g]"))
     print(table("SPARSE", signed_rows(sparse_forms()), "Fp products T[3 p + k]"))
+    print(table("MUL3", split_rows(signed_rows(mul_forms()), 3),
+                "Fp products T[18 k + 3 p + kk] (K8's rows in thirds)"))
 
 
 if __name__ == "__main__":
