@@ -39,8 +39,9 @@ Phases, one line each; any failure raises and ends the run non-zero:
            alone); K11 over k stacked lines, k = 1 at B = 2048, k = 2 and
            3 at 512 (the verifies' shared Miller loops), k = 4 at 512 (a
            product of four pairs); K12-K14, the G2 group law, at B = 2048
-           (the pairing's Miller loop, the G2 ladder), K12 and K14 also at
-           13, 512, 519 and 1,024 rows, K14 at 4,096; the chains, the
+           (the pairing's Miller loop, the G2 ladder), each also at 13,
+           512, 519 and 1,024 rows, K13 at 2,112 (the G2 MSM's bucket
+           steps), K13 and K14 at 4,096; the chains, the
            power and K2-K14 each also at a row count that leaves its last
            block ragged), each held bit for bit against its plain PyTorch
            version on the card (the chains, the
@@ -300,10 +301,10 @@ K2_ROWS_PER_PAIR = (15, 1, 2, 3, 4, 5, 6)
 K4_ROWS_PER_PAIR = (3, 2)
 #: added to a headline row count, leaves the last block of K2 (32 rows per
 #: block), K3 (64), K4 (16), K5 (16), K6 (16), K7 (32), K8-K11 and the
-#: power (8 from 1,024 rows on, 4 from 512, else 2), K12 and K14 (as K8)
-#: and K13 (8) ragged
+#: power (8 from 1,024 rows on, 4 from 512, else 2) and K12-K14 (as K8)
+#: ragged
 RAGGED = 7
-#: row counts at which K8, K9, K12 and K14 run at each of their instances
+#: row counts at which K8, K9 and K12-K14 run at each of their instances
 #: per block (csrc/fp381.cuh `rows_per_block`), every one with random rows
 #: between the edge rows: 2 at 13 rows (the last block ragged), 4 at 512 and 519
 #: (ragged), 8 at 1,024 (the pairing's B and B + RAGGED add 8 at 2,048 and
@@ -376,8 +377,14 @@ def _ptxas_report(log: str) -> dict:
                   "fp12_cyc_pow_kernel",
                   "g2_madd_kernel", "g2_add_kernel", "g2_dbl_kernel"):
             if k in mangled:
-                limbs = re.search(r"ILi(\d+)E", mangled)
-                named[f"{k}<{limbs.group(1)}>" if limbs else k] = v
+                # template arguments: an int (limbs or instances per block)
+                # and a bool (K13's layout), as in g2_madd_kernel<8, false>
+                args = re.search(r"ILi(\d+)E(?:Lb([01])E)?", mangled)
+                name = k
+                if args:
+                    flag = {None: "", "0": ", false", "1": ", true"}[args.group(2)]
+                    name = f"{k}<{args.group(1)}{flag}>"
+                named[name] = v
     return named
 
 
@@ -761,12 +768,13 @@ def phase_kernels(dev):
                       muladds, edge_want, {}))
     # K12-K14: the G2 group law at the pairing's and the G2 ladder's 2,048
     # rows and at a ragged count, the edge rows in the first and the last
-    # block; K12 and K14 also at R_COUNTS, K14 at the G2 MSM's 4,096; the
-    # rows phase adds the other counts (the Miller loops' fixed points at 1
-    # row, the MSM's bucket steps and trees)
+    # block; each also at R_COUNTS, K13 at the G2 MSM's bucket steps (lanes x
+    # windows rows) and K13 and K14 at its 4,096; the rows phase adds the
+    # other counts (the Miller loops' fixed points at 1 row, the MSM's trees)
     for name, muladds, kern, plain, line, counts in (
         ("K12 g2_add", 36 * M, FK.g2_add, FK.g2_add_plain, 781, R_COUNTS),
-        ("K13 g2_madd", 33 * M, FK.g2_madd, FK.g2_madd_plain, 667, ()),
+        ("K13 g2_madd", 33 * M, FK.g2_madd, FK.g2_madd_plain, 667,
+         R_COUNTS + (MSM_LANES * MSM_WINDOWS, 2 * B)),
         ("K14 g2_dbl", 18 * M + 2 * FP2_SQR_MULADDS, FK.g2_dbl, FK.g2_dbl_plain, 741,
          R_COUNTS + (2 * B,)),
     ):

@@ -568,7 +568,7 @@ __device__ __forceinline__ int block_rows(int64_t n, int64_t blk, int per) {
 }
 
 // Instances per block R of the kernels that take it as a template parameter
-// (fp12.cu K9-K11 and the power, g2.cu K14) at n rows: the largest of 8,
+// (fp12.cu K8-K11 and the power, g2.cu K12-K14) at n rows: the largest of 8,
 // 4, 2 that still makes at least 128 blocks (the card's 132 SMs, less a
 // ragged margin), else 2.
 inline int rows_per_block(int64_t n) {

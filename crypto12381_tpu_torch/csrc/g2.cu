@@ -27,9 +27,9 @@
 //
 // Each kernel therefore gives each Fp product of a round its own thread, as
 // K5-K11 do: 18 threads per K12 or K13 instance (K13's round 1 runs 15
-// products and leaves 3 threads idle), 12 per K14 instance.  A K13 block
-// (and K12's, K14's in their first forms) takes G2_ROWS consecutive
-// instances and runs in phases with a barrier between each two:
+// products and leaves 3 threads idle), 12 per K14 instance.  The first
+// forms (8 instances per block) ran in six phases with a barrier between
+// each two:
 //   stage      the block's span of each operand into shared memory, 16
 //              bytes per thread, consecutive threads on consecutive bytes;
 //   product 1  Fp product q = 3 j + k of instance i, piece k of the Fp2
@@ -46,8 +46,9 @@
 //              rcb_lhs/rcb_rhs, the same six products as K5 and K6);
 //   combine 2  X3, Y3 and Z3, one Fp coefficient per item (6 per instance);
 //   store      the outputs from shared memory, 16 bytes per thread.
-// K13 runs its last three phases through rcb2_round2_phase, which K12's
-// first form shared; K12 at R = 8 keeps its combine 1 (k12_operand).
+// Each has since been redesigned: a block takes R = 8, 4 or 2 instances, a
+// template parameter picked from n (fp381.cuh rows_per_block, as fp12.cu's
+// K8-K11), and its last phase writes the outputs to device memory.
 //
 // K14 was redesigned after its first form (that layout: 8 instances per
 // block, six phases, 24 Fp products, a combine 1 that branched four ways
@@ -92,6 +93,32 @@
 // form took 0.0125 and 0.538, and this layout takes 0.0124 and 0.481.  A
 // 4-phase form whose round-2 threads formed both operand pieces in
 // registers took 0.017189 at 2,048 and 0.781674 at 136,224.
+//
+// K13 was redesigned after its first form (8 instances per block, six
+// phases, the outputs stored from an area of shared memory, 23,808 bytes a
+// block) took 0.008534 ms at 2 rows, 0.009791 at 512, 0.011526 at 2,048
+// and 0.015403 at 4,096 on an H100 at 700 W (4.8x its bound at 2,048).  It
+// runs K12's five phases at R = 8, 4 or 2 (rcb2_phase holds round 2 and
+// combine 2 for both) in one of two layouts picked from n.  Below
+// K13_PIECES_ROWS = 2,048 rows (PIECES: up to one block of 8 per SM, so a
+// block's latency is the launch's time) every lane runs the same
+// instructions: round 1 runs six Fp2 products on all 18 threads, X1 y2 and
+// Y1 x2 in place of m3 = (X1 + Y1)(x2 + y2), so that its operands are
+// coordinates (kara_pick, no pre-sum) and t3 is one sum; combine 1 makes
+// the 18 pieces (k13_piece: two pieces, mul12, three modular additions and
+// selects; a coordinate's piece through any_piece's `staged` case).  From
+// 2,048 rows (two or more blocks per SM) the first form's round 1 (15
+// products) and 12-component combine 1 stay: there 3 more products cost
+// more than the additions they save.  In one call, ms at 2 / 512 / 1,024 /
+// 2,048 / 4,096 rows: these layouts 0.0070 / 0.0071 / 0.0085 / 0.0112 /
+// 0.0153, the first form 0.0089 / 0.0096 / 0.0100 / 0.0116 / 0.0155.
+// Dropped (another call): round 1 with m3 and t3 = m3 - t0 - t1 as pieces
+// (16 modular additions a lane) 0.0073 / 0.0079 at 2 / 512 rows and, at
+// R = 8, 0.0092 / 0.0124 / 0.0186 at 1,024 / 2,048 / 4,096; the six
+// products with components at R = 8 0.0155 at 4,096; round 1's idle
+// threads forming 12 xi Z1, and __launch_bounds__(.., 4), within the
+// passes' spread.
+//
 // Each phase is a function of (phase, block, thread), and the __global__
 // body only calls the phases with a barrier after each.  A projective row
 // in shared memory is padded from 288 to 304 bytes and an affine row from
@@ -99,9 +126,10 @@
 // 32 distinct banks; products and coefficients take 48-byte slots,
 // consecutive instances in consecutive slots.  No phase writes over data
 // another phase still reads: shared memory per block is 18,688 bytes (K12
-// at R = 8, its round-2 products over the round-1 ones), 23,808 (K13) and
-// 10,880 (K14 at R = 8).  The last block of a ragged launch masks its copies,
-// products and combines; every thread reaches every barrier.
+// at R = 8), 17,920 (K13 at R = 8 with PIECES, 15,616 without; each its
+// round-2 products over the round-1 ones) and 10,880 (K14 at R = 8).  The
+// last block of a ragged launch masks its copies, products and combines;
+// every thread reaches every barrier.
 //
 // Bound proof of the product operands: each is a canonical coordinate,
 // reduced pre-sum (add_mod) or combine, or the Fp2 Karatsuba's raw sum of
@@ -124,8 +152,7 @@ using namespace fp381;
 constexpr int G2P = F6;             // limbs of a projective G2 point
 constexpr int G2A = 2 * F2;         // limbs of an affine G2 point
 constexpr int SA2 = G2A + 4;        // a padded shared affine row (208 bytes: 13 16-byte units)
-constexpr int G2_ROWS = 8;          // instances per block of K12 and K13
-constexpr int G2_D = G2_ROWS * NL;  // from one product's (or item's) slot to the next's
+constexpr int G2_D = 8 * NL;        // slot stride at R = 8 (k12_operand, k13_operand)
 
 // ---------------------------------------------- pieces of K12-K14
 
@@ -180,40 +207,6 @@ __device__ __forceinline__ void rcb2_wz(uint32_t* r, const uint32_t* t, const ui
     xi12(bz, z0, z1, f);
     fp2_of(r, t, 1, f);
     if (j == 4) add_mod<NL>(r, r, bz); else sub_mod<NL>(r, r, bz);
-  }
-}
-
-// Phases 3-5 of K12 and K13 (product 2, combine 2, store) for thread `tid`
-// of a block of `rows` live instances.  Component f of round-2 operand j of
-// instance i lies at sm + U + ((2 j + f) ROWS + i) NL; the round-2 Fp
-// products go to sm + V, the outputs to the padded rows at sm + O; out
-// points at the block's first output row.
-template <int U, int V, int O>
-__device__ __forceinline__ void rcb2_round2_phase(int ph, uint32_t* sm, uint32_t* out, int rows,
-                                                  int tid) {
-  const int q = tid / G2_ROWS, i = tid % G2_ROWS;
-  if (ph == 3) {                            // piece q % 3 of Fp2 product q / 3
-    if (i < rows) {
-      const int k = q / 3;
-      const uint32_t* u = sm + U + i * NL;
-      uint32_t x[NL], y[NL];
-      kara_operand(x, u + 2 * rcb_lhs(k) * G2_D, q % 3, G2_D);
-      kara_operand(y, u + 2 * rcb_rhs(k) * G2_D, q % 3, G2_D);
-      mont_mul<NL>(x, x, y);
-      st_fp(sm + V + tid * NL, x);
-    }
-  } else if (ph == 4) {                     // component q % 2 of coordinate q / 2
-    if (q < 6 && i < rows) {                // X3 = V0 - V1, Y3 = V2 + V3, Z3 = V4 + V5
-      const int c = q / 2, f = q % 2;
-      const uint32_t* v = sm + V + i * NL;
-      uint32_t r[NL], s[NL];
-      fp2_of(r, v, 2 * c, f);
-      fp2_of(s, v, 2 * c + 1, f);
-      if (c == 0) sub_mod<NL>(r, r, s); else add_mod<NL>(r, r, s);
-      st_fp(sm + O + i * S6 + c * F2 + f * NL, r);
-    }
-  } else {                                  // store
-    stage_out<G2P, S6, 18 * G2_ROWS>(out, sm + O, rows, tid);
   }
 }
 
@@ -344,6 +337,39 @@ __device__ __forceinline__ void k12_piece(uint32_t* r, const uint32_t* t, int d,
   for (int k = 0; k < NL; ++k) r[k] = j >= 4 ? b[k] : a[k];
 }
 
+// Phases 3 and 4 of K12 and K13 (layout L) for thread `tid`, item e of
+// live instance i: round 2, piece e % 3 of round-2 Fp2 product e / 3, its
+// operands the pieces in U (L::PIECES) or Karatsuba operands of the
+// components there; and combine 2, component e % 2 of coordinate e / 2
+// (X3 = V0 - V1, Y3 = V2 + V3, Z3 = V4 + V5) written to the instance's
+// output row o in device memory.
+template <class L>
+__device__ __forceinline__ void rcb2_phase(int ph, uint32_t* sm, uint32_t* o, int e, int i,
+                                           int tid) {
+  if (ph == 3) {
+    const int k = e / 3, kk = e % 3;
+    const uint32_t* u = sm + L::U + i * NL;
+    uint32_t x[NL], y[NL];
+    if (L::PIECES) {
+      ld_fp(x, u + (3 * rcb_lhs(k) + kk) * L::D);
+      ld_fp(y, u + (3 * rcb_rhs(k) + kk) * L::D);
+    } else {
+      kara_operand(x, u + 2 * rcb_lhs(k) * L::D, kk, L::D);
+      kara_operand(y, u + 2 * rcb_rhs(k) * L::D, kk, L::D);
+    }
+    mont_mul<NL>(x, x, y);
+    st_fp(sm + L::V + tid * NL, x);
+  } else if (e < 6) {
+    const int c = e / 2, f = e % 2;
+    const uint32_t* v = sm + L::V + i * NL;
+    uint32_t r[NL], s[NL];
+    fp2_coeff(r, v + 6 * c * L::D, L::D, f);
+    fp2_coeff(s, v + 3 * (2 * c + 1) * L::D, L::D, f);
+    if (c == 0) sub_mod<NL>(r, r, s); else add_mod<NL>(r, r, s);
+    st_fp(o + c * F2 + f * NL, r);
+  }
+}
+
 // Phase `ph` of K12 for thread `tid` of block `blk`: stage, round 1,
 // combine 1, round 2, combine 2 (written to device memory).
 template <int R>
@@ -379,27 +405,8 @@ __device__ __forceinline__ void g2_add_phase(int ph, uint32_t* sm, const uint32_
       k12_operand(r, sm + L::T + i * NL, e / 2, e % 2);
       st_fp(sm + L::U + tid * NL, r);
     }
-  } else if (ph == 3) {                     // piece e % 3 of round-2 Fp2 product e / 3
-    const int k = e / 3, kk = e % 3;
-    const uint32_t* u = sm + L::U + i * NL;
-    uint32_t x[NL], y[NL];
-    if (L::PIECES) {
-      ld_fp(x, u + (3 * rcb_lhs(k) + kk) * L::D);
-      ld_fp(y, u + (3 * rcb_rhs(k) + kk) * L::D);
-    } else {
-      kara_operand(x, u + 2 * rcb_lhs(k) * L::D, kk, L::D);
-      kara_operand(y, u + 2 * rcb_rhs(k) * L::D, kk, L::D);
-    }
-    mont_mul<NL>(x, x, y);
-    st_fp(sm + L::V + tid * NL, x);
-  } else if (e < 6) {                       // component e % 2 of coordinate e / 2
-    const int c = e / 2, f = e % 2;         // X3 = V0 - V1, Y3 = V2 + V3, Z3 = V4 + V5
-    const uint32_t* v = sm + L::V + i * NL;
-    uint32_t r[NL], s[NL];
-    fp2_coeff(r, v + 6 * c * L::D, L::D, f);
-    fp2_coeff(s, v + 3 * (2 * c + 1) * L::D, L::D, f);
-    if (c == 0) sub_mod<NL>(r, r, s); else add_mod<NL>(r, r, s);
-    st_fp(out + (row0 + i) * G2P + c * F2 + f * NL, r);
+  } else {                                  // round 2, combine 2
+    rcb2_phase<L>(ph, sm, out + (row0 + i) * G2P, e, i, tid);
   }
 }
 
@@ -423,26 +430,46 @@ g2_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
 //   combine 1 t3 = m3 - t0 - t1, t4 = zy + Y1, bt5 = 12 xi (zx + X1),
 //             w = 3 t0, z3a = t1 + 12 xi Z1, t1m = t1 - 12 xi Z1;
 //   round 2   as K12's.
+// With PIECES (below K13_PIECES_ROWS rows) round 1 takes m3's place with
+// two products, a = X1 y2 and b = Y1 x2, on the 3 threads the first form
+// left idle, and t3 = a + b.
 
-constexpr int K13_BLOCK = 18 * G2_ROWS;      // one thread per Fp product of round 2
-// shared layout (limbs): P rows, Q rows, the round-1 products T[q][i], the
-// round-2 operands U[o][i], the round-2 products V[q][i], the outputs
-constexpr int K13_P = 0, K13_Q = G2_ROWS * S6, K13_T = K13_Q + G2_ROWS * SA2;
-constexpr int K13_U = K13_T + 15 * G2_D, K13_V = K13_U + 12 * G2_D;
-constexpr int K13_O = K13_V + 18 * G2_D;
-constexpr int K13_SMEM = K13_O + G2_ROWS * S6;
-constexpr int K13_PHASES = 6;
+// Layout at R instances per block (limbs): P rows, affine Q rows, the
+// round-1 products T[q][i] (18 slots, 15 used without PIECES), the round-2
+// operands U, the round-2 products V[q][i] over T (dead by round 2); D
+// from one slot to the next.  PIECES: combine 1 makes the 18 Karatsuba
+// pieces U[3 j + kk][i] on all 18 threads of an instance; else (R = 8)
+// the first form's 12 components U[2 j + f][i] on 12.
+template <int R, bool PIECES_>
+struct K13 {
+  static constexpr int BLOCK = 18 * R;       // one thread per Fp product of round 2
+  static constexpr bool PIECES = PIECES_;
+  static constexpr int D = R * NL;
+  static constexpr int P = 0, Q = R * S6, T = Q + R * SA2, U = T + 18 * D, V = T;
+  static constexpr int SMEM = U + (PIECES ? 18 : 12) * D;
+  static constexpr int PHASES = 5;
+  static constexpr int PRODUCTS = PIECES ? 18 : 15;      // round 1's Fp products
+};
+static_assert(K13<8, false>::D == G2_D, "without PIECES combine 1 is k13_operand");
+
+// Rows from which K13 runs without PIECES (at R = 8).
+constexpr int64_t K13_PIECES_ROWS = 2048;
 
 // Round-1 Fp2 product j of K13 multiplies the Fp6-layout pair
 // (k13_lhs(j) of P, k13_rhs(j) of Q): pairs 0, 1, 2 are a row's
 // coordinates, pair 3 the sum of the first two (fp6_presum).
-// X1 x2, Y1 y2, (X1 + Y1)(x2 + y2), Z1 x2, Z1 y2.
-__device__ __forceinline__ int k13_lhs(int j) { return (0x22310 >> 4 * j) & 15; }
-__device__ __forceinline__ int k13_rhs(int j) { return (0x10310 >> 4 * j) & 15; }
+// X1 x2, Y1 y2, (X1 + Y1)(x2 + y2), Z1 x2, Z1 y2; with PIECES
+// X1 x2, Y1 y2, X1 y2, Y1 x2, Z1 x2, Z1 y2.
+__device__ __forceinline__ int k13_lhs(int j, bool pieces) {
+  return ((pieces ? 0x221010 : 0x22310) >> 4 * j) & 15;
+}
+__device__ __forceinline__ int k13_rhs(int j, bool pieces) {
+  return ((pieces ? 0x100110 : 0x10310) >> 4 * j) & 15;
+}
 
-// Round-2 operand j of K13 (t3, t4, bt5, w, z3a, t1m), component f, from
-// the shared row p = (X1, Y1, Z1) and the round-1 Fp2 products t0, t1, m3,
-// zx, zy (Fp products at t).
+// Round-2 operand j of K13 without PIECES (t3, t4, bt5, w, z3a, t1m),
+// component f, from the shared row p = (X1, Y1, Z1) and the round-1 Fp2
+// products t0, t1, m3, zx, zy (Fp products at t, G2_D apart).
 __device__ __forceinline__ void k13_operand(uint32_t* r, const uint32_t* p, const uint32_t* t,
                                             int j, int f) {
   if (j == 0) {                    // t3 = m3 - t0 - t1
@@ -465,44 +492,125 @@ __device__ __forceinline__ void k13_operand(uint32_t* r, const uint32_t* p, cons
   }
 }
 
-// Phase `ph` of K13 for thread `tid` of block `blk`.
+// piece(), or with `staged` the piece of the Fp2 value y = (y0, y1) at
+// t, t + d (a coordinate of K13's P): y0, y1, y0 + y1 (xi = 0); y0 - y1,
+// y0 + y1, y0 + y0 (xi = 1), as u = y_a - 0, then u, u + y1 or u - y1
+// (u + u for y0 + y0).  The same instructions whatever the kind, so that
+// a K13 lane takes a product's piece or a coordinate's by its operands.
+// K12 keeps piece(): built over this function, it ran 11% slower at 13
+// and 512 rows on the card (another register allocation).
+__device__ __forceinline__ void any_piece(uint32_t* r, const uint32_t* t, int d, bool xi, int kk,
+                                          bool staged) {
+  const int c = 3 * xi + kk;
+  uint32_t u[NL], y[NL], v[NL];
+  ld_fp(u, t + (staged ? c == 1 : (0x020220 >> 4 * c) & 15) * d);      // a
+  ld_fp(y, t + (staged ? 0 : (0x112111 >> 4 * c) & 15) * d);           // b
+#pragma unroll
+  for (int k = 0; k < NL; ++k) y[k] = staged ? 0u : y[k];
+  sub_mod<NL>(u, u, y);
+  ld_fp(y, t + (staged ? 1 : (0x010100 >> 4 * c) & 15) * d);           // c
+#pragma unroll
+  for (int k = 0; k < NL; ++k) y[k] = c == 5 ? u[k] : y[k];
+  add_mod<NL>(v, u, y);
+  sub_mod<NL>(y, u, y);
+  const bool take_u = staged ? c < 2 : c == 0;
+  const bool take_y = staged ? c == 3 : c == 1 || c == 2 || c == 4;
+#pragma unroll
+  for (int k = 0; k < NL; ++k) r[k] = take_u ? u[k] : (take_y ? y[k] : v[k]);
+}
+
+// Piece kk of K13's round-2 operand j (t3, t4, bt5, w, z3a, t1m) with
+// PIECES, from the staged row p = (X1, Y1, Z1) and the round-1 Fp products
+// at t (slot stride d; Fp2 product m of t0, t1, a, b, zx, zy at
+// t + 3 m d), the same instructions on every lane: the pieces A and Y, the
+// sum s0 = A + Y and m = 12 s0 (bt5) or 12 Y, then base +/- q:
+//   t3 = a + b, t4 = zy + Y1, bt5 = 12 (xi zx + xi X1) (s0 or m);
+//   w = s0 + t0 with s0 = t0 + t0, z3a = t1 + m, t1m = t1 - m (m = 12 xi Z1),
+// with Y a round-1 product (t3: b, w: t0) or a staged coordinate
+// (any_piece's `staged`: Y1, X1, Z1).
+__device__ __forceinline__ void k13_piece(uint32_t* r, const uint32_t* p, const uint32_t* t,
+                                          int d, int j, int kk) {
+  const bool staged = (0x36 >> j) & 1;       // Y: Y1, X1, Z1 for t4, bt5, z3a, t1m
+  const bool xi = (0x34 >> j) & 1;           // bt5, z3a, t1m: xi pieces
+  uint32_t a[NL], y[NL], s0[NL], m[NL];
+  any_piece(a, t + 3 * ((0x110452 >> 4 * j) & 15) * d, d, j == 2, kk, false);
+  any_piece(y, staged ? p + ((0x220010 >> 4 * j) & 15) * F2
+                      : t + 3 * ((0x000003 >> 4 * j) & 15) * d,
+            staged ? NL : d, xi, kk, staged);
+  add_mod<NL>(s0, a, y);
+#pragma unroll
+  for (int k = 0; k < NL; ++k) m[k] = j == 2 ? s0[k] : y[k];
+  mul12(m, m);
+#pragma unroll
+  for (int k = 0; k < NL; ++k) {
+    y[k] = j == 3 ? a[k] : m[k];             // q
+    a[k] = j >= 4 ? a[k] : s0[k];            // base
+  }
+  add_mod<NL>(r, a, y);
+  sub_mod<NL>(a, a, y);
+#pragma unroll
+  for (int k = 0; k < NL; ++k) r[k] = j < 2 ? s0[k] : (j == 2 ? m[k] : (j == 5 ? a[k] : r[k]));
+}
+
+// Phase `ph` of K13 for thread `tid` of block `blk`: stage, round 1,
+// combine 1, round 2, combine 2 (written to device memory).
+template <int R, bool PIECES>
 __device__ __forceinline__ void g2_madd_phase(int ph, uint32_t* sm, const uint32_t* p,
                                               const uint32_t* q, uint32_t* out, int64_t n,
                                               int64_t blk, int tid) {
-  const int64_t row0 = blk * G2_ROWS;
-  const int rows = block_rows(n, blk, G2_ROWS);
-  const int e = tid / G2_ROWS, i = tid % G2_ROWS;
+  using L = K13<R, PIECES>;
+  const int64_t row0 = blk * R;
+  const int rows = block_rows(n, blk, R);
+  const int e = tid / R, i = tid % R;
   if (ph == 0) {                            // stage
-    stage_in<G2P, S6, K13_BLOCK>(sm + K13_P, p + row0 * G2P, rows, tid);
-    stage_in<G2A, SA2, K13_BLOCK>(sm + K13_Q, q + row0 * G2A, rows, tid);
+    stage_in<G2P, S6, L::BLOCK>(sm + L::P, p + row0 * G2P, rows, tid);
+    stage_in<G2A, SA2, L::BLOCK>(sm + L::Q, q + row0 * G2A, rows, tid);
+  } else if (i >= rows) {
+    return;
   } else if (ph == 1) {                     // round-1 Fp product e of instance i
-    if (e < 15 && i < rows) {
+    if (e < L::PRODUCTS) {
       const int j = e / 3, k = e % 3;
       uint32_t x[NL], y[NL];
-      fp6_operand(x, sm + K13_P + i * S6, 3 * k13_lhs(j) + k);
-      fp6_operand(y, sm + K13_Q + i * SA2, 3 * k13_rhs(j) + k);
+      if (PIECES) {                         // coordinates only: kara_pick on every lane
+        const uint32_t* a = sm + L::P + i * S6 + k13_lhs(j, true) * F2;
+        const uint32_t* b = sm + L::Q + i * SA2 + k13_rhs(j, true) * F2;
+        uint32_t z[NL];
+        ld_fp(x, a);
+        ld_fp(z, a + NL);
+        kara_pick(x, x, z, k);
+        ld_fp(y, b);
+        ld_fp(z, b + NL);
+        kara_pick(y, y, z, k);
+      } else {
+        fp6_operand(x, sm + L::P + i * S6, 3 * k13_lhs(j, false) + k);
+        fp6_operand(y, sm + L::Q + i * SA2, 3 * k13_rhs(j, false) + k);
+      }
       mont_mul<NL>(x, x, y);
-      st_fp(sm + K13_T + tid * NL, x);
+      st_fp(sm + L::T + tid * NL, x);
     }
-  } else if (ph == 2) {                     // component e % 2 of round-2 operand e / 2
-    if (e < 12 && i < rows) {
-      uint32_t r[NL];
-      k13_operand(r, sm + K13_P + i * S6, sm + K13_T + i * NL, e / 2, e % 2);
-      st_fp(sm + K13_U + tid * NL, r);
+  } else if (ph == 2) {                     // combine 1: pieces, or components (e < 12)
+    uint32_t r[NL];
+    if (PIECES) {
+      k13_piece(r, sm + L::P + i * S6, sm + L::T + i * NL, L::D, e / 3, e % 3);
+      st_fp(sm + L::U + tid * NL, r);
+    } else if (e < 12) {
+      k13_operand(r, sm + L::P + i * S6, sm + L::T + i * NL, e / 2, e % 2);
+      st_fp(sm + L::U + tid * NL, r);
     }
-  } else {                                  // round 2, combine 2, store
-    rcb2_round2_phase<K13_U, K13_V, K13_O>(ph, sm, out + row0 * G2P, rows, tid);
+  } else {                                  // round 2, combine 2
+    rcb2_phase<L>(ph, sm, out + (row0 + i) * G2P, e, i, tid);
   }
 }
 
-__global__ void __launch_bounds__(K13_BLOCK)
+template <int R, bool PIECES>
+__global__ void __launch_bounds__(K13<R, PIECES>::BLOCK, 5)
 g2_madd_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
                uint32_t* __restrict__ out, int64_t n) {
-  __shared__ __align__(16) uint32_t sm[K13_SMEM];
+  __shared__ __align__(16) uint32_t sm[K13<R, PIECES>::SMEM];
 #pragma unroll
-  for (int ph = 0; ph < K13_PHASES; ++ph) {
-    g2_madd_phase(ph, sm, p, q, out, n, blockIdx.x, threadIdx.x);
-    if (ph + 1 < K13_PHASES) __syncthreads();
+  for (int ph = 0; ph < K13<R, PIECES>::PHASES; ++ph) {
+    g2_madd_phase<R, PIECES>(ph, sm, p, q, out, n, blockIdx.x, threadIdx.x);
+    if (ph + 1 < K13<R, PIECES>::PHASES) __syncthreads();
   }
 }
 
@@ -664,10 +772,15 @@ extern "C" int g2_add(const void* p, const void* q, void* out, int64_t n, void* 
 }
 
 extern "C" int g2_madd(const void* p, const void* q, void* out, int64_t n, void* stream) {
-  if (n > 0) {
-    g2_madd_kernel<<<(unsigned)((n + G2_ROWS - 1) / G2_ROWS), K13_BLOCK, 0,
-                     (cudaStream_t)stream>>>(
+  if (n >= K13_PIECES_ROWS) {
+    g2_madd_kernel<8, false><<<grid_of(n, 8), K13<8, false>::BLOCK, 0, (cudaStream_t)stream>>>(
         (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, n);
+  } else if (n > 0) {
+    with_rows(n, [&](auto rc) {
+      constexpr int R = decltype(rc)::value;
+      g2_madd_kernel<R, true><<<grid_of(n, R), K13<R, true>::BLOCK, 0, (cudaStream_t)stream>>>(
+          (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)out, n);
+    });
   }
   return (int)cudaGetLastError();
 }

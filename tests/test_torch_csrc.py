@@ -36,7 +36,7 @@ kernel's own schedule of phases) likewise at row counts below, at and
 between multiples of their blocks, K8-K11 and the power at every
 instantiation of instances per block, with rows of all-0, all-1 and
 all-(p-1) operands at both ends; and for the G2 curve
-kernels K12-K14 (csrc/g2.cu; K12 and K14 at every instantiation) at row counts
+kernels K12-K14 (csrc/g2.cu, at every instantiation) at row counts
 below, at, between and on multiples of their block, on G2 points with
 the identity, P = Q and P = -Q at both ends of the launch, against the
 plain versions and, made affine, the host's P + Q and 2P. The header's
@@ -257,15 +257,16 @@ int fp12pow(const char* in, const char* outp) {
   fclose(g);
   return 0;
 }
-// K12-K14 on n rows, K12 and K14 at R instances per block (K13's layout
-// is fixed): projective P and Q (72 words a row) and affine Q' (48 words a
-// row); the outputs K12 P + Q, K13 P + Q', K14 2P one after another.
+// K12-K14 on n rows at R instances per block, K13 in both its layouts
+// (K13<R, true>, and K13<8, false>, which runs at 8 only): projective P
+// and Q (72 words a row) and affine Q' (48 words a row); the outputs K12
+// P + Q, K13 P + Q' (pieces, then components), K14 2P one after another.
 template <int R>
 int g2s(const char* in, const char* outp) {
   FILE* f = fopen(in, "rb");
   int64_t n;
   if (fread(&n, 8, 1, f) != 1) return 1;
-  std::vector<uint32_t> p(n * 72), q(n * 72), qa(n * 48), o12, o13, o14;
+  std::vector<uint32_t> p(n * 72), q(n * 72), qa(n * 48), o12, o13, o13c, o14;
   if (fread(p.data(), 4, n * 72, f) != (size_t)(n * 72)) return 1;
   if (fread(q.data(), 4, n * 72, f) != (size_t)(n * 72)) return 1;
   if (fread(qa.data(), 4, n * 48, f) != (size_t)(n * 48)) return 1;
@@ -274,13 +275,16 @@ int g2s(const char* in, const char* outp) {
         g2_add_phase<R>(ph, sm, p.data(), q.data(), out, n, blk, t); },
       n, R, K12<R>::BLOCK, K12<R>::PHASES, K12<R>::SMEM, 72)) return 2;
   if (!coop(o13, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
-        g2_madd_phase(ph, sm, p.data(), qa.data(), out, n, blk, t); },
-      n, G2_ROWS, K13_BLOCK, K13_PHASES, K13_SMEM, 72)) return 2;
+        g2_madd_phase<R, true>(ph, sm, p.data(), qa.data(), out, n, blk, t); },
+      n, R, K13<R, true>::BLOCK, K13<R, true>::PHASES, K13<R, true>::SMEM, 72)) return 2;
+  if (!coop(o13c, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
+        g2_madd_phase<8, false>(ph, sm, p.data(), qa.data(), out, n, blk, t); },
+      n, 8, K13<8, false>::BLOCK, K13<8, false>::PHASES, K13<8, false>::SMEM, 72)) return 2;
   if (!coop(o14, [&](int ph, uint32_t* sm, uint32_t* out, int64_t blk, int t) {
         g2_dbl_phase<R>(ph, sm, p.data(), out, n, blk, t); },
       n, R, K14<R>::BLOCK, K14<R>::PHASES, K14<R>::SMEM, 72)) return 2;
   FILE* g = fopen(outp, "wb");
-  for (auto* o : {&o12, &o13, &o14}) fwrite(o->data(), 4, n * 72, g);
+  for (auto* o : {&o12, &o13, &o13c, &o14}) fwrite(o->data(), 4, n * 72, g);
   fclose(g);
   return 0;
 }
@@ -653,8 +657,9 @@ def test_cooperative_curve_kernels(harness, n):
 
 def run_g2(harness, p, q, qa, rows):
     """K12-K14 on the host over the rows of projective P, Q (n, 3, 2, 12)
-    and affine Q' (n, 2, 2, 12), K12 and K14 at `rows` instances per block:
-    (g2_add(P, Q), g2_madd(P, Q'), g2_dbl(P))."""
+    and affine Q' (n, 2, 2, 12), at `rows` instances per block:
+    (g2_add(P, Q), g2_madd(P, Q') in K13's pieces layout and in its
+    components layout (at 8 instances per block), g2_dbl(P))."""
     d, exe = harness
     n = p.shape[0]
     with open(d / "g2.bin", "wb") as f:
@@ -663,14 +668,15 @@ def run_g2(harness, p, q, qa, rows):
     subprocess.run([str(exe), "g2", str(rows), str(d / "g2.bin"), str(d / "g2.out")],
                    check=True, timeout=300)
     o = torch.from_numpy(np.fromfile(d / "g2.out", np.int32))
-    return o.reshape(3, n, 3, 2, 12).unbind(0)
+    return o.reshape(4, n, 3, 2, 12).unbind(0)
 
 
 @pytest.mark.parametrize("rows", [8, 4, 2])
 @pytest.mark.parametrize("n", [1, 5, 8, 13, 16, 17, 40])
 def test_cooperative_g2_kernels(harness, n, rows):
-    """K13 (8 instances per block), K12 and K14 at `rows` instances per
-    block (every instantiation) at row counts below, at, between and on
+    """K12, K13 and K14 at `rows` instances per block (every
+    instantiation; K13 also in its components layout, at 8) at row counts
+    below, at, between and on
     multiples of a block: P + Q and 2P for projective P
     (random Z), affine Q (K13) and projective Q (K12, another random Z) on
     G2, with the rows O + B, A + A, (-A) + A and O + O (K12) or O + B (K13)
@@ -703,12 +709,14 @@ def test_cooperative_g2_kernels(harness, n, rows):
         qv.append(proj(s12))
         av.append([fp2(c) for c in C.g2_mul(C.G2_GEN, s13 % params.R)])
     p, q, qa = FP.from_int(pv), FP.from_int(qv), FP.from_int(av)
-    k12, k13, k14 = run_g2(harness, p, q, qa, rows)
+    k12, k13, k13c, k14 = run_g2(harness, p, q, qa, rows)
     assert torch.equal(k12, FK.g2_add_plain(p, q))
     assert torch.equal(k13, FK.g2_madd_plain(p, qa))
+    assert torch.equal(k13c, FK.g2_madd_plain(p, qa))
     assert torch.equal(k14, FK.g2_dbl_plain(p))
     for got, want in ((k12, [sp + s12 for sp, _, s12 in scalars]),
                       (k13, [sp + s13 for sp, s13, _ in scalars]),
+                      (k13c, [sp + s13 for sp, s13, _ in scalars]),
                       (k14, [2 * sp for sp, _, _ in scalars])):
         assert list(G2C.to_affine_ints(tuple(got.unbind(-3)))) == [
             C.g2_mul(C.G2_GEN, k % params.R) for k in want]

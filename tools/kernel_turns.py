@@ -2,7 +2,7 @@
 """Time K8, K12 and K13 in several checkouts of the port, in turns, on one card.
 
     python3 tools/kernel_turns.py CHECKOUT [CHECKOUT ...] [--k8 1,13,512,2048]
-                                  [--k12 13,512,2048,136224] [--k13 2048]
+                                  [--k12 13,512,2048,136224] [--k13 2,13,512,2048]
 
 Each checkout in the order given runs in a process of its own, with its
 working directory and import path in that checkout, so that it builds and
@@ -11,7 +11,8 @@ e.g. parent, tree, variant, variant, tree, parent).  The process prints
 nvcc's registers, spills and shared memory of `fp12_mul`, `g2_add` and
 `g2_madd`; then at each row count it holds the kernel bit for bit against
 its plain version (K8 on random Fp12 rows with 0, 1 and p - 1 rows at both
-ends, K12 and K13 on chip_smoke.py's G2 edge rows and random rows, the plain
+ends, K12 and K13 on chip_smoke.py's G2 edge rows and random rows, the
+first r of 9 such rows below 9 rows, the plain
 version in blocks of 32,768 rows) and times it as chip_smoke.py does (CUDA
 graph replays timed with CUDA events).  Prints one JSON line per
 checkout, then a table: per kernel and row count its ms in every pass.
@@ -65,7 +66,9 @@ for r in counts["K8"]:
 for name, kind, kern, plain in (("K12", "g2_add", FK.g2_add, FK.g2_add_plain),
                                 ("K13", "g2_madd", FK.g2_madd, FK.g2_madd_plain)):
     for r in counts[name]:
-        ins, _ = S._curve2_inputs(rng, kind, r, dev)
+        # below 9 rows the first r rows of chip_smoke.py's 9-row inputs
+        ins, _ = S._curve2_inputs(rng, kind, max(r, 9), dev)
+        ins = tuple(t[:r] for t in ins)
         assert torch.equal(kern(*ins), blocks(plain, *ins)), (name, r)
         ms[f"{name} {r}"] = S._device_ms(lambda: kern(*ins))
 print(json.dumps({"build_s": build_s, "ptxas": rep, "ms": ms}))
@@ -81,7 +84,7 @@ def main() -> None:
     ap.add_argument("checkouts", nargs="+")
     ap.add_argument("--k8", type=rows, default=rows("1,13,512,1024,2048,4096,16384"))
     ap.add_argument("--k12", type=rows, default=rows("9,13,33,512,1024,2048,4257,136224"))
-    ap.add_argument("--k13", type=rows, default=rows("2048"))
+    ap.add_argument("--k13", type=rows, default=rows("2,13,512,519,1024,2048,2055,2112,4096"))
     args = ap.parse_args()
     counts = json.dumps({"K8": args.k8, "K12": args.k12, "K13": args.k13})
     recs = []
